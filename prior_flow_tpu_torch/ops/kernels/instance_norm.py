@@ -1,0 +1,84 @@
+"""Instance-norm statistics: the CUDA kernel's wrapper, its plain PyTorch
+version, and the affine-free instance norm built on them.
+
+Counterpart of ``prior_flow_tpu/ops/pallas/instance_norm.py``
+(``_sums_kernel`` via ``_lane_sums``, public op ``instance_norm_fused``);
+kernel source ``prior_flow_tpu_torch/csrc/instance_norm.cu``. A tensor on
+the CPU goes through the plain version; a CUDA tensor launches the kernel
+or raises. The kernel is forward-only here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+
+def instance_norm_sums_plain(x: torch.Tensor, y: torch.Tensor):
+    """(B, C, H, W) x2 -> (sum(y), sum(x*y)) over H*W, each (B, C) f32."""
+    xf, yf = x.float(), y.float()
+    return yf.sum(dim=(2, 3)), (xf * yf).sum(dim=(2, 3))
+
+
+def _kernel():
+    fn = _build.load_library().lib.instance_norm_sums
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, ctypes.c_int, p, p, ctypes.c_int, ctypes.c_longlong, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def instance_norm_sums(x: torch.Tensor, y: torch.Tensor):
+    """Per-(sample, channel) f32 sums of y and x*y over H*W of NCHW inputs;
+    y = x gives the forward moments."""
+    if x.device.type == "cpu":
+        return instance_norm_sums_plain(x, y)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"instance_norm_sums: no kernel for device {x.device}")
+    if y.device != x.device or y.shape != x.shape or y.dtype != x.dtype:
+        raise ValueError("instance_norm_sums: x and y must share device, "
+                         "shape and dtype")
+    if x.dim() != 4:
+        raise ValueError(f"instance_norm_sums: expected NCHW, got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"instance_norm_sums: float32 or bfloat16, got {x.dtype}")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("instance_norm_sums: inputs must be contiguous NCHW")
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        raise RuntimeError("instance_norm_sums: the CUDA kernel is "
+                           "forward-only; call it under torch.no_grad()")
+    B, C, H, W = x.shape
+    s1 = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    s2 = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = _kernel()(x.data_ptr(), y.data_ptr(),
+                           int(x.dtype == torch.bfloat16), s1.data_ptr(),
+                           s2.data_ptr(), B * C, H * W, stream)
+    _build.check(status, "instance_norm_sums")
+    instance_norm_sums.launches += 1
+    return s1, s2
+
+
+instance_norm_sums.launches = 0
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5, out_dtype=None):
+    """Affine-free instance norm of NCHW ``x`` (torch InstanceNorm2d).
+
+    One-pass statistics E[x^2] - E[x]^2 in f32, clamped at 0
+    (``prior_flow_tpu/nn/layers.py:66-73``); the normalisation
+    ``x * s - m * s`` runs in f32 and rounds once to ``out_dtype`` (default
+    x.dtype), as the TPU path does (``instance_norm.py:135-140``).
+    """
+    n = x.shape[2] * x.shape[3]
+    s1, s2 = instance_norm_sums(x, x)
+    m = s1 / n
+    var = torch.clamp_min(s2 / n - m * m, 0.0)
+    s = torch.rsqrt(var + eps)
+    a = s[:, :, None, None]
+    b = (-m * s)[:, :, None, None]
+    return (x.float() * a + b).to(out_dtype or x.dtype)

@@ -1,0 +1,185 @@
+"""The port's test-mode PriOr-RAFT forward against the JAX model on the
+CPU, plus the weight bridge, the demo CLI and import hygiene."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from prior_flow_tpu.checkpoint.convert import export_state_dict
+from prior_flow_tpu.models import PriOrRAFT as JaxPriOrRAFT
+from prior_flow_tpu.models.prior_raft import \
+    upsample_flow_convex as jax_upsample
+from prior_flow_tpu_torch.checkpoint import (load_pth, state_dict_from_jax,
+                                             strip_module_prefix)
+from prior_flow_tpu_torch.models import PriOrRAFT, build_model
+from prior_flow_tpu_torch.models.prior_raft import upsample_flow_convex
+from test_torch_port_nn import random_variables
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLOW_TOL = 1e-3  # max abs error allowed, as a fraction of the flow scale
+
+
+def _pair(seed, H, W, B=1):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.uniform(0, 255, (B, H, W, 3)).astype(np.float32)
+                 for _ in range(2))
+
+
+@pytest.fixture(scope="module")
+def models():
+    jm = JaxPriOrRAFT(precision="highest")
+    img = jnp.zeros((1, 64, 128, 3))
+    variables = random_variables(jm, img, img, iters=1)
+    tm = build_model("cpu", state_dict=state_dict_from_jax(variables))
+    return jm, variables, tm
+
+
+def _compare(jm, variables, tm, H, W, iters, init_flow=None, seed=1, B=1):
+    i1, i2 = _pair(seed, H, W, B)
+    kw = {} if init_flow is None else {"init_flow": jnp.asarray(init_flow)}
+    ref = np.asarray(jm.apply(variables, jnp.asarray(i1), jnp.asarray(i2),
+                              iters=iters, test_mode=True, **kw))
+    tkw = {} if init_flow is None else {"init_flow": torch.from_numpy(init_flow)}
+    got = tm(torch.from_numpy(i1), torch.from_numpy(i2), iters=iters,
+             **tkw).numpy()
+    assert got.shape == ref.shape == (B, H, W, 2)
+    err = float(np.abs(got - ref).max())
+    scale = float(np.abs(ref).max())
+    print(f"{B}x{H}x{W} iters={iters} init_flow={init_flow is not None}: "
+          f"max abs err {err:.3e}, flow scale {scale:.3f}, "
+          f"ratio {err / scale:.3e}")
+    assert err <= FLOW_TOL * scale
+
+
+@pytest.mark.parametrize("with_init", [False, True])
+def test_forward_matches_jax(models, with_init):
+    """64x128, 4 iterations, f32 against PriOrRAFT(precision='highest')."""
+    jm, variables, tm = models
+    init = None
+    if with_init:
+        init = np.random.default_rng(7).normal(0, 1.5, (1, 8, 16, 2)).astype(
+            np.float32)
+    _compare(jm, variables, tm, 64, 128, 4, init)
+
+
+def test_forward_matches_jax_batch_2(models):
+    """Batch 2: the encoders batch 4B views and the lookup runs B*Q
+    queries."""
+    jm, variables, tm = models
+    _compare(jm, variables, tm, 64, 128, 2, seed=4, B=2)
+
+
+@pytest.mark.slow  # 128x256 with 12 iterations: about a minute on the CPU
+def test_forward_matches_jax_128x256_12_iters(models):
+    jm, variables, tm = models
+    _compare(jm, variables, tm, 128, 256, 12, seed=3)
+
+
+def test_mixed_precision_forward_is_finite(models):
+    _, variables, _ = models
+    tm = build_model("cpu", state_dict=state_dict_from_jax(variables),
+                     mixed_precision=True)
+    i1, i2 = _pair(2, 64, 128)
+    flow = tm(torch.from_numpy(i1), torch.from_numpy(i2), iters=2)
+    assert flow.shape == (1, 64, 128, 2) and flow.dtype == torch.float32
+    assert torch.isfinite(flow).all()
+
+
+def test_strict_load_key_set_matches_export(models, tmp_path):
+    """The port registers exactly the reference key set, including each
+    strided block's downsample.1 alias; a .pth with a ``module.`` prefix
+    and a ``state_dict`` wrapper loads too."""
+    _, variables, _ = models
+    ref = export_state_dict(variables, add_module_prefix=False)
+    sd = state_dict_from_jax(variables)
+    assert set(sd) == set(ref)
+    assert set(PriOrRAFT().state_dict()) == set(ref)
+    assert "cnet.layer2.0.downsample.1.running_var" in sd
+    for k, v in ref.items():
+        np.testing.assert_array_equal(sd[k].numpy(), v)
+    path = tmp_path / "ckpt.pth"
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, path)
+    loaded = load_pth(str(path))
+    assert set(loaded) == set(ref)
+    PriOrRAFT().load_state_dict(loaded, strict=True)
+    assert strip_module_prefix({"module.a": 1, "b": 2}) == {"a": 1, "b": 2}
+
+
+def test_upsample_flow_convex_matches_jax(rng):
+    flow = rng.normal(size=(2, 4, 6, 2)).astype(np.float32)
+    mask = rng.normal(size=(2, 4, 6, 576)).astype(np.float32)
+    ref = np.asarray(jax_upsample(jnp.asarray(flow), jnp.asarray(mask)))
+    got = upsample_flow_convex(torch.from_numpy(flow),
+                               torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+def test_seeded_init_is_deterministic():
+    a = build_model("cpu", seed=3).state_dict()
+    b = build_model("cpu", seed=3).state_dict()
+    c = build_model("cpu", seed=4).state_dict()
+    k = "fnet.conv1.weight"
+    assert torch.equal(a[k], b[k]) and not torch.equal(a[k], c[k])
+
+
+def test_demo_cli_on_cpu(capsys):
+    from prior_flow_tpu_torch.cli import demo
+    flow = demo.main(["--height", "64", "--width", "128", "--iters", "1",
+                      "--device", "cpu"])
+    assert tuple(flow.shape) == (1, 64, 128, 2)
+    assert "steady-state forward" in capsys.readouterr().out
+
+
+def test_import_hygiene_and_no_silent_cpu():
+    """A fresh interpreter imports the whole port without pulling in JAX or
+    the JAX package, and build_model() with no device raises on a host
+    without CUDA instead of running on the CPU."""
+    code = """
+import json, sys
+import prior_flow_tpu_torch
+import prior_flow_tpu_torch.cli.demo, prior_flow_tpu_torch.checkpoint
+import prior_flow_tpu_torch.ops.corr, prior_flow_tpu_torch.ops.kernels
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "flax" or m.startswith("flax.")
+             or m == "prior_flow_tpu" or m.startswith("prior_flow_tpu."))
+raised = None
+import torch
+if not torch.cuda.is_available():
+    try:
+        prior_flow_tpu_torch.build_model()
+    except RuntimeError:
+        raised = True
+    else:
+        raised = False
+print(json.dumps({"bad": bad, "raised": raised}))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    if not torch.cuda.is_available():
+        assert res["raised"] is True
+
+
+def test_no_jax_imports_in_port_sources():
+    """No module of the port, and not chip_smoke.py, imports JAX, Flax or
+    the JAX package, not even inside a function."""
+    pat = re.compile(r"^\s*(from|import)\s+(jax|flax|prior_flow_tpu)\b",
+                     re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "prior_flow_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    for f in files:
+        with open(f) as fh:
+            assert not pat.search(fh.read()), f
