@@ -1,31 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py [--profile]
 
 Phases, each fatal on failure (non-zero exit, no result line):
 1. build the CUDA kernels from ``prior_flow_tpu_torch/csrc``;
 2. the DCCL level-lookup kernel against its plain version at the four
-   pyramid-level shapes of a 512x1024 forward, f32 and bf16 volumes;
+   pyramid-level shapes of a 512x1024 forward (batch 1) and of the batch-4
+   training step (B x Q = 32768 queries), f32 and bf16 volumes;
 3. the instance-norm sums kernel against its plain version at the three
    fnet shapes, f32 and bf16;
 4. the test-mode forward at 512x1024, batch 1, 12 iterations, seeded
    random weights, fp32 then mixed precision: output shape, finiteness,
    launch counts per forward (48 lookups, 15 norms), median ms/pair;
-5. the same weights on the card and on the CPU at 128x256, 4 iterations.
+5. the same weights on the card and on the CPU at 128x256, 4 iterations;
+6. the cross-tap-coords kernel against its plain version at the training
+   size (N = 12 x 4 x 8192 centres, four level scales, both grids):
+   bitwise; and the lookup kernel's cross taps, at batch 4, bitwise equal
+   to the plain sampler of the other volume at the coords kernel's coords;
+7. the volume-scatter kernel against its plain version at the training
+   level shapes (B = 4), S = 1 and 12, f32 and bf16 output;
+8. the instance-norm sums of a batch-4 step, forward (x, x) in bf16 and
+   backward (xhat, dy) in f32 with a zero-mean dy, at the three fnet shapes
+   (B = 16), within the rounding of an f64-accumulated sum;
+9. the training step at the EFT recipe: 512x1024, batch 4, 12 iterations,
+   bf16 autocast, AdamW + OneCycle + clip 1.0, seeded weights and batches,
+   both grad modes: launch counts per step, loss and grad norm of each
+   step, median ms/step, peak GB; standard and taped agree on the first
+   step's loss and gradients;
+10. one step on the card and on the CPU at 128x256, batch 1, 2 iterations,
+   f32, both grad modes, same weights.
 Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches, error, times and bound, and the result line.
 
 TF32 is off for matmuls and cuDNN convolutions in every phase, so "fp32"
-is full f32 and the card-vs-CPU comparison is like for like.
+is full f32 and the card-vs-CPU comparisons are like for like.
 ``--profile`` adds a torch.profiler kernel breakdown of one forward per
-precision. Imports nothing of JAX or of the JAX package.
+precision and of one training step per grad mode. Imports nothing of JAX
+or of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -40,10 +59,35 @@ FNET_SHAPES = [(4, 64, 256, 512), (4, 96, 128, 256), (4, 128, 64, 128)]
 NORMS_PER_SHAPE = 5
 LOOKUP_ATOL = 2e-5        # unit-scale volumes; kernel and plain round alike
 SUMS_RTOL = SUMS_ATOL = 1e-5
+# sums of a train step: both sides accumulate in f64 and round to f32, so
+# they may differ by one f32 rounding plus the f64 sums' own error bound
+SUMS_F32_ROUND = 2.0 ** -23
+SUMS_F64_EPS = 2.0 ** -53
+# f64 multiply and two adds per element, each counted as two f32
+# operations: an H100's f64 rate outside the tensor cores (34 TFLOP/s on
+# the SXM data sheet) is half its f32 rate
+SUMS_OPS_PER_ELEM = 6
 CARD_CPU_TOL = 1e-3       # max abs error / flow scale, 128x256, 4 iterations
 # f32 operations per (query, tap) of one lookup launch, both branches,
 # counted from the kernel's arithmetic (2 x (own 35 + grid 47 + cross 35 + 4))
 LOOKUP_OPS_PER_TAP = 242
+# the training step: the EFT recipe (scripts/train_EFT.sh) at full ERP size
+TRAIN_B, TRAIN_STEPS = 4, 5
+TRAIN_LR, TRAIN_NUM_STEPS = 1e-4, 60000
+LEVELS = 4
+# f32 operations per (centre, tap) of the coords kernel (window 4 + grid
+# sample 47) and per (s, query, tap) of the scatter kernel (window 4 + two
+# corner sets 2 x 23 + eight weighted atomic adds 16)
+COORDS_OPS_PER_TAP = 51
+SCATTER_OPS_PER_TAP = 66
+SCATTER_RTOL = 1e-5       # of max|plain|; atomics reorder the f32 sums
+MODE_GRAD_RTOL = 2e-2     # standard vs taped: per-iteration bf16 dV sums
+STEP_LOSS_RTOL = 1e-5
+CARD_CPU_GRAD_RTOL = 1e-3
+# the fnet conv biases in front of an instance norm have a zero gradient in
+# exact arithmetic and carry only round-off: their norms are floored at
+# this share of the global one (every other norm at 1e-6)
+ZERO_GRAD_FLOOR = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -87,17 +131,17 @@ def bound(bytes_moved: float, ops: float, peaks):
 
 # -- phase 2: DCCL level lookup ------------------------------------------------
 
-def lookup_inputs(lvl: int, dtype, dev, grids):
+def lookup_inputs(lvl: int, dtype, dev, grids, b: int = 1):
     import torch
     g = torch.Generator(device=dev).manual_seed(100 + lvl)
     h8, w8 = H // 8, W // 8
     Q = h8 * w8
     Hl, Wl = h8 >> lvl, w8 >> lvl
-    vA = torch.randn(1, Q, Hl, Wl, generator=g, device=dev).to(dtype)
-    vB = torch.randn(1, Q, Hl, Wl, generator=g, device=dev).to(dtype)
+    vA = torch.randn(b, Q, Hl, Wl, generator=g, device=dev).to(dtype)
+    vB = torch.randn(b, Q, Hl, Wl, generator=g, device=dev).to(dtype)
     # centres over the whole 1/8 image and a margin beyond it, with seam
     # columns, a hair below 0 and the pole rows pinned
-    u = torch.rand(2, 1, Q, generator=g, device=dev)
+    u = torch.rand(2, b, Q, generator=g, device=dev)
     cA = torch.stack([u[0] * (w8 + 4) - 2, u[1] * (h8 + 4) - 2], dim=-1)
     edge = torch.tensor([[w8 - 1, 0.0], [w8 - 0.5, h8 - 1], [-1e-8, 5.0],
                          [-0.5, -0.5], [w8 - 1e-3, h8 - 0.5], [0.0, h8 - 1.0]],
@@ -208,6 +252,28 @@ def phase_lookup(dev, grids, peaks):
         print(f"  dccl {tag} one iteration (4 levels): kernel {tot['ms']:.4f} ms "
               f"plain {tot['plain_ms']:.4f} ms bound {tot['bound_ms']:.4f} ms",
               flush=True)
+
+    # the shapes of the training step: batch 4, bf16 volumes on its path
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for lvl in range(4):
+            args = (*lookup_inputs(lvl, dtype, dev, grids, TRAIN_B),
+                    1.0 / 2 ** lvl)
+            with torch.no_grad():
+                got = dccl_level_lookup(*args)
+                ref = dccl_level_lookup_plain(*args)
+                torch.cuda.synchronize()
+                err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+                if not err <= LOOKUP_ATOL:
+                    fail(f"dccl lookup {tag} level {lvl} batch {TRAIN_B}: max "
+                         f"abs err {err} > {LOOKUP_ATOL}")
+                ms = cuda_ms(lambda: dccl_level_lookup(*args), 20)
+            _, BQ, Hl, Wl = args[0].shape
+            print(f"  dccl {tag} level {lvl} batch {TRAIN_B} "
+                  f"({TRAIN_B * BQ}x{Hl}x{Wl}): err {err:.3e} kernel "
+                  f"{ms:.4f} ms", flush=True)
+            rows[tag]["err"] = max(rows[tag]["err"], err)
+            del args, got, ref
     return rows
 
 
@@ -243,13 +309,14 @@ def phase_sums(dev, peaks):
                 plain_ms = cuda_ms(lambda: instance_norm_sums_plain(x, x), 20)
                 lib_ms = cuda_ms(lambda: torch.var_mean(x, dim=(2, 3)), 50)
             nbytes = x.numel() * x.element_size() + shape[0] * shape[1] * 8
-            b_ms, _ = bound(nbytes, 2 * x.numel(), peaks)
+            ops = SUMS_OPS_PER_ELEM * x.numel()
+            b_ms, _ = bound(nbytes, ops, peaks)
             print(f"  sums {tag} {shape}: max abs err {err:.3e} kernel "
                   f"{ms:.4f} ms  plain {plain_ms:.4f} ms  var_mean "
                   f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms", flush=True)
             for k, v in (("ms", ms), ("plain_ms", plain_ms),
                          ("library_ms", lib_ms), ("bytes", nbytes),
-                         ("ops", 2 * x.numel())):
+                         ("ops", ops)):
                 tot[k] += NORMS_PER_SHAPE * v
             tot["err"] = max(tot["err"], err)
         tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"], peaks)
@@ -287,7 +354,8 @@ def phase_forward(dev, mixed: bool, i1, i2):
         fail(f"{tag} forward: shape {tuple(flow.shape)}")
     if not bool(torch.isfinite(flow).all()):
         fail(f"{tag} forward: non-finite output")
-    want = {"dccl_level_lookup": 4 * ITERS, "instance_norm_sums": 15}
+    want = {"dccl_level_lookup": 4 * ITERS, "instance_norm_sums": 15,
+            "dccl_grid_coords": 0, "dccl_level_scatter": 0}
     if counts != want:
         fail(f"{tag} forward: launch counts {counts}, expected {want}")
     times = []
@@ -329,6 +397,455 @@ def profile_forward(model, i1, i2, tag: str):
     for e in events[:20]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+
+
+# -- phase 6: cross tap coords --------------------------------------------------
+
+def train_centres(dev, N: int, seed: int):
+    """N unscaled 1/8 centres over the image and a margin, with the seam,
+    a hair below 0 and the pole rows pinned (as in lookup_inputs)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h8, w8 = H // 8, W // 8
+    u = torch.rand(2, N, generator=g, device=dev)
+    c = torch.stack([u[0] * (w8 + 4) - 2, u[1] * (h8 + 4) - 2], dim=-1)
+    c[:6] = torch.tensor([[w8 - 1, 0.0], [w8 - 0.5, h8 - 1], [-1e-8, 5.0],
+                          [-0.5, -0.5], [w8 - 1e-3, h8 - 0.5],
+                          [0.0, h8 - 1.0]], device=dev)
+    return c.contiguous()
+
+
+def phase_coords(dev, grids, peaks):
+    import torch
+    import torch.nn.functional as F
+    from prior_flow_tpu_torch.ops.kernels.dccl_coords import (
+        dccl_grid_coords, dccl_grid_coords_plain)
+    from prior_flow_tpu_torch.ops.kernels.dccl_lookup import (
+        NTAP, dccl_level_lookup, sample_volume_level, window_delta)
+
+    N = ITERS * TRAIN_B * (H // 8) * (W // 8)
+    Hg, Wg = H // 8, W // 8
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
+               err=0.0)
+    for branch, grid in (("A", grids.a2b_w2c_8), ("B", grids.b2a_w2c_8)):
+        cen = train_centres(dev, N, 7 if branch == "A" else 8)
+        for lvl in range(LEVELS):
+            s = 1.0 / 2 ** lvl
+            with torch.no_grad():
+                cx, cy = dccl_grid_coords(cen, grid, s)
+                rx, ry = dccl_grid_coords_plain(cen, grid, s)
+                torch.cuda.synchronize()
+                if not (torch.equal(cx, rx) and torch.equal(cy, ry)):
+                    err = max((cx - rx).abs().max().item(),
+                              (cy - ry).abs().max().item())
+                    fail(f"coords {branch} level {lvl}: not bitwise equal to "
+                         f"the plain version (max abs err {err})")
+                ms = cuda_ms(lambda: dccl_grid_coords(cen, grid, s), 20)
+                plain_ms = cuda_ms(
+                    lambda: dccl_grid_coords_plain(cen, grid, s), 3, warmup=1)
+                # library: F.grid_sample of the grid at the window coords,
+                # wrapped and normalised beforehand
+                win = (cen * s).unsqueeze(1) + window_delta(4, dev)
+                xn = torch.remainder(win[..., 0], Wg) * (2.0 / (Wg - 1)) - 1
+                yn = win[..., 1] * (2.0 / (Hg - 1)) - 1
+                gn = torch.stack([xn, yn], -1).reshape(1, N, NTAP, 2)
+                img = grid.permute(2, 0, 1).unsqueeze(0).contiguous()
+                lib_ms = cuda_ms(lambda: F.grid_sample(
+                    img, gn, mode="bilinear", padding_mode="zeros",
+                    align_corners=True), 20)
+                del win, xn, yn, gn
+            nbytes = N * 8 + 2 * N * NTAP * 4 + grid.numel() * 4
+            ops = N * NTAP * COORDS_OPS_PER_TAP
+            b_ms, _ = bound(nbytes, ops, peaks)
+            print(f"  coords {branch} level {lvl} (N={N}): bitwise equal; "
+                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  grid_sample "
+                  f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms", flush=True)
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bytes", nbytes),
+                         ("ops", ops)):
+                tot[k] += v
+    tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"], peaks)
+    print(f"  coords one taped step (8 launches): kernel {tot['ms']:.4f} ms "
+          f"plain {tot['plain_ms']:.4f} ms bound {tot['bound_ms']:.4f} ms",
+          flush=True)
+
+    # the lookup kernel's cross taps are the plain sampler of the other
+    # volume at the coords kernel's coords, bit for bit, at the training
+    # batch
+    for lvl in range(LEVELS):
+        vA, vB, cA, cB, gA, gB = lookup_inputs(lvl, torch.float32, dev, grids,
+                                               TRAIN_B)
+        s = 1.0 / 2 ** lvl
+        with torch.no_grad():
+            _, cross_A, _, cross_B = dccl_level_lookup(vA, vB, cA, cB, gA, gB,
+                                                       s)
+            for cross, cen, grid, other in ((cross_A, cA, gA, vB),
+                                            (cross_B, cB, gB, vA)):
+                cx, cy = dccl_grid_coords(cen.reshape(-1, 2), grid, s)
+                at = torch.stack([cx, cy], -1).reshape(*cen.shape[:2], NTAP, 2)
+                if not torch.equal(cross, sample_volume_level(other, at)):
+                    fail(f"lookup level {lvl}: cross taps differ from the "
+                         f"plain sampler at the coords kernel's coords")
+        del vA, vB, cross_A, cross_B
+    print(f"  lookup cross taps == plain sampler at the coords kernel's "
+          f"coords, batch {TRAIN_B}, all levels, both branches: bitwise",
+          flush=True)
+    return tot
+
+
+# -- phase 7: volume scatter -----------------------------------------------------
+
+def scatter_inputs(dev, lvl: int, S: int, grids):
+    """Tap cotangents, own centres and the other branch's cross coords (from
+    the coords kernel) at the training shape of one level."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels.dccl_coords import dccl_grid_coords
+    Q = (H // 8) * (W // 8)
+    g = torch.Generator(device=dev).manual_seed(200 + lvl)
+    shape = (S, TRAIN_B, Q, 81)
+    g_own = torch.randn(shape, generator=g, device=dev)
+    g_cross = torch.randn(shape, generator=g, device=dev)
+    cen = train_centres(dev, S * TRAIN_B * Q, 300 + lvl)
+    other = train_centres(dev, S * TRAIN_B * Q, 400 + lvl)
+    with torch.no_grad():
+        cx, cy = dccl_grid_coords(other, grids.b2a_w2c_8, 1.0 / 2 ** lvl)
+    return (g_own, cen.reshape(S, TRAIN_B, Q, 2), g_cross,
+            cx.reshape(shape), cy.reshape(shape))
+
+
+def scatter_corners(g_own, cen, scale, g_cross, cx, cy, Hl, Wl):
+    """Flat indices and values of every weighted corner, the scatter's
+    input to ``index_put_``."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels.dccl_lookup import window_delta
+    from prior_flow_tpu_torch.ops.kernels.dccl_scatter import _corners
+    S, B, Q, _ = g_own.shape
+    own = (cen * scale).unsqueeze(-2) + window_delta(4, cen.device)
+    base = (torch.arange(B * Q, device=cen.device) * (Hl * Wl)).reshape(
+        1, B, Q, 1)
+    idx, val = [], []
+    for g, x, y in ((g_own, own[..., 0], own[..., 1]), (g_cross, cx, cy)):
+        for i, w in _corners(x, y, Hl, Wl):
+            idx.append((base + i).reshape(-1))
+            val.append((g * w).reshape(-1))
+    return torch.cat(idx), torch.cat(val)
+
+
+def phase_scatter(dev, grids, peaks):
+    import torch
+    from prior_flow_tpu_torch.ops.kernels.dccl_scatter import (
+        dccl_level_scatter, dccl_level_scatter_plain)
+
+    Q = (H // 8) * (W // 8)
+    taped = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
+                 err=0.0)
+    standard_ms = 0.0
+    for lvl in range(LEVELS):
+        Hl, Wl = (H // 8) >> lvl, (W // 8) >> lvl
+        s = 1.0 / 2 ** lvl
+        full = scatter_inputs(dev, lvl, ITERS, grids)
+        for S in (1, ITERS):
+            ins = [t[:S].contiguous() for t in full]
+            args = (ins[0], ins[1], s, ins[2], ins[3], ins[4], Hl, Wl)
+            for dtype in (torch.float32, torch.bfloat16):
+                with torch.no_grad():
+                    got = dccl_level_scatter(*args, dtype).float()
+                    ref = dccl_level_scatter_plain(*args, dtype).float()
+                    torch.cuda.synchronize()
+                    top = ref.abs().max().item()
+                    tol = SCATTER_RTOL * top + 1e-6
+                    over = (got - ref).abs() - tol
+                    if dtype == torch.bfloat16:   # one bf16 step apart
+                        over = over - 2.0 ** -7 * ref.abs()
+                    if over.max().item() > 0:
+                        fail(f"scatter level {lvl} S={S} {dtype}: beyond "
+                             f"tolerance (max abs err "
+                             f"{(got - ref).abs().max().item():.3e}, "
+                             f"max|plain| {top:.3e})")
+                    err = (got - ref).abs().max().item()
+                    if dtype == torch.float32:
+                        taped["err"] = max(taped["err"], err)
+                del got, ref
+            with torch.no_grad():
+                ms = cuda_ms(lambda: dccl_level_scatter(*args, torch.bfloat16),
+                             10, warmup=2)
+            if S == 1:
+                standard_ms += 2 * ms
+                print(f"  scatter level {lvl} ({TRAIN_B}x{Q}x{Hl}x{Wl}) S=1 "
+                      f"bf16: kernel {ms:.4f} ms", flush=True)
+                continue
+            with torch.no_grad():
+                plain_ms = cuda_ms(lambda: dccl_level_scatter_plain(
+                    *args, torch.bfloat16), 2, warmup=1)
+                idx, val = scatter_corners(*args)
+                out = torch.zeros(TRAIN_B * Q * Hl * Wl, device=dev)
+                lib_ms = cuda_ms(lambda: out.index_put_((idx,), val,
+                                                        accumulate=True),
+                                 5, warmup=1)
+                del idx, val, out
+            nbytes = (4 * S * TRAIN_B * Q * 81 * 4 + S * TRAIN_B * Q * 8
+                      + TRAIN_B * Q * Hl * Wl * 2)
+            ops = S * TRAIN_B * Q * 81 * SCATTER_OPS_PER_TAP
+            b_ms, _ = bound(nbytes, ops, peaks)
+            print(f"  scatter level {lvl} ({TRAIN_B}x{Q}x{Hl}x{Wl}) S={S} "
+                  f"bf16: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"index_put_ {lib_ms:.4f} ms  bound {b_ms:.4f} ms "
+                  f"({nbytes / 1e9:.3f} GB)", flush=True)
+            # one taped step scatters both volumes of every level once
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bytes", nbytes),
+                         ("ops", ops)):
+                taped[k] += 2 * v
+        del full
+        torch.cuda.empty_cache()
+    taped["bound_ms"], taped["bound_by"] = bound(taped["bytes"], taped["ops"],
+                                                 peaks)
+    taped["standard_step_ms"] = ITERS * standard_ms
+    print(f"  scatter one taped step (8 launches, S={ITERS}): kernel "
+          f"{taped['ms']:.4f} ms plain {taped['plain_ms']:.4f} ms bound "
+          f"{taped['bound_ms']:.4f} ms; one standard step (96 launches, S=1): "
+          f"{taped['standard_step_ms']:.4f} ms", flush=True)
+    return taped
+
+
+# -- phase 8: instance-norm sums of the backward ---------------------------------
+
+def phase_sums_backward(dev, peaks):
+    """The sums of a batch-4 step: 15 forward (x, x) in bf16 and 15
+    backward (xhat, dy) in f32, at B = 4 x 4 views."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm_sums, instance_norm_sums_plain)
+
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
+               err=0.0)
+    for shape in [(4 * TRAIN_B,) + s[1:] for s in FNET_SHAPES]:
+        g = torch.Generator(device=dev).manual_seed(sum(shape) + 1)
+        xf = torch.randn(shape, generator=g, device=dev) * 3 + 1.5
+        x = xf.to(torch.bfloat16)
+        n = shape[2] * shape[3]
+        m = xf.mean(dim=(2, 3), keepdim=True)
+        xhat = (xf - m) * torch.rsqrt(xf.var(dim=(2, 3), unbiased=False,
+                                             keepdim=True) + 1e-5)
+        # an upstream gradient as a backward sees it: zero mean and no share
+        # along xhat, so both of its sums lie near 0
+        dy = torch.randn(shape, generator=g, device=dev)
+        with torch.no_grad():
+            for a, b, tag in ((x, x, "forward bf16"), (xhat, dy,
+                                                       "backward f32")):
+                got = instance_norm_sums(a, b)
+                ref = instance_norm_sums_plain(a, b)
+                torch.cuda.synchronize()
+                ad, bd = a.double(), b.double()
+                terms = (bd.abs().sum(dim=(2, 3)),
+                         (ad * bd).abs().sum(dim=(2, 3)))
+                for u, v, t, what in zip(got, ref, terms, ("y", "x*y")):
+                    # one f32 rounding of the result, plus the f64 sums'
+                    # error bound on either side (n eps64 sum|terms|)
+                    tol = (SUMS_F32_ROUND * v.abs().double()
+                           + 2 * n * SUMS_F64_EPS * t)
+                    diff = (u - v).abs().double()
+                    if (diff > tol).any().item():
+                        i = int(torch.argmax(diff - tol))
+                        fail(f"instance-norm sums {tag} {shape} sum({what}): "
+                             f"{u.flatten()[i].item()} vs plain "
+                             f"{v.flatten()[i].item()} (sum|terms| "
+                             f"{t.flatten()[i].item():.4e})")
+                    tot["err"] = max(tot["err"], diff.max().item())
+                del ad, bd, terms
+            ms = (cuda_ms(lambda: instance_norm_sums(x, x), 20)
+                  + cuda_ms(lambda: instance_norm_sums(xhat, dy), 20))
+            plain_ms = (cuda_ms(lambda: instance_norm_sums_plain(x, x), 10)
+                        + cuda_ms(lambda: instance_norm_sums_plain(xhat, dy),
+                                  10))
+            fx, fy = xhat.flatten(2), dy.flatten(2)
+            lib_ms = (cuda_ms(lambda: torch.var_mean(x, dim=(2, 3)), 20)
+                      + cuda_ms(lambda: torch.linalg.vecdot(fx, fy), 20))
+        nbytes = (x.numel() * 2 + 2 * xhat.numel() * 4
+                  + 2 * shape[0] * shape[1] * 8)
+        ops = SUMS_OPS_PER_ELEM * (x.numel() + xhat.numel())
+        b_ms, _ = bound(nbytes, ops, peaks)
+        print(f"  sums {shape}: forward + backward kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  var_mean + vecdot {lib_ms:.4f} ms  bound "
+              f"{b_ms:.4f} ms", flush=True)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                     ("bytes", nbytes), ("ops", ops)):
+            tot[k] += NORMS_PER_SHAPE * v
+        del xf, x, xhat, dy, fx, fy
+    tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"], peaks)
+    print(f"  sums one train step (30 launches): kernel {tot['ms']:.4f} ms "
+          f"plain {tot['plain_ms']:.4f} ms bound {tot['bound_ms']:.4f} ms",
+          flush=True)
+    return tot
+
+
+# -- phase 9: the training step --------------------------------------------------
+
+def train_batch(seed: int, b: int, h: int, w: int, dev):
+    """Uniform images and a smooth flow with |flow| < 50 px, all valid."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    i1 = torch.rand(b, h, w, 3, generator=g) * 255
+    i2 = torch.rand(b, h, w, 3, generator=g) * 255
+    yy, xx = torch.meshgrid(torch.linspace(0, math.pi, h),
+                            torch.linspace(0, 2 * math.pi, w), indexing="ij")
+    amp = torch.rand(b, 1, 1, 2, generator=g) * 25 + 5
+    flow = amp * torch.stack([torch.sin(xx + yy), torch.cos(2 * yy - xx)],
+                             -1)[None]
+    return tuple(t.to(dev) for t in (i1, i2, flow, torch.ones(b, h, w)))
+
+
+def make_trainer(dev, mode: str, mixed: bool, iters: int, seed: int = 0):
+    from prior_flow_tpu_torch import build_model
+    from prior_flow_tpu_torch.train import make_optimizer, make_train_step
+    model = build_model(dev, seed=seed, mixed_precision=mixed)
+    opt, sched = make_optimizer(model.parameters(), TRAIN_LR, TRAIN_NUM_STEPS)
+    return model, make_train_step(model, opt, sched, iters=iters,
+                                  grad_mode=mode)
+
+
+def grads_of(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def grad_floor(name: str, total: float) -> float:
+    """The least norm a gradient tensor's relative difference is taken
+    against: ``ZERO_GRAD_FLOOR`` of the global norm for the fnet conv
+    biases in front of an instance norm (zero in exact arithmetic), 1e-6
+    of it for every other tensor."""
+    zero = (name.startswith("fnet.") and name.endswith(".bias")
+            and name != "fnet.conv2.bias")
+    return (ZERO_GRAD_FLOOR if zero else 1e-6) * total
+
+
+def phase_train(dev):
+    import torch
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    batches = [train_batch(10 + i, TRAIN_B, H, W, dev)
+               for i in range(TRAIN_STEPS + 1)]
+    out = {}
+    for mode in ("standard", "taped"):
+        model, step = make_trainer(dev, mode, True, ITERS)
+        per = 2 * LEVELS * (ITERS if mode == "standard" else 1)
+        want = {"dccl_level_lookup": LEVELS * ITERS,
+                "instance_norm_sums": 30, "dccl_grid_coords": per,
+                "dccl_level_scatter": per}
+        times, losses, norms, counts = [], [], [], None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, batch in enumerate(batches):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            m = step(batch, i)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            counts = launch_counts()
+            if counts != want:
+                fail(f"train {mode} step {i}: launch counts {counts}, "
+                     f"expected {want}")
+            loss, gn = float(m["train/loss"]), float(m["train/grad_norm"])
+            if not (math.isfinite(loss) and math.isfinite(gn)):
+                fail(f"train {mode} step {i}: loss {loss}, grad norm {gn}")
+            if i == 0:
+                out[mode + "_first"] = (loss, grads_of(model))
+            else:
+                times.append(dt)
+            losses.append(loss)
+            norms.append(gn)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        med = statistics.median(times)
+        print(f"  train {mode} {H}x{W} batch {TRAIN_B} iters {ITERS} bf16: "
+              f"launches/step {counts}; median {med:.1f} ms/step over "
+              f"{len(times)} after one warm-up (min {min(times):.1f}, max "
+              f"{max(times):.1f}); peak {peak:.2f} GB",
+              flush=True)
+        print(f"    loss per step {[round(v, 4) for v in losses]}", flush=True)
+        print(f"    grad norm per step {[round(v, 4) for v in norms]}",
+              flush=True)
+        out[mode] = dict(ms=med, peak_gb=peak, counts=counts, losses=losses,
+                         norms=norms)
+        del model, step
+        torch.cuda.empty_cache()
+
+    # standard against taped: same weights and batch at the first step
+    (l_s, g_s), (l_t, g_t) = out["standard_first"], out["taped_first"]
+    if abs(l_s - l_t) > STEP_LOSS_RTOL * abs(l_s):
+        fail(f"standard and taped losses differ: {l_s} vs {l_t}")
+    total = math.sqrt(sum(float((a.double() ** 2).sum()) for a in g_s.values()))
+    worst = 0.0
+    for n, a in g_s.items():
+        rel = ((a - g_t[n]).norm()
+               / max(a.norm().item(), grad_floor(n, total))).item()
+        worst = max(worst, rel)
+        if rel > MODE_GRAD_RTOL:
+            fail(f"standard and taped gradients differ on {n}: {rel:.3e}")
+    print(f"  standard vs taped, first step: loss {l_s:.6f} vs {l_t:.6f}; "
+          f"worst per-tensor relative L2 gradient difference {worst:.3e} "
+          f"(gate {MODE_GRAD_RTOL})", flush=True)
+    out["mode_worst"] = worst
+    return out
+
+
+def profile_train_step(dev, mode: str):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model, step = make_trainer(dev, mode, True, ITERS)
+    batch = train_batch(99, TRAIN_B, H, W, dev)
+    step(batch, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, 1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    names = ("dccl_level_kernel", "row_sums_kernel", "dccl_coords_kernel",
+             "dccl_scatter_kernel")
+    ours = {k: sum(e.self_device_time_total for e in events if k in e.key)
+            / 1e3 for k in names}
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"  profile train {mode}: wall {wall:.1f} ms (profiled), device busy "
+          f"{busy:.1f} ms ({100 * busy / wall:.1f}%); port kernels "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ours.items()), flush=True)
+    for e in events[:25]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+
+
+# -- phase 10: the train step on the card against the CPU ------------------------
+
+def phase_train_card_vs_cpu(dev):
+    import torch
+    worst = {}
+    for mode in ("standard", "taped"):
+        res = {}
+        for d in (torch.device("cpu"), dev):
+            model, step = make_trainer(d, mode, False, 2, seed=3)
+            m = step(train_batch(5, 1, 128, 256, d), 0)
+            res[d.type] = (float(m["train/loss"]),
+                           {n: p.grad.detach().cpu() for n, p in
+                            model.named_parameters()})
+        (l_c, g_c), (l_g, g_g) = res["cpu"], res["cuda"]
+        if abs(l_g - l_c) > STEP_LOSS_RTOL * abs(l_c):
+            fail(f"train {mode}: card loss {l_g} vs CPU {l_c}")
+        total = math.sqrt(sum(float((t.double() ** 2).sum())
+                              for t in g_c.values()))
+        worst[mode] = (0.0, "")
+        for n, ref in g_c.items():
+            rel = ((g_g[n] - ref).norm()
+                   / max(ref.norm().item(), grad_floor(n, total))).item()
+            if rel > CARD_CPU_GRAD_RTOL:
+                fail(f"train {mode}: card and CPU gradients differ on {n}: "
+                     f"{rel:.3e} > {CARD_CPU_GRAD_RTOL}")
+            worst[mode] = max(worst[mode], (rel, n))
+        print(f"  train {mode} 128x256 iters 2 f32: loss card {l_g:.6f} CPU "
+              f"{l_c:.6f}; worst gradient rel L2 {worst[mode][0]:.3e} "
+              f"({worst[mode][1]}; gate {CARD_CPU_GRAD_RTOL})", flush=True)
+    return worst
 
 
 def main(argv=None) -> None:
@@ -398,6 +915,28 @@ def main(argv=None) -> None:
     if not (torch.isfinite(out).all() and err <= CARD_CPU_TOL * scale):
         fail("card and CPU forwards disagree")
 
+    print("phase 6 cross-tap-coords kernel vs plain", flush=True)
+    coords = phase_coords(dev, grids, peaks)
+    print("phase 7 volume-scatter kernel vs plain", flush=True)
+    scatter = phase_scatter(dev, grids, peaks)
+    print("phase 8 instance-norm sums of a train step", flush=True)
+    sums_train = phase_sums_backward(dev, peaks)
+    del model32
+    torch.cuda.empty_cache()
+    print(f"phase 9 train step, {H}x{W}, batch {TRAIN_B}, {ITERS} iterations, "
+          f"bf16", flush=True)
+    train = phase_train(dev)
+    print(json.dumps({"train_ms_per_step": {m: train[m]["ms"] for m in
+                                            ("standard", "taped")},
+                      "train_peak_gb": {m: train[m]["peak_gb"] for m in
+                                        ("standard", "taped")}}))
+    if args.profile:
+        for mode in ("standard", "taped"):
+            profile_train_step(dev, mode)
+    print("phase 10 train step, card vs CPU, 128x256, 2 iterations, f32",
+          flush=True)
+    phase_train_card_vs_cpu(dev)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -405,27 +944,50 @@ def main(argv=None) -> None:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     print(smi.stdout.strip().splitlines()[0])
 
-    lk, sm = lookup["f32"], sums["f32"]
+    std, tap = train["standard"]["counts"], train["taped"]["counts"]
+    per_step = ("launches: one standard train step (512x1024, batch 4, 12 "
+                "iterations, bf16); launches_taped: one taped step; "
+                "launches_forward: one test-mode forward")
+
+    def row(name, src, replaces, d, work, err):
+        return {"name": name, "route": "cuda",
+                "source": f"prior_flow_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": std[name],
+                "launches_taped": tap[name],
+                "launches_forward": counts.get(name, 0),
+                "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain_ms"],
+                "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+                "library_ms": d["library_ms"], "work": work + "; " + per_step}
+
+    lk = lookup["f32"]
     kernels = [
-        {"name": "dccl_level_lookup", "route": "cuda",
-         "source": "prior_flow_tpu_torch/csrc/dccl_lookup.cu",
-         "replaces": "prior_flow_tpu/ops/pallas/dccl_gather.py:239",
-         "launches": counts["dccl_level_lookup"],
-         "max_abs_err": max(lk["err"], lookup["bf16"]["err"]),
-         "ms": lk["ms"], "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
-         "bound_by": lk["bound_by"], "library_ms": lk["library_ms"],
-         "work": "one GRU iteration: 4 level launches, f32 volumes, 512x1024; "
-                 "library_ms = 4 F.grid_sample per level at precomputed cross "
-                 "coords (excludes the grid-window stage)"},
-        {"name": "instance_norm_sums", "route": "cuda",
-         "source": "prior_flow_tpu_torch/csrc/instance_norm.cu",
-         "replaces": "prior_flow_tpu/ops/pallas/instance_norm.py:52",
-         "launches": counts["instance_norm_sums"],
-         "max_abs_err": max(sm["err"], sums["bf16"]["err"]),
-         "ms": sm["ms"], "plain_ms": sm["plain_ms"], "bound_ms": sm["bound_ms"],
-         "bound_by": sm["bound_by"], "library_ms": sm["library_ms"],
-         "work": "one forward's 15 fnet norms, f32; library_ms = "
-                 "torch.var_mean(x, dim=(2, 3))"},
+        row("dccl_level_lookup", "dccl_lookup.cu",
+            "prior_flow_tpu/ops/pallas/dccl_gather.py:239", lk,
+            "ms/plain/bound/library: one GRU iteration, 4 level launches, f32 "
+            "volumes, 512x1024, batch 1; library_ms = 4 F.grid_sample per "
+            "level at precomputed cross coords (leaves out the grid-window "
+            "stage)", max(lk["err"], lookup["bf16"]["err"])),
+        row("instance_norm_sums", "instance_norm.cu",
+            "prior_flow_tpu/ops/pallas/instance_norm.py:52", sums_train,
+            "ms/plain/bound/library: one batch-4 train step's 30 sums, 15 "
+            "forward (x, x) bf16 and 15 backward (xhat, dy) f32 at B = 16; "
+            "library_ms = torch.var_mean(x) + torch.linalg.vecdot(xhat, dy) "
+            "(leaves out sum(dy))", max(sums_train["err"], sums["f32"]["err"],
+                                        sums["bf16"]["err"])),
+        row("dccl_grid_coords", "dccl_coords.cu",
+            "prior_flow_tpu/ops/pallas/dccl_gather.py:1033", coords,
+            "ms/plain/bound/library: one taped step's 8 launches, N = 393216 "
+            "centres each; library_ms = F.grid_sample of the grid at "
+            "precomputed normalised window coords (leaves out the window and "
+            "the wrap)", coords["err"]),
+        row("dccl_level_scatter", "dccl_scatter.cu",
+            "prior_flow_tpu/ops/pallas/dccl_gather.py:715 (_scatter_own_cross; "
+            "stacked: :1108, :1152)", scatter,
+            "ms/plain/bound/library: one taped step's 8 launches, S = 12, "
+            "batch 4, bf16 output; library_ms = index_put_(accumulate=True) "
+            "of the precomputed weighted corners into f32 (leaves out the "
+            "corners, the zeroing and the cast); one standard step's 96 S=1 "
+            f"launches: {scatter['standard_step_ms']:.4f} ms", scatter["err"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

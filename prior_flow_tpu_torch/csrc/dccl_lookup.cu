@@ -9,15 +9,11 @@
 // rotation grid is sampled at the level-scaled window coords and its result
 // indexes the level volume unscaled: the reference's parity quirk.
 //
-// sample() is cycle_bilinear_sample (prior_flow_tpu/ops/samplers.py:139):
-// x wrapped mod W with the sign of the divisor (fmodf alone is wrong for
-// negative x), corners outside [0, W-1] x [0, H-1] give zero, so the x+1
-// corner at column W-1 blends toward zero and an x that wraps to exactly W
-// samples zero. The Pallas kernel clips that last case to column W-1
-// instead; this kernel follows the samplers. Integer corners come from
-// floorf, never from a cast (a cast truncates toward zero). Math is f32;
-// bf16 corners are upcast exactly. Built with --fmad=false and with the
-// operations in the plain version's order, so both round alike.
+// sample() is the wrap-x bilinear sampler of dccl_common.cuh, which the
+// coords and scatter kernels share. The Pallas kernel clips an x that wraps
+// to exactly Wl to column Wl-1; this kernel samples zero there, as the
+// samplers do. Built with --fmad=false and with the operations in the plain
+// version's order, so both round alike.
 //
 // Bound on the card: bytes. A launch reads each touched 32-byte sector of
 // the two volumes (per query, the own 10x10 corner patch and the rotated
@@ -37,94 +33,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dccl_common.cuh"
+
 namespace {
 
-constexpr int kRadius = 4;
-constexpr int kWin = 2 * kRadius + 1;
-constexpr int kTaps = kWin * kWin;
+using dccl::kTaps;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float py_mod(float a, float b) {
-  float m = fmodf(a, b);
-  if (m != 0.0f && ((m < 0.0f) != (b < 0.0f))) m += b;
-  return m;
-}
-
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load(const uint16_t* p) {
-  // bf16 -> f32 is exact: the 16 bits are the high half of the f32 word
-  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned int>(bits) << 16);
-}
-
-// cycle_bilinear_sample of one query's (H, W) plane at (x_in, y)
-template <typename T>
-__device__ __forceinline__ float sample_plane(const T* __restrict__ plane,
-                                              int H, int W, float x_in,
-                                              float y) {
-  const float x = py_mod(x_in, static_cast<float>(W));
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  const float fx = x - x0;
-  const float fy = y - y0;
-  const float xmax = static_cast<float>(W - 1);
-  const float ymax = static_cast<float>(H - 1);
-  float out = 0.0f;
-#pragma unroll
-  for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const float cx = x0 + static_cast<float>(dx);
-      const float cy = y0 + static_cast<float>(dy);
-      const float wgt = (dx ? fx : 1.0f - fx) * (dy ? fy : 1.0f - fy);
-      const bool valid = cx >= 0.0f && cx <= xmax && cy >= 0.0f && cy <= ymax;
-      const float v = valid ? load(plane + static_cast<int>(cy) * W +
-                                   static_cast<int>(cx))
-                            : 0.0f;
-      const float term = v * (wgt * (valid ? 1.0f : 0.0f));
-      out = (dy == 0 && dx == 0) ? term : out + term;
-    }
-  }
-  return out;
-}
-
-// cycle_bilinear_sample of the (Hg, Wg, 2) rotation grid at (x_in, y)
-__device__ __forceinline__ float2 sample_grid(const float2* __restrict__ g,
-                                              int Hg, int Wg, float x_in,
-                                              float y) {
-  const float x = py_mod(x_in, static_cast<float>(Wg));
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  const float fx = x - x0;
-  const float fy = y - y0;
-  const float xmax = static_cast<float>(Wg - 1);
-  const float ymax = static_cast<float>(Hg - 1);
-  float2 out = make_float2(0.0f, 0.0f);
-#pragma unroll
-  for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const float cx = x0 + static_cast<float>(dx);
-      const float cy = y0 + static_cast<float>(dy);
-      const float wgt = (dx ? fx : 1.0f - fx) * (dy ? fy : 1.0f - fy);
-      const bool valid = cx >= 0.0f && cx <= xmax && cy >= 0.0f && cy <= ymax;
-      const float2 v =
-          valid ? __ldg(g + static_cast<int>(cy) * Wg + static_cast<int>(cx))
-                : make_float2(0.0f, 0.0f);
-      const float w = wgt * (valid ? 1.0f : 0.0f);
-      const float tx = v.x * w;
-      const float ty = v.y * w;
-      if (dy == 0 && dx == 0) {
-        out = make_float2(tx, ty);
-      } else {
-        out.x = out.x + tx;
-        out.y = out.y + ty;
-      }
-    }
-  }
-  return out;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -141,27 +55,23 @@ __global__ void __launch_bounds__(kThreads)
   if (t >= static_cast<long long>(BQ) * kTaps) return;
   const int q = static_cast<int>(t / kTaps);
   const int k = static_cast<int>(t - static_cast<long long>(q) * kTaps);
-  const float ox = static_cast<float>(k / kWin - kRadius);
-  const float oy = static_cast<float>(k % kWin - kRadius);
   const size_t plane = static_cast<size_t>(Hl) * Wl;
   const T* vA = volA + static_cast<size_t>(q) * plane;
   const T* vB = volB + static_cast<size_t>(q) * plane;
 
   // branch A: own window in volume A, cross taps through grid A into B
   const float2 ca = __ldg(cenA + q);
-  const float ax = ca.x * scale + ox;
-  const float ay = ca.y * scale + oy;
-  ownA[t] = sample_plane(vA, Hl, Wl, ax, ay);
-  const float2 pa = sample_grid(gridA, Hg, Wg, ax, ay);
-  crossA[t] = sample_plane(vB, Hl, Wl, pa.x, pa.y);
+  const float2 a = dccl::window_coord(ca, scale, k);
+  ownA[t] = dccl::sample_plane(vA, Hl, Wl, a.x, a.y);
+  const float2 pa = dccl::cross_coord(gridA, Hg, Wg, ca, scale, k);
+  crossA[t] = dccl::sample_plane(vB, Hl, Wl, pa.x, pa.y);
 
   // branch B: own window in volume B, cross taps through grid B into A
   const float2 cb = __ldg(cenB + q);
-  const float bx = cb.x * scale + ox;
-  const float by = cb.y * scale + oy;
-  ownB[t] = sample_plane(vB, Hl, Wl, bx, by);
-  const float2 pb = sample_grid(gridB, Hg, Wg, bx, by);
-  crossB[t] = sample_plane(vA, Hl, Wl, pb.x, pb.y);
+  const float2 b = dccl::window_coord(cb, scale, k);
+  ownB[t] = dccl::sample_plane(vB, Hl, Wl, b.x, b.y);
+  const float2 pb = dccl::cross_coord(gridB, Hg, Wg, cb, scale, k);
+  crossB[t] = dccl::sample_plane(vA, Hl, Wl, pb.x, pb.y);
 }
 
 }  // namespace

@@ -1,21 +1,27 @@
-// Instance-norm statistics: per-row f32 sums of y and x*y.
+// Instance-norm statistics: per-row sums of y and x*y, accumulated in f64,
+// returned as f32.
 //
 // Replaces prior_flow_tpu/ops/pallas/instance_norm.py::_sums_kernel
 // (launched by _lane_sums). With NCHW activations every (sample, channel)
 // pair is one contiguous row of H*W elements; row r gets
 //   s1[r] = sum(y[r, :]),  s2[r] = sum(x[r, :] * y[r, :])
-// accumulated in f32 from f32 or bf16 inputs. y = x gives the forward
-// moments; y = dy gives the backward's two sums (same contract as the TPU
-// kernel, so the backward can reuse it).
+// from f32 or bf16 inputs. y = x gives the forward moments; y = dy gives
+// the backward's two sums (same contract as the TPU kernel, so the backward
+// can reuse it). Each product x*y is exact in f64 and the sums accumulate
+// in f64: the feature encoder's weight gradients are sensitive to the
+// rounding of these sums (summed in f32 they moved by ~2e-3 relative;
+// tests/test_torch_port_train.py::test_encoder_grads_near_float64),
+// and f64 adds cost little where the bytes bound the kernel (PERF.md).
 //
 // Bound on the card: bytes. Each element of x (and of y when it is not x)
 // is read once; the outputs are 8 bytes per row. The fnet's 15 norms read
 // about 1.0 GB of f32 per 512x1024 forward.
 //
 // Design: one block per row, 512 threads, 16-byte vector loads (4 f32 or
-// 8 bf16 per load) in a block-stride loop, then a warp-shuffle and shared
-// memory tree. When y is x the second stream is not loaded at all. The
-// fixed reduction order makes the sums deterministic. The TPU kernel's lane
+// 8 bf16 per load) in a block-stride loop with f64 accumulators, then a
+// warp-shuffle and shared memory tree in f64. When y is x the second
+// stream is not loaded at all. The fixed reduction order makes the sums
+// deterministic. The TPU kernel's lane
 // tiling (_slot_view) only fills 128-lane vregs and has no counterpart
 // here. Rows are not split across blocks (256 to 512 rows at the fnet
 // shapes); the short rows of the smallest shape are the first thing a
@@ -28,7 +34,7 @@ namespace {
 
 constexpr int kThreads = 512;
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -78,8 +84,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long row = blockIdx.x;
   const T* xr = x + row * n;
   const T* yr = y + row * n;
-  float a1 = 0.0f;
-  float a2 = 0.0f;
+  double a1 = 0.0;
+  double a2 = 0.0;
   if (vectorised) {
     const long long nv = n / Vec<T>::kElems;
 #pragma unroll 4
@@ -89,22 +95,23 @@ __global__ void __launch_bounds__(kThreads)
       if (!kSame) yv.load(yr, i);
 #pragma unroll
       for (int e = 0; e < Vec<T>::kElems; ++e) {
-        const float yy = kSame ? xv.v[e] : yv.v[e];
+        const double xx = xv.v[e];
+        const double yy = kSame ? xx : static_cast<double>(yv.v[e]);
         a1 += yy;
-        a2 += xv.v[e] * yy;
+        a2 += xx * yy;
       }
     }
   } else {
     for (long long i = threadIdx.x; i < n; i += kThreads) {
-      const float xx = load_one(xr, i);
-      const float yy = kSame ? xx : load_one(yr, i);
+      const double xx = load_one(xr, i);
+      const double yy = kSame ? xx : static_cast<double>(load_one(yr, i));
       a1 += yy;
       a2 += xx * yy;
     }
   }
 
-  __shared__ float sh1[kThreads / 32];
-  __shared__ float sh2[kThreads / 32];
+  __shared__ double sh1[kThreads / 32];
+  __shared__ double sh2[kThreads / 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   a1 = warp_sum(a1);
@@ -115,13 +122,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (warp == 0) {
-    a1 = lane < kThreads / 32 ? sh1[lane] : 0.0f;
-    a2 = lane < kThreads / 32 ? sh2[lane] : 0.0f;
+    a1 = lane < kThreads / 32 ? sh1[lane] : 0.0;
+    a2 = lane < kThreads / 32 ? sh2[lane] : 0.0;
     a1 = warp_sum(a1);
     a2 = warp_sum(a2);
     if (lane == 0) {
-      s1[row] = a1;
-      s2[row] = a2;
+      s1[row] = static_cast<float>(a1);
+      s2[row] = static_cast<float>(a2);
     }
   }
 }

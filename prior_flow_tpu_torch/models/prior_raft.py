@@ -1,21 +1,26 @@
-"""PriOr-RAFT, test-mode forward (counterpart of
-``prior_flow_tpu/models/prior_raft.py``).
+"""PriOr-RAFT (counterpart of ``prior_flow_tpu/models/prior_raft.py``).
 
 Inputs are uint8-range RGB images (B, H, W, 3) in [0, 255], channels-last
-as in the JAX package; the output is the final upsampled branch-A flow
-(B, H, W, 2). Inside, the networks run NCHW; coordinates, flows, flaw maps
-and lookups stay channels-last, the layout the samplers take.
+as in the JAX package. ``test_mode=True`` returns the final upsampled
+branch-A flow (B, H, W, 2), under no_grad; ``test_mode=False`` is the
+training forward and returns both branches' per-iteration upsampled flows
+stacked as (iters, B, H, W, 2), differentiable. ``encode`` and
+``iterate_taped`` are the pieces of the taped backward
+(``train/trainer.py::taped_value_and_grad``). Inside, the networks run
+NCHW; coordinates, flows, flaw maps and lookups stay channels-last, the
+layout the samplers take.
 
 Mixed precision: ``torch.autocast(bfloat16)`` around the networks only.
 Feature maps, the volume matmul, the lookups and the flaw maps stay f32,
 and the pyramid is stored in bf16 (``prior_raft.py:385``), the split the
-JAX package makes. The training forward, ``DCCLOnTheFly`` and the deferred
-and taped gradient paths are not ported.
+JAX package makes. ``DCCLOnTheFly``, ``build_pyramid_lean``, the
+two-scan ``deferred_vol_grad`` path, rematerialisation and dropout in
+training are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -54,6 +59,17 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+class StepConsts(NamedTuple):
+    """Loop-invariant inputs of every GRU iteration."""
+
+    inp_A: torch.Tensor
+    inp_B: torch.Tensor
+    fmap1_A: torch.Tensor
+    fmap2_A: torch.Tensor
+    coords0: torch.Tensor
+    grids: gridlib.RotationGrids
+
+
 class PriOrRAFT(nn.Module):
     """Dual-branch RAFT with DCCL and ODDC; attribute names are the
     reference's (``fnet``, ``cnet``, ``ODDC``, ``update_block``)."""
@@ -66,8 +82,8 @@ class PriOrRAFT(nn.Module):
         self.corr_levels = corr_levels
         self.mixed_precision = mixed_precision
         corr_planes = corr_levels * (2 * corr_radius + 1) ** 2
-        # dropout acts only in training (not ported); kept for the
-        # reference's constructor and the demo's flag
+        # dropout acts only in training, where only 0 is ported (the
+        # published recipes use 0); kept for the reference's constructor
         self.dropout = dropout
         self.fnet = BasicEncoder(256, "instance")
         self.cnet = BasicEncoder(hidden_dim + context_dim, "batch")
@@ -107,25 +123,86 @@ class PriOrRAFT(nn.Module):
         fmaps = tuple(_nhwc(f.float()).contiguous() for f in fmaps)
         return net_A, net_B, inp_A, inp_B, fmaps
 
-    @torch.no_grad()
+    def build_pyramids(self, fmaps):
+        """Both branches' 4-level pyramids from the channels-last fmaps,
+        stored in bf16 under mixed precision (``prior_raft.py:385``);
+        differentiable when autograd records."""
+        fmap1_A, fmap2_A, fmap1_B, fmap2_B = fmaps
+        dt = torch.bfloat16 if self.mixed_precision else torch.float32
+        return tuple([p.to(dt).contiguous() for p in build_pyramid(
+            all_pairs_correlation(f1, f2), self.corr_levels)]
+            for f1, f2 in ((fmap1_A, fmap2_A), (fmap1_B, fmap2_B)))
+
+    def _step(self, net_A, net_B, coords1_A, coords1_B, k: StepConsts,
+              corr_fn, mask_A: bool, mask_B: bool):
+        """One GRU iteration (``prior_raft.py:193-277``). ``corr_fn(c_A,
+        c_B)`` returns both branches' summed own + cross fields. The coords
+        are detached first (``:215,220``): no gradient runs along the
+        trajectory."""
+        g = k.grids
+        coords1_A = coords1_A.detach()
+        coords1_B = coords1_B.detach()
+        flow_A = coords1_A - k.coords0
+        warped_A = cycle_bilinear_sample(k.fmap2_A, coords1_A)
+        flaw_A = groupwise_corr(k.fmap1_A, warped_A, num_groups=4)
+
+        flow_B = coords1_B - k.coords0
+        flow_B_A = flo_rotate(flow_B, g.b2a_w2c_8, g.b2a_8)
+        warped_B_A = cycle_bilinear_sample(k.fmap2_A, k.coords0 + flow_B_A)
+        flaw_B_A = groupwise_corr(k.fmap1_A, warped_B_A, num_groups=4)
+
+        corr_A, corr_B = corr_fn(coords1_A, coords1_B)
+        with self._autocast(coords1_A.device):
+            net_A, up_mask_A, delta_A = self.ODDC(
+                net_A, k.inp_A, _nchw(flow_A), _nchw(corr_A), _nchw(flaw_A),
+                _nchw(flow_B_A), _nchw(flaw_B_A), with_mask=mask_A)
+            net_B, up_mask_B, delta_B = self.update_block(
+                net_B, k.inp_B, _nchw(corr_B), _nchw(flow_B),
+                with_mask=mask_B)
+        return (net_A, net_B, coords1_A + _nhwc(delta_A),
+                coords1_B + _nhwc(delta_B), up_mask_A, up_mask_B)
+
+    def _recur(self, net_A, net_B, coords1_A, coords1_B, k: StepConsts,
+               corr_fn, iters: int, train: bool):
+        """The GRU loop. ``train``: both mask heads every iteration and
+        both branches upsampled each time, stacked (iters, B, H, W, 2)
+        (``_step``, ``prior_raft.py:279-287``); otherwise only branch A's
+        last mask and one final upsample (``_step_test``)."""
+        preds_A, preds_B, mask = [], [], None
+        for it in range(iters):
+            last = it == iters - 1
+            net_A, net_B, coords1_A, coords1_B, mask_A, mask_B = self._step(
+                net_A, net_B, coords1_A, coords1_B, k, corr_fn,
+                mask_A=train or last, mask_B=train)
+            if train:
+                preds_A.append(upsample_flow_convex(coords1_A - k.coords0,
+                                                    _nhwc(mask_A)))
+                preds_B.append(upsample_flow_convex(coords1_B - k.coords0,
+                                                    _nhwc(mask_B)))
+            elif last:
+                mask = _nhwc(mask_A)
+        if train:
+            return torch.stack(preds_A), torch.stack(preds_B)
+        return upsample_flow_convex(coords1_A - k.coords0, mask)
+
     def forward(self, image1, image2, iters: int = 12,
                 init_flow: Optional[torch.Tensor] = None,
                 test_mode: bool = True):
-        if not test_mode:
-            raise NotImplementedError("only the test-mode forward is ported")
         if iters < 1:
             raise ValueError("iters must be at least 1")
+        if test_mode:
+            with torch.no_grad():
+                return self._forward(image1, image2, iters, init_flow, False)
+        if self.dropout > 0:
+            raise NotImplementedError("dropout in training is not ported")
+        return self._forward(image1, image2, iters, init_flow, True)
+
+    def _forward(self, image1, image2, iters, init_flow, train: bool):
         B, H, W, _ = image1.shape
         dev = image1.device
         g = self.rotation_grids(H, W, dev)
         net_A, net_B, inp_A, inp_B, fmaps = self.encode(image1, image2, g)
-        fmap1_A, fmap2_A, fmap1_B, fmap2_B = fmaps
-
-        corr_dtype = torch.bfloat16 if self.mixed_precision else torch.float32
-        pyr_A = [p.to(corr_dtype).contiguous() for p in build_pyramid(
-            all_pairs_correlation(fmap1_A, fmap2_A), self.corr_levels)]
-        pyr_B = [p.to(corr_dtype).contiguous() for p in build_pyramid(
-            all_pairs_correlation(fmap1_B, fmap2_B), self.corr_levels)]
+        pyr_A, pyr_B = self.build_pyramids(fmaps)
 
         h8, w8 = H // 8, W // 8
         coords0 = gridlib.identity_grid_on(h8, w8, dev).expand(B, h8, w8, 2)
@@ -135,33 +212,49 @@ class PriOrRAFT(nn.Module):
             coords1_A = coords1_A + init_flow
             coords1_B = coords1_B + flo_rotate(init_flow, g.a2b_w2c_8, g.a2b_8)
 
-        up_mask_A = None
-        for it in range(iters):
-            flow_A = coords1_A - coords0
-            warped_A = cycle_bilinear_sample(fmap2_A, coords1_A)
-            flaw_A = groupwise_corr(fmap1_A, warped_A, num_groups=4)
-
-            flow_B = coords1_B - coords0
-            flow_B_A = flo_rotate(flow_B, g.b2a_w2c_8, g.b2a_8)
-            warped_B_A = cycle_bilinear_sample(fmap2_A, coords0 + flow_B_A)
-            flaw_B_A = groupwise_corr(fmap1_A, warped_B_A, num_groups=4)
-
+        def corr_fn(c_A, c_B):
             own_A, cross_A, own_B, cross_B = self.dccl(
-                coords1_A, coords1_B, pyr_A, pyr_B,
-                g.a2b_w2c_8, g.b2a_w2c_8, g.a2b_8, g.b2a_8)
+                c_A, c_B, pyr_A, pyr_B, g.a2b_w2c_8, g.b2a_w2c_8, g.a2b_8,
+                g.b2a_8)
+            return own_A + cross_A, own_B + cross_B
 
-            last = it == iters - 1
-            with self._autocast(dev):
-                net_A, mask_A, delta_A = self.ODDC(
-                    net_A, inp_A, _nchw(flow_A), _nchw(own_A + cross_A),
-                    _nchw(flaw_A), _nchw(flow_B_A), _nchw(flaw_B_A),
-                    with_mask=last)
-                net_B, _, delta_B = self.update_block(
-                    net_B, inp_B, _nchw(own_B + cross_B), _nchw(flow_B),
-                    with_mask=False)
-            coords1_A = coords1_A + _nhwc(delta_A)
-            coords1_B = coords1_B + _nhwc(delta_B)
-            if last:
-                up_mask_A = _nhwc(mask_A)
+        k = StepConsts(inp_A, inp_B, fmaps[0], fmaps[1], coords0, g)
+        return self._recur(net_A, net_B, coords1_A, coords1_B, k, corr_fn,
+                           iters, train)
 
-        return upsample_flow_convex(coords1_A - coords0, up_mask_A)
+    def iterate_taped(self, net_A, net_B, inp_A, inp_B, fmap1_A, fmap2_A,
+                      pyr_A, pyr_B, iters: int = 12):
+        """GRU loop of the taped backward (``prior_raft.py:542-587``).
+
+        The standard differentiable recurrence, except that the lookups run
+        primal-only on the (detached) pyramids through ``DCCLFused.record``
+        and each iteration's summed fields become autograd leaves: after
+        ``backward`` their ``.grad`` holds exactly the per-iteration field
+        cotangents that one stacked scatter per level and branch turns into
+        the volume cotangents. Returns ``((preds_A, preds_B), (fields_A,
+        fields_B), (cen_A, cen_B))``: stacked (iters, B, H, W, 2) flows, the
+        lists of field leaves (B, h8, w8, L*81), and the stacked
+        (iters, B, Q, 2) centres."""
+        B, _, h8, w8 = net_A.shape
+        g = self.rotation_grids(8 * h8, 8 * w8, net_A.device)
+        coords0 = gridlib.identity_grid_on(h8, w8, net_A.device).expand(
+            B, h8, w8, 2)
+        pyr_A = [p.detach() for p in pyr_A]
+        pyr_B = [p.detach() for p in pyr_B]
+        fields_A, fields_B, cens_A, cens_B = [], [], [], []
+
+        def corr_fn(c_A, c_B):
+            (f_A, f_B), (cen_A, cen_B) = self.dccl.record(
+                c_A, c_B, pyr_A, pyr_B, g.a2b_w2c_8, g.b2a_w2c_8, g.a2b_8,
+                g.b2a_8)
+            fields_A.append(f_A.requires_grad_())
+            fields_B.append(f_B.requires_grad_())
+            cens_A.append(cen_A)
+            cens_B.append(cen_B)
+            return f_A, f_B
+
+        k = StepConsts(inp_A, inp_B, fmap1_A, fmap2_A, coords0, g)
+        preds = self._recur(net_A, net_B, coords0, coords0, k, corr_fn,
+                            iters, train=True)
+        return (preds, (fields_A, fields_B),
+                (torch.stack(cens_A), torch.stack(cens_B)))

@@ -21,8 +21,9 @@ def conv(in_ch: int, out_ch: int, kernel, stride: int = 1,
 
 class InstanceNorm(nn.Module):
     """Affine-free per-sample, per-channel norm (torch InstanceNorm2d),
-    eps 1e-5, one-pass f32 statistics clamped at 0. On CUDA the statistics
-    come from the instance-norm sums kernel."""
+    eps 1e-5, one-pass f32 statistics clamped at 0. On CUDA the forward's
+    statistics and the backward's two sums come from the instance-norm sums
+    kernel (``ops/kernels/instance_norm.py::InstanceNormFunction``)."""
 
     def __init__(self, eps: float = 1e-5):
         super().__init__()

@@ -4,8 +4,8 @@ Every ``prior_flow_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc``
 process (all started together) for ``sm_90a`` and linked into one shared
 library with a plain C interface, under ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``). The library's name carries a hash
-of the sources and flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Nothing is built or imported when this module is
+of the sources, the shared ``*.cuh`` headers and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. Nothing is built or imported when this module is
 imported.
 """
 
@@ -64,7 +64,7 @@ def _sources() -> list[Path]:
 
 def _digest(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in srcs + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

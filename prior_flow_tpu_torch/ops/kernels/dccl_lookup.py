@@ -9,7 +9,9 @@ taps: the 1/8 rotation grid bilinearly sampled at the level-scaled window
 coords, then used unscaled to sample the OTHER branch's volume.
 
 A tensor on the CPU goes through the plain version; a CUDA tensor launches
-the kernel or raises. The kernel is forward-only.
+the kernel or raises. The wrapper itself is forward-only; its gradient is
+``ops/corr.py::DCCLLevelLookup``, whose backward runs the coords and
+scatter kernels.
 """
 
 from __future__ import annotations
@@ -71,8 +73,8 @@ def _check_inputs(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B):
     if any(t.device != dev for t in tensors):
         raise ValueError("dccl_level_lookup: inputs on different devices")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("dccl_level_lookup: the CUDA kernel is forward-only;"
-                           " call it under torch.no_grad()")
+        raise RuntimeError("dccl_level_lookup: the wrapper is forward-only; "
+                           "differentiate through ops.corr.DCCLLevelLookup")
     if vol_A.dtype not in (torch.float32, torch.bfloat16) \
             or vol_B.dtype != vol_A.dtype:
         raise TypeError(f"volumes must both be float32 or bfloat16, got "

@@ -1,11 +1,13 @@
 """Instance-norm statistics: the CUDA kernel's wrapper, its plain PyTorch
-version, and the affine-free instance norm built on them.
+version, and the affine-free instance norm built on them, with its
+backward.
 
 Counterpart of ``prior_flow_tpu/ops/pallas/instance_norm.py``
-(``_sums_kernel`` via ``_lane_sums``, public op ``instance_norm_fused``);
-kernel source ``prior_flow_tpu_torch/csrc/instance_norm.cu``. A tensor on
-the CPU goes through the plain version; a CUDA tensor launches the kernel
-or raises. The kernel is forward-only here.
+(``_sums_kernel`` via ``_lane_sums``, public op ``instance_norm_fused`` and
+its custom VJP); kernel source ``prior_flow_tpu_torch/csrc/instance_norm.cu``.
+The forward takes the sums of (x, x), the backward the sums of (xhat, dy). A
+tensor on the CPU goes through the plain version; a CUDA tensor launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -18,9 +20,11 @@ from . import _build
 
 
 def instance_norm_sums_plain(x: torch.Tensor, y: torch.Tensor):
-    """(B, C, H, W) x2 -> (sum(y), sum(x*y)) over H*W, each (B, C) f32."""
-    xf, yf = x.float(), y.float()
-    return yf.sum(dim=(2, 3)), (xf * yf).sum(dim=(2, 3))
+    """(B, C, H, W) x2 -> (sum(y), sum(x*y)) over H*W, each (B, C) f32,
+    accumulated in f64 as the kernel does (see ``InstanceNormFunction``)."""
+    xd, yd = x.double(), y.double()
+    return (yd.sum(dim=(2, 3)).float(),
+            (xd * yd).sum(dim=(2, 3)).float())
 
 
 def _kernel():
@@ -47,9 +51,6 @@ def instance_norm_sums(x: torch.Tensor, y: torch.Tensor):
         raise TypeError(f"instance_norm_sums: float32 or bfloat16, got {x.dtype}")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("instance_norm_sums: inputs must be contiguous NCHW")
-    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
-        raise RuntimeError("instance_norm_sums: the CUDA kernel is "
-                           "forward-only; call it under torch.no_grad()")
     B, C, H, W = x.shape
     s1 = torch.empty((B, C), dtype=torch.float32, device=x.device)
     s2 = torch.empty((B, C), dtype=torch.float32, device=x.device)
@@ -66,19 +67,54 @@ def instance_norm_sums(x: torch.Tensor, y: torch.Tensor):
 instance_norm_sums.launches = 0
 
 
+class InstanceNormFunction(torch.autograd.Function):
+    """Affine-free instance norm of NCHW ``x`` with the JAX package's VJP
+    (``prior_flow_tpu/ops/pallas/instance_norm.py:17-23,143-157``):
+
+        dx = s * (dy - mean(dy) - xhat * mean(dy * xhat)),  s = rsqrt(var+eps)
+
+    Both means come from the sums kernel, run on (xhat, dy) in f32: the
+    same two sums as the JAX kernel's (x, dy), but centred, so mean(dy *
+    xhat) is not the difference s * mean(dy * x) - s * m * mean(dy), which
+    cancels when a channel's mean is large against its spread. The
+    normalisation is centred too, (x - m) * s, as the JAX CPU path
+    (``prior_flow_tpu/nn/layers.py:66-77``) computes it. The sums are
+    accumulated in f64 (kernel and plain version alike): the encoder's
+    weight gradients follow the rounding of these sums, and with f32
+    sums they lay ~2e-3 from a float64 evaluation
+    (``tests/test_torch_port_train.py::test_encoder_grads_near_float64``)."""
+
+    @staticmethod
+    def forward(ctx, x, eps: float, out_dtype):
+        n = x.shape[2] * x.shape[3]
+        s1, s2 = instance_norm_sums(x, x)
+        m = s1 / n
+        var = torch.clamp_min(s2 / n - m * m, 0.0)
+        s = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, m, s)
+        return ((x.float() - m[:, :, None, None]) * s[:, :, None, None]).to(
+            out_dtype or x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, m, s = ctx.saved_tensors
+        n = x.shape[2] * x.shape[3]
+        a = s[:, :, None, None]
+        xhat = (x.float() - m[:, :, None, None]) * a
+        dyf = dy.float().contiguous()
+        d1, d2 = instance_norm_sums(xhat, dyf)
+        dx = a * (dyf - (d1 / n)[:, :, None, None]
+                  - xhat * (d2 / n)[:, :, None, None])
+        return dx.to(x.dtype), None, None
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, out_dtype=None):
     """Affine-free instance norm of NCHW ``x`` (torch InstanceNorm2d).
 
-    One-pass statistics E[x^2] - E[x]^2 in f32, clamped at 0
-    (``prior_flow_tpu/nn/layers.py:66-73``); the normalisation
-    ``x * s - m * s`` runs in f32 and rounds once to ``out_dtype`` (default
-    x.dtype), as the TPU path does (``instance_norm.py:135-140``).
+    One-pass statistics E[x^2] - E[x]^2 from f64-accumulated sums, in f32,
+    clamped at 0 (``prior_flow_tpu/nn/layers.py:66-73``); the
+    normalisation ``(x - m) * s`` runs in f32 and rounds once to
+    ``out_dtype`` (default x.dtype).
+    Differentiable through ``InstanceNormFunction``.
     """
-    n = x.shape[2] * x.shape[3]
-    s1, s2 = instance_norm_sums(x, x)
-    m = s1 / n
-    var = torch.clamp_min(s2 / n - m * m, 0.0)
-    s = torch.rsqrt(var + eps)
-    a = s[:, :, None, None]
-    b = (-m * s)[:, :, None, None]
-    return (x.float() * a + b).to(out_dtype or x.dtype)
+    return InstanceNormFunction.apply(x, eps, out_dtype)

@@ -16,6 +16,10 @@ normalisation divides by H-1, which is 0 on the 1-row pyramid levels of
 small inputs. Images are channels-last ``(B, H, W, C)``; coordinates are
 ``(B, ..., 2)`` with ``[..., 0] = x`` and ``[..., 1] = y``; outputs are
 ``(B, ..., C)``.
+
+Backward: autograd of the gathers, the exact VJP (a gather's transpose is
+a scatter-add with the same corner weights); the JAX package's
+transpose-plan machinery only avoids XLA:TPU scatters.
 """
 
 from __future__ import annotations
@@ -37,8 +41,12 @@ def _bilinear_core(img, x, y):
     x, y: (B, Q) float pixel coordinates -> (B, Q, C). The four corner terms
     are summed in the order (dy, dx) = 00, 01, 10, 11, as in the JAX
     sampler (``prior_flow_tpu/ops/samplers.py:38``) and in the DCCL kernel.
+    An empty image (the 1/64 pyramid level of a 32-pixel-high input has no
+    rows) samples zero everywhere, as in JAX.
     """
     B, H, W, C = img.shape
+    if H * W == 0:
+        return img.new_zeros((B, x.shape[1], C)) + 0.0 * x.unsqueeze(-1)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = x - x0

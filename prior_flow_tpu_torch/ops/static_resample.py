@@ -2,9 +2,12 @@
 (counterpart of ``prior_flow_tpu/ops/static_resample.py:262``).
 
 The JAX module pairs each forward resample with a precomputed transpose
-plan, so that its backward avoids XLA:TPU scatters. Inference needs no
-backward, so only the forward contract is kept here: the value of the
-matching sampler at the fixed grid.
+plan, so that its backward avoids XLA:TPU scatters. The port keeps the
+contract and not the plans: the forward is the matching sampler at the
+fixed grid, its VJP is autograd of the sampler's gathers (exact: a gather's
+transpose is a scatter-add with the same weights), and
+``resample_static_transpose`` applies that VJP on its own, as
+``apply_transpose`` does for the taped backward.
 """
 
 from __future__ import annotations
@@ -28,3 +31,17 @@ def resample_static(img: torch.Tensor, grid: torch.Tensor,
     if mode == "cycle_grid":
         return cycle_grid_sample(img, grid)
     raise ValueError(f"unknown resample mode {mode!r}")
+
+
+def resample_static_transpose(ct: torch.Tensor, grid: torch.Tensor,
+                              src_hw, mode: str = "cycle_bilinear"):
+    """The linear transpose of ``resample_static(img, grid, mode)``
+    (counterpart of ``prior_flow_tpu/ops/static_resample.py::
+    apply_transpose``): the cotangent ``ct`` (B, H2, W2, C) of the resample's
+    output -> the cotangent (B, H, W, C) of its input, ``src_hw = (H, W)``.
+    Computed as ``torch.autograd.grad`` of the gathers."""
+    with torch.enable_grad():
+        img = torch.zeros((ct.shape[0], *src_hw, ct.shape[-1]),
+                          dtype=ct.dtype, device=ct.device, requires_grad=True)
+        (g,) = torch.autograd.grad(resample_static(img, grid, mode), img, ct)
+    return g

@@ -1,5 +1,5 @@
 """Image and flow rotation warps between ERP views
-(counterpart of ``prior_flow_tpu/ops/warp.py:27-103``). Channels-last:
+(counterpart of ``prior_flow_tpu/ops/warp.py:27-110``). Channels-last:
 images ``(B, H, W, C)``, flows ``(B, H, W, 2)``; grids ``(H, W, 2)`` or
 ``(B, H, W, 2)`` torch tensors.
 """
@@ -39,3 +39,15 @@ def flo_rotate(flow: torch.Tensor, sample_grid_w2c: torch.Tensor,
     flow_c = torch.stack([erp.u_clip(flow_c[..., 0], W), flow_c[..., 1]],
                          dim=-1)
     return resample_static(flow_c, sample_grid_c2w, mode="cycle_grid")
+
+
+def flo_a2b(flow: torch.Tensor, g: grids.RotationGrids = None) -> torch.Tensor:
+    """A-frame flow -> B-frame flow at full resolution
+    (``prior_flow_tpu/ops/warp.py:106``), through the (H, W) ``a2b_w2c``
+    and ``a2b`` grids. ``g`` is the bundle already on ``flow``'s device
+    (e.g. ``PriOrRAFT.rotation_grids``); without it the grids are copied
+    there."""
+    H, W = flow.shape[1], flow.shape[2]
+    if g is None:
+        g = grids.rotation_grids(H, W).to_device(flow.device)
+    return flo_rotate(flow, g.a2b_w2c, g.a2b)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and a train
+step on the card against the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports no JAX, so it runs as it is on a machine with the card:
@@ -12,9 +13,11 @@ import torch
 
 from prior_flow_tpu_torch.geometry import rotation_grids
 from prior_flow_tpu_torch.models import build_model
-from prior_flow_tpu_torch.ops.kernels import (dccl_lookup, instance_norm,
+from prior_flow_tpu_torch.ops.kernels import (dccl_coords, dccl_lookup,
+                                              dccl_scatter, instance_norm,
                                               launch_counts,
                                               reset_launch_counts)
+from prior_flow_tpu_torch.train import make_optimizer, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -116,6 +119,110 @@ def test_forward_on_card_matches_cpu_and_counts_launches(dev):
     out = card(i1.to(dev), i2.to(dev), iters=iters)
     torch.cuda.synchronize()
     assert launch_counts() == {"dccl_level_lookup": 4 * iters,
-                               "instance_norm_sums": 15}
+                               "instance_norm_sums": 15,
+                               "dccl_grid_coords": 0, "dccl_level_scatter": 0}
     err = (out.cpu() - ref).abs().max().item()
     assert err <= 1e-3 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_coords_kernel_is_bitwise_plain_and_the_lookups_own(dev, lvl):
+    """Cross tap coords: bitwise equal to the plain version, and the lookup
+    kernel's cross outputs are bitwise the plain sampler of the other
+    volume at these coords."""
+    vA, vB, cA, cB, gA, gB = _level_inputs(dev, 2, 16, 32, lvl, torch.float32)
+    scale = 1.0 / 2 ** lvl
+    with torch.no_grad():
+        n0 = dccl_coords.dccl_grid_coords.launches
+        cx, cy = dccl_coords.dccl_grid_coords(cA.reshape(-1, 2), gA, scale)
+        torch.cuda.synchronize()
+        assert dccl_coords.dccl_grid_coords.launches == n0 + 1
+        rx, ry = dccl_coords.dccl_grid_coords_plain(cA.reshape(-1, 2), gA,
+                                                    scale)
+        assert torch.equal(cx, rx) and torch.equal(cy, ry)
+        _, cross_A, _, _ = dccl_lookup.dccl_level_lookup(vA, vB, cA, cB, gA,
+                                                         gB, scale)
+        at = torch.stack([cx, cy], -1).reshape(*cA.shape[:2], 81, 2)
+        assert torch.equal(cross_A, dccl_lookup.sample_volume_level(vB, at))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 3])
+def test_scatter_kernel_matches_plain(dev, dtype, S):
+    g = torch.Generator().manual_seed(S)
+    B, Q, Hl, Wl, scale = 2, 64, 16, 32, 0.5
+    g_own = torch.randn(S, B, Q, 81, generator=g)
+    g_cross = torch.randn(S, B, Q, 81, generator=g)
+    cen = torch.stack([torch.rand(S, B, Q, generator=g) * (2 * Wl + 8) - 4,
+                       torch.rand(S, B, Q, generator=g) * (2 * Hl + 8) - 4],
+                      -1)
+    cx = torch.rand(S, B, Q, 81, generator=g) * 3 * Wl - Wl
+    cy = torch.rand(S, B, Q, 81, generator=g) * (Hl + 3) - 2
+    cx[0, 0, 0, :3] = torch.tensor([-1e-8, Wl - 1, Wl - 0.5])
+    args = [t.to(dev).contiguous() for t in (g_own, cen)] + [scale] + [
+        t.to(dev).contiguous() for t in (g_cross, cx, cy)] + [Hl, Wl, dtype]
+    n0 = dccl_scatter.dccl_level_scatter.launches
+    got = dccl_scatter.dccl_level_scatter(*args)
+    torch.cuda.synchronize()
+    assert dccl_scatter.dccl_level_scatter.launches == n0 + 1
+    ref = dccl_scatter.dccl_level_scatter_plain(*args)
+    assert got.dtype == ref.dtype == dtype
+    got, ref = got.float(), ref.float()
+    # atomics sum in another order: f32 to 1e-5 of the largest value; a
+    # bf16 value may round one step apart
+    tol = 1e-5 * ref.abs().max() + 1e-6
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ref.abs()
+    assert bool(((got - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_backward_on_card_matches_plain(dev, dtype):
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(4, 64, 32, 64, generator=g) * 3 + 1.5).to(dtype)
+    dy = torch.randn(4, 64, 32, 64, generator=g).to(dtype)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        t = x.to(d).requires_grad_()
+        instance_norm.instance_norm(t).backward(dy.to(d))
+        grads.append(t.grad.float().cpu())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(grads[0], grads[1], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("grad_mode", ["standard", "taped"])
+def test_train_step_on_card_matches_cpu(dev, grad_mode):
+    """One 64x128 step, batch 2, 2 iterations, f32, on the card and on the
+    CPU from the same weights: loss to 1e-5 relative, every gradient tensor
+    to 1e-3 relative L2, and the launch counts of the mode. Norms are
+    floored at 1e-6 of the global one, and at 1e-2 of it for the fnet conv
+    biases in front of an instance norm, whose exact gradient is zero."""
+    g = torch.Generator().manual_seed(4)
+    batch = (torch.rand(2, 64, 128, 3, generator=g) * 255,
+             torch.rand(2, 64, 128, 3, generator=g) * 255,
+             torch.randn(2, 64, 128, 2, generator=g) * 5,
+             torch.ones(2, 64, 128))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        model = build_model(d, seed=6)
+        opt, sched = make_optimizer(model.parameters(), 1e-4, 100)
+        step = make_train_step(model, opt, sched, iters=2,
+                               grad_mode=grad_mode, clip=1e9)
+        reset_launch_counts()
+        m = step(tuple(t.to(d) for t in batch), 0)
+        out[d.type] = (float(m["train/loss"]), launch_counts(),
+                       {n: p.grad.detach().cpu() for n, p in
+                        model.named_parameters()})
+    (l_cpu, _, g_cpu), (l_gpu, counts, g_gpu) = out["cpu"], out["cuda"]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    want = {"dccl_level_lookup": 8, "instance_norm_sums": 30,
+            "dccl_grid_coords": 16 if grad_mode == "standard" else 8,
+            "dccl_level_scatter": 16 if grad_mode == "standard" else 8}
+    assert counts == want, counts
+    total = torch.sqrt(sum((t ** 2).sum() for t in g_cpu.values()))
+    for n, ref in g_cpu.items():
+        zero = (n.startswith("fnet.") and n.endswith(".bias")
+                and n != "fnet.conv2.bias")
+        err = (g_gpu[n] - ref).norm() / max(ref.norm(),
+                                            (1e-2 if zero else 1e-6) * total)
+        assert err <= 1e-3, (n, float(err))

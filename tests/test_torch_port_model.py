@@ -147,6 +147,9 @@ import json, sys
 import prior_flow_tpu_torch
 import prior_flow_tpu_torch.cli.demo, prior_flow_tpu_torch.checkpoint
 import prior_flow_tpu_torch.ops.corr, prior_flow_tpu_torch.ops.kernels
+import prior_flow_tpu_torch.train, prior_flow_tpu_torch.eval
+import prior_flow_tpu_torch.ops.kernels.dccl_coords
+import prior_flow_tpu_torch.ops.kernels.dccl_scatter
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "flax" or m.startswith("flax.")
              or m == "prior_flow_tpu" or m.startswith("prior_flow_tpu."))

@@ -71,6 +71,28 @@ def test_instance_norm_matches_pallas_interpret(rng, C):
                                atol=1e-2)
 
 
+@pytest.mark.parametrize("C", [64, 128])
+def test_instance_norm_vjp_matches_pallas_interpret(rng, C):
+    """InstanceNormFunction's backward against jax.vjp of
+    instance_norm_fused (the Pallas kernel in interpret mode and its custom
+    VJP), f32; on the CPU the sums go through the plain version."""
+    x = (rng.normal(size=(2, 8, 16, C)) * 3.0 + 1.5).astype(np.float32)
+    dy = rng.normal(size=(2, 8, 16, C)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: instance_norm_fused(v, 1e-5, None, True),
+                     jnp.asarray(x))
+    (ref,) = vjp(jnp.asarray(dy))
+    t = _nchw(x).requires_grad_()
+    tin.instance_norm(t).backward(_nchw(dy))
+    np.testing.assert_allclose(_nhwc(t.grad), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    # bf16 activations: the gradient comes back in bf16
+    tb = _nchw(x).to(torch.bfloat16).requires_grad_()
+    tin.instance_norm(tb).backward(_nchw(dy).to(torch.bfloat16))
+    assert tb.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(_nhwc(tb.grad.float()), np.asarray(ref),
+                               rtol=5e-2, atol=5e-2)
+
+
 def test_instance_norm_matches_xla_branch(rng):
     """f32 against the XLA InstanceNorm branch, the CPU reference path."""
     x = (rng.normal(size=(2, 16, 32, 64)) * 2.0 - 0.5).astype(np.float32)

@@ -1,11 +1,13 @@
-"""Port ops (samplers, warps, static resample, correlation, plain DCCL)
-against the JAX package on the CPU. Inputs come from numpy seeds and go
-through both implementations."""
+"""Port ops (samplers, warps, static resample, correlation, plain DCCL, and
+the backward pieces: sampler VJPs, the resample transpose, the DCCL cross
+tap coords and volume scatter) against the JAX package on the CPU. Inputs
+come from numpy seeds and go through both implementations."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from prior_flow_tpu.geometry import grids as jgrids
@@ -15,7 +17,8 @@ from prior_flow_tpu.ops import static_resample as jstatic
 from prior_flow_tpu.ops import warp as jwarp
 from prior_flow_tpu_torch.geometry import rotation_grids
 from prior_flow_tpu_torch.ops import corr, samplers, static_resample, warp
-from prior_flow_tpu_torch.ops.kernels import dccl_lookup
+from prior_flow_tpu_torch.ops.kernels import (dccl_coords, dccl_lookup,
+                                              dccl_scatter)
 
 T = torch.from_numpy
 SAMPLER_ATOL = 1e-5   # f32 bilinear blends of O(1) payloads
@@ -219,3 +222,264 @@ def test_level_lookup_matches_pallas_interpret(rng, dtype):
         for r, t in zip(ref, got):
             np.testing.assert_allclose(t.numpy(), np.asarray(r),
                                        atol=DCCL_ATOL, rtol=0)
+
+
+# -- backward contracts: samplers, static resample, DCCL coords and scatter --
+
+def test_samplers_vjp_match_jax(rng):
+    """Image VJPs of the three samplers (the flaw-map warps and the
+    back-rotations) against jax.vjp, on seam and edge coords."""
+    B, H, W, C = 2, 6, 10, 3
+    img = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    coords = _coords(rng, B, 64, H, W).reshape(B, 8, 8, 2)
+    ct = rng.normal(size=(B, 8, 8, C)).astype(np.float32)
+    for name in ("bilinear_sample", "cycle_bilinear_sample",
+                 "cycle_grid_sample"):
+        _, vjp = jax.vjp(lambda i: getattr(jsamp, name)(i, jnp.asarray(coords)),
+                         jnp.asarray(img))
+        (ref,) = vjp(jnp.asarray(ct))
+        t = T(img).requires_grad_()
+        getattr(samplers, name)(t, T(coords)).backward(T(ct))
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref),
+                                   atol=SAMPLER_ATOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["cycle_bilinear", "cycle_grid"])
+def test_resample_static_vjp_and_transpose_match_jax(rng, mode):
+    g = jgrids.rotation_grids(64, 128).b2a_8
+    img = rng.normal(size=(3, 8, 16, 5)).astype(np.float32)
+    ct = rng.normal(size=(3, 8, 16, 5)).astype(np.float32)
+    _, vjp = jax.vjp(lambda i: jstatic.resample_static(i, g, mode=mode),
+                     jnp.asarray(img))
+    (ref,) = vjp(jnp.asarray(ct))
+    t = T(img).requires_grad_()
+    static_resample.resample_static(t, T(g), mode=mode).backward(T(ct))
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref),
+                               atol=SAMPLER_ATOL, rtol=0)
+    plan = jstatic.transpose_plan(g, (8, 16), mode=mode)
+    ref_t = np.asarray(jstatic.apply_transpose(plan, jnp.asarray(ct)))
+    got_t = static_resample.resample_static_transpose(T(ct), T(g), (8, 16),
+                                                      mode=mode)
+    np.testing.assert_allclose(got_t.numpy(), ref_t, atol=SAMPLER_ATOL, rtol=0)
+
+
+def test_empty_plane_samples_zero():
+    """The 1/64 pyramid level of a 32-pixel-high input has no rows: JAX
+    samples zero there, and so does the port (it raised before)."""
+    img = np.zeros((2, 0, 1, 3), np.float32)
+    coords = np.array([[[0.5, 0.0], [0.0, -0.5]]] * 2, np.float32)
+    ref = np.asarray(jsamp.cycle_bilinear_sample(jnp.asarray(img),
+                                                 jnp.asarray(coords)))
+    got = samplers.cycle_bilinear_sample(T(img), T(coords))
+    assert got.shape == ref.shape == (2, 2, 3)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _centres(rng, N, h, w):
+    """Unscaled 1/8 centres over the image and a margin, with the seam and
+    the pole rows. No x a hair below 0: there an x wraps to exactly W, where
+    the Pallas grid window takes column 0 and the samplers give zero
+    (ROADMAP Queue 3)."""
+    c = np.stack([rng.uniform(-2, w + 2, N), rng.uniform(-2, h + 2, N)],
+                 -1).astype(np.float32)
+    c[:6] = [[w - 1, 0.0], [w - 0.5, h - 1], [-1e-3, 2.0], [-0.5, -0.5],
+             [w - 1e-3, h - 0.5], [0.0, h - 1.0]]
+    return c
+
+
+def _coords_vs_pallas(rng, H, W, N, atol=1e-5):
+    from prior_flow_tpu.ops.pallas.dccl_gather import (dccl_grid_coords,
+                                                       pack_grid_planes)
+    g = jgrids.rotation_grids(H, W)
+    cen = _centres(rng, N, H // 8, W // 8)
+    for grid in (g.a2b_w2c_8, g.b2a_w2c_8):
+        for lvl in range(4):
+            s = 1.0 / 2 ** lvl
+            rx, ry = dccl_grid_coords(jnp.asarray(cen),
+                                      pack_grid_planes(jnp.asarray(grid)),
+                                      grid.shape[1], s, interpret=True)
+            cx, cy = dccl_coords.dccl_grid_coords_plain(T(cen), T(grid), s)
+            assert cx.shape == cy.shape == (N, 81)
+            np.testing.assert_allclose(cx.numpy(), np.asarray(rx)[:, :81],
+                                       atol=atol, rtol=0)
+            np.testing.assert_allclose(cy.numpy(), np.asarray(ry)[:, :81],
+                                       atol=atol, rtol=0)
+
+
+def test_grid_coords_plain_matches_pallas_interpret(rng):
+    """The plain cross tap coords against the Pallas coords kernel
+    (interpret mode), atol 1e-5 px, 64x128-class grid, all four levels."""
+    _coords_vs_pallas(rng, 64, 128, 64)
+
+
+@pytest.mark.slow  # interpret-mode Pallas over a 512x1024-class grid
+def test_grid_coords_plain_matches_pallas_interpret_full_grid(rng):
+    """At a 64x128 grid the coords reach 128 px and neighbouring grid cells
+    differ by up to 32 px. The Pallas window takes the fraction of the
+    scaled centre once and adds the integer offsets after; the port (like
+    its lookup, which it must match bit for bit) adds them first. The two
+    f32 orders then place a tap up to 2 ulps apart (1.5e-5 px each at
+    128), which the grid's slope turns into up to 2 x 1.5e-5 x 32 = 9.8e-4
+    px: this grid is held to 1e-3 px (measured: 4.4e-4)."""
+    _coords_vs_pallas(rng, 512, 1024, 512, atol=1e-3)
+
+
+def test_grid_coords_plain_is_the_lookups_cross_coords(rng):
+    """The plain coords are exactly the coords at which the plain lookup
+    samples the other volume: cross_A equals sampling volume B there."""
+    pyr_A, pyr_B, cA, cB = _dccl_inputs(rng)
+    g = rotation_grids(64, 128).to_device("cpu")
+    cqA = T(cA).reshape(2, 128, 2)
+    cqB = T(cB).reshape(2, 128, 2)
+    for lvl in range(4):
+        s = 1.0 / 2 ** lvl
+        _, cross_A, _, _ = dccl_lookup.dccl_level_lookup_plain(
+            pyr_A[lvl], pyr_B[lvl], cqA, cqB, g.a2b_w2c_8, g.b2a_w2c_8, s)
+        cx, cy = dccl_coords.dccl_grid_coords(cqA.reshape(-1, 2), g.a2b_w2c_8,
+                                              s)
+        at = torch.stack([cx, cy], -1).reshape(2, 128, 81, 2)
+        ref = dccl_lookup.sample_volume_level(pyr_B[lvl], at)
+        np.testing.assert_array_equal(cross_A.numpy(), ref.numpy())
+
+
+def _scatter_inputs(rng, S, B, Q, Hl, Wl, away_from_edge=True):
+    g_own = rng.normal(size=(S, B, Q, 81)).astype(np.float32)
+    g_cross = rng.normal(size=(S, B, Q, 81)).astype(np.float32)
+    cen = np.stack([rng.uniform(-3, 2 * Wl + 3, (S, B, Q)),
+                    rng.uniform(-3, 2 * Hl + 3, (S, B, Q))], -1
+                   ).astype(np.float32)
+    cx = rng.uniform(-Wl, 2 * Wl, (S, B, Q, 81)).astype(np.float32)
+    cy = rng.uniform(-2, Hl + 1, (S, B, Q, 81)).astype(np.float32)
+    if not away_from_edge:
+        cx[0, 0, 0, :3] = [-1e-8, Wl - 1, Wl - 0.5]
+        cen[0, 0, 0] = [-1e-8, 1.0]
+    return g_own, cen, g_cross, cx, cy
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_level_scatter_plain_matches_jax_einsums(rng, S):
+    """The plain scatter against the JAX backward's one-hot einsums:
+    _scatter_own_cross for S = 1, _scatter_grads_window_multi +
+    _scatter_grads_multi for S = 3, away from the x == W edge (where JAX
+    clips to column W-1, ROADMAP Queue 3)."""
+    from prior_flow_tpu.ops.pallas import dccl_gather as jdg
+    B, Q, Hl, Wl, scale = 2, 6, 8, 16, 0.5
+    g_own, cen, g_cross, cx, cy = _scatter_inputs(rng, S, B, Q, Hl, Wl)
+    j = jnp.asarray
+    if S == 1:
+        ref = jdg._scatter_own_cross(j(g_own[0]), j(cen[0]), scale,
+                                     j(g_cross[0]), j(cx[0]), j(cy[0]), Hl, Wl,
+                                     jnp.float32)
+    else:
+        ref = (jdg._scatter_grads_window_multi(j(g_own), j(cen), scale, Hl, Wl,
+                                               jnp.float32)
+               + jdg._scatter_grads_multi(j(g_cross), j(cx), j(cy), Hl, Wl,
+                                          jnp.float32))
+    got = dccl_scatter.dccl_level_scatter(T(g_own), T(cen), scale, T(g_cross),
+                                          T(cx), T(cy), Hl, Wl)
+    assert got.shape == (B, Q, Hl, Wl) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_level_scatter_is_the_exact_transpose_of_the_lookup(rng):
+    """The scatter of the lookup's cotangents (volume A: branch A's own
+    taps and branch B's cross taps) equals torch.autograd of the plain
+    lookup, with the x == W edge included; S = 2 is the sum of two S = 1
+    scatters; bf16 output is the f32 result rounded once."""
+    pyr_A, pyr_B, cA, cB = _dccl_inputs(rng)
+    g = rotation_grids(64, 128).to_device("cpu")
+    cqA = T(cA).reshape(2, 128, 2)
+    cqB = T(cB).reshape(2, 128, 2)
+    for lvl in (0, 2):
+        s = 1.0 / 2 ** lvl
+        vA = pyr_A[lvl].clone().requires_grad_()
+        vB = pyr_B[lvl].clone().requires_grad_()
+        outs = dccl_lookup.dccl_level_lookup_plain(vA, vB, cqA, cqB,
+                                                   g.a2b_w2c_8, g.b2a_w2c_8, s)
+        cts = [T(rng.normal(size=(2, 128, 81)).astype(np.float32))
+               for _ in range(4)]
+        dA, dB = torch.autograd.grad(outs, (vA, vB), cts)
+        cxB, cyB = dccl_coords.dccl_grid_coords(cqB.reshape(-1, 2),
+                                                g.b2a_w2c_8, s)
+        one = lambda t: t.reshape(1, 2, 128, -1)
+        Hl, Wl = vA.shape[2:]
+        got = dccl_scatter.dccl_level_scatter(one(cts[0]), one(cqA), s,
+                                              one(cts[3]), one(cxB), one(cyB),
+                                              Hl, Wl)
+        np.testing.assert_allclose(got.numpy(), dA.numpy(), atol=1e-6,
+                                   rtol=1e-6)
+    g_own, cen, g_cross, cx, cy = (T(a) for a in _scatter_inputs(
+        rng, 2, 2, 5, 4, 8, away_from_edge=False))
+    two = dccl_scatter.dccl_level_scatter(g_own, cen, 0.5, g_cross, cx, cy, 4, 8)
+    parts = [dccl_scatter.dccl_level_scatter(g_own[i:i + 1], cen[i:i + 1], 0.5,
+                                             g_cross[i:i + 1], cx[i:i + 1],
+                                             cy[i:i + 1], 4, 8)
+             for i in range(2)]
+    np.testing.assert_allclose(two.numpy(), (parts[0] + parts[1]).numpy(),
+                               atol=1e-5, rtol=1e-6)
+    bf = dccl_scatter.dccl_level_scatter(g_own, cen, 0.5, g_cross, cx, cy, 4, 8,
+                                         torch.bfloat16)
+    assert bf.dtype == torch.bfloat16
+    assert torch.equal(bf, two.to(torch.bfloat16))
+
+
+def test_scatter_zero_where_x_wraps_to_width():
+    """A tap whose x wraps to exactly W got zero in the forward, so it
+    scatters nothing; the JAX backward would put it into column W-1."""
+    S, B, Q, Hl, Wl = 1, 1, 1, 4, 8
+    g = torch.zeros(S, B, Q, 81)
+    g[0, 0, 0, 0] = 1.0
+    cx = torch.zeros(S, B, Q, 81)
+    cy = torch.full((S, B, Q, 81), 1.0)
+    cx[0, 0, 0, 0] = -1e-8
+    far = torch.full((S, B, Q, 2), 100.0)   # own window entirely outside
+    out = dccl_scatter.dccl_level_scatter(torch.zeros_like(g), far, 1.0, g,
+                                          cx, cy, Hl, Wl)
+    assert float(out.abs().sum()) == 0.0
+
+
+def test_dccl_fused_gradient_matches_autograd_of_plain(rng):
+    """DCCLFused's kernel path (its autograd Function, whose backward runs
+    the coords and scatter wrappers: their plain versions on the CPU)
+    gives the volumes the same gradient as autograd of the plain gathers.
+    With bf16 pyramids the Function accumulates in f32 and rounds once, so
+    it is held to the f32 gradient of the same (bf16-valued) volumes within
+    half a bf16 step."""
+    pyr_A, pyr_B, cA, cB = _dccl_inputs(rng)
+    g = rotation_grids(64, 128).to_device("cpu")
+    cts = [T(rng.normal(size=(2, 8, 16, 324)).astype(np.float32))
+           for _ in range(4)]
+
+    def grads(lookup, dtype):
+        vA = [p.detach().to(dtype).clone().requires_grad_() for p in pyr_A]
+        vB = [p.detach().to(dtype).clone().requires_grad_() for p in pyr_B]
+        outs = corr.DCCLFused(4, 4, level_lookup=lookup)(
+            T(cA), T(cB), vA, vB, g.a2b_w2c_8, g.b2a_w2c_8, g.a2b_8, g.b2a_8)
+        torch.autograd.backward(outs, cts)
+        return [v.grad for v in vA + vB]
+
+    for a, b in zip(grads(corr.DCCLLevelLookup.apply,
+                          torch.float32),
+                    grads(corr.dccl_level_lookup_plain, torch.float32)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-5)
+    pyr_A = [p.to(torch.bfloat16).float() for p in pyr_A]
+    pyr_B = [p.to(torch.bfloat16).float() for p in pyr_B]
+    for a, b in zip(grads(corr.DCCLLevelLookup.apply,
+                          torch.bfloat16),
+                    grads(corr.dccl_level_lookup_plain, torch.float32)):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(), b.numpy(),
+                                   rtol=2.0 ** -8, atol=1e-6)
+
+
+def test_record_gives_the_summed_fields(rng):
+    pyr_A, pyr_B, cA, cB = _dccl_inputs(rng)
+    g = rotation_grids(64, 128).to_device("cpu")
+    args = (T(cA), T(cB), pyr_A, pyr_B, g.a2b_w2c_8, g.b2a_w2c_8, g.a2b_8,
+            g.b2a_8)
+    own_A, cross_A, own_B, cross_B = corr.DCCLFused(4, 4)(*args)
+    (f_A, f_B), (cen_A, cen_B) = corr.DCCLFused(4, 4).record(*args)
+    assert torch.equal(f_A, own_A + cross_A) and torch.equal(f_B, own_B + cross_B)
+    assert torch.equal(cen_A, T(cA).reshape(2, 128, 2))
+    assert not f_A.requires_grad

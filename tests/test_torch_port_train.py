@@ -1,0 +1,304 @@
+"""The port's training step against the JAX package's on the CPU.
+
+One module-scoped JAX oracle: ``make_train_step`` of
+``PriOrRAFT(precision="highest")``, jitted, one step at 64x128, batch 2,
+2 iterations, f32, with an optax stage in front of the recipe's chain that
+keeps the raw gradients in the optimizer state. The port loads the same
+weights (``state_dict_from_jax``) and takes one step in each grad mode.
+
+Gradient tolerance: relative L2 per parameter tensor, 1e-3 for every
+tensor. The conv biases in front of an instance norm have a zero gradient
+in exact arithmetic and carry only round-off (~1e-12 of the global norm),
+so every reference norm is floored at 1e-6 of the global gradient norm.
+``test_encoder_grads_near_float64`` shows what f32 can give where the
+gradients are most sensitive, the feature encoder. The random conv
+kernels are drawn at half the N(0, 1/fan_in) scale: at full scale the
+GRU's tanh and sigmoid gates saturate (hidden states at 0.99997), where
+both frameworks form 1 - y^2 from rounded outputs.
+"""
+
+import copy
+import functools
+
+import numpy as np
+import optax
+import pytest
+import torch
+import torch.nn.functional as F
+
+import jax
+import jax.numpy as jnp
+
+from prior_flow_tpu.models import PriOrRAFT as JaxPriOrRAFT
+from prior_flow_tpu.ops import warp as jwarp
+from prior_flow_tpu.train import loss as jloss
+from prior_flow_tpu.train import optim as joptim
+from prior_flow_tpu.train import trainer as jtrainer
+from prior_flow_tpu_torch.checkpoint import state_dict_from_jax
+from prior_flow_tpu_torch.models import build_model
+from prior_flow_tpu_torch.nn.layers import InstanceNorm
+from prior_flow_tpu_torch.ops import warp
+from prior_flow_tpu_torch.train import (Trainer, TrainerConfig,
+                                        make_optimizer, make_train_step,
+                                        one_cycle_linear,
+                                        uniform_sequence_loss)
+from test_torch_port_nn import random_variables
+
+H, W, B, ITERS = 64, 128, 2, 2
+LR, NUM_STEPS = 4e-4, 100
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 1e-3
+GRAD_FLOOR = 1e-6     # reference norms floored at this share of the global
+
+
+def _batch(seed=0, b=B, h=H, w=W):
+    """Uniform images and a smooth flow with |flow| < 50 px, all valid but
+    a band of invalid pixels."""
+    rng = np.random.default_rng(seed)
+    i1 = rng.uniform(0, 255, (b, h, w, 3)).astype(np.float32)
+    i2 = rng.uniform(0, 255, (b, h, w, 3)).astype(np.float32)
+    yy, xx = np.meshgrid(np.linspace(0, np.pi, h), np.linspace(0, 2 * np.pi, w),
+                         indexing="ij")
+    amp = rng.uniform(5, 30, (b, 1, 1, 2))
+    flow = (amp * np.stack([np.sin(xx + yy), np.cos(2 * yy - xx)], -1)[None]
+            ).astype(np.float32)
+    valid = np.ones((b, h, w), np.float32)
+    valid[:, :, :4] = 0.0
+    return i1, i2, flow, valid
+
+
+def _variables(jm, seed):
+    """Random Flax variables of ``jm`` with the conv kernels at half scale
+    (see the module docstring)."""
+    img = jnp.zeros((1, H, W, 3))
+    v = random_variables(jm, img, img, iters=1, seed=seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda p, x: x * 0.5 if p[-1].key == "kernel" else x, v)
+
+
+def _capture_grads():
+    """An optax stage that passes its updates through and keeps them as its
+    state."""
+    return optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+
+
+@pytest.fixture(scope="module")
+def oracle():
+    jm = JaxPriOrRAFT(precision="highest")
+    variables = _variables(jm, seed=3)
+    tx_recipe, schedule = joptim.make_optimizer(LR, NUM_STEPS)
+    tx = optax.chain(_capture_grads(), tx_recipe)
+    state = jtrainer.TrainState.create(variables, tx)
+    step = jax.jit(jtrainer.make_train_step(jm, tx, iters=ITERS, gamma=0.8))
+    batch = _batch()
+    new_state, metrics = step(state, tuple(jnp.asarray(a) for a in batch),
+                              jax.random.PRNGKey(0))
+    to_np = lambda tree: {k: v.numpy() for k, v in state_dict_from_jax(
+        {"params": tree}).items()}
+    return dict(variables=variables, batch=batch,
+                grads=to_np(new_state.opt_state[0]),
+                old=to_np(state.params), new=to_np(new_state.params),
+                metrics={k: float(v) for k, v in metrics.items()},
+                lr0=float(schedule(0)))
+
+
+def _rel_l2(got, ref, floor):
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), floor))
+
+
+@pytest.mark.parametrize("grad_mode", ["standard", "taped"])
+def test_train_step_matches_jax(oracle, grad_mode):
+    """Loss, metrics, clipped gradients and the AdamW update of one step,
+    in both grad modes, against JAX's jitted ``make_train_step``."""
+    model = build_model("cpu", state_dict=state_dict_from_jax(
+        oracle["variables"]))
+    optimizer, schedule = make_optimizer(model.parameters(), LR, NUM_STEPS)
+    step = make_train_step(model, optimizer, schedule, iters=ITERS,
+                           grad_mode=grad_mode)
+    old = {n: p.detach().clone() for n, p in model.named_parameters()}
+    metrics = step(tuple(torch.from_numpy(a) for a in oracle["batch"]), 0)
+
+    ref = oracle["metrics"]
+    for k in ("train/loss", "train/grad_norm", "A-epe", "B-epe", "A-3px"):
+        assert abs(float(metrics[k]) - ref[k]) <= LOSS_RTOL * abs(ref[k]), k
+    # the port's .grad holds the clipped gradient: clip JAX's the same way
+    g_norm = ref["train/grad_norm"]
+    clip = min(1.0, 1.0 / g_norm)
+    floor = GRAD_FLOOR * g_norm * clip
+    names = [n for n, _ in model.named_parameters()]
+    assert set(names) <= set(oracle["grads"])
+    worst = 0.0
+    for n, p in model.named_parameters():
+        g_ref = oracle["grads"][n] * clip
+        err = _rel_l2(p.grad.numpy(), g_ref, floor)
+        assert err <= GRAD_RTOL, (n, err)
+        worst = max(worst, err)
+        # the AdamW update, where the gradient it sees (clipped) is clearly
+        # above Adam's eps of 1e-8
+        d_ref = oracle["new"][n] - oracle["old"][n]
+        d_got = (p.detach() - old[n]).numpy()
+        mask = np.abs(g_ref) > 1e-6
+        np.testing.assert_allclose(d_got[mask], d_ref[mask], rtol=0,
+                                   atol=1e-2 * oracle["lr0"], err_msg=n)
+    print(f"{grad_mode}: loss {float(metrics['train/loss']):.6f} "
+          f"(jax {ref['train/loss']:.6f}), worst grad rel L2 {worst:.2e}")
+
+
+def test_encoder_grads_near_float64(oracle):
+    """The feature encoder's gradients against a float64 evaluation at the
+    same cotangent. They are the gradients most sensitive to round-off:
+    with the instance norms' sums in f32 (torch's CPU sum) the port's f32
+    weight gradients of the stem and stages 1-2 lay up to 1.9e-3 from
+    float64; summed in f64, as the sums' plain version and kernel now do,
+    within 2.2e-4. Reference: the port's encoder in float64
+    with torch's own instance norm, fed the port's views and the loss's
+    cotangent at its four outputs. The port's f32 gradients must lie
+    within half the gate of it, JAX's (the oracle's, at its own cotangent)
+    within the gate."""
+    model = build_model("cpu", state_dict=state_dict_from_jax(
+        oracle["variables"]))
+    fnet64 = copy.deepcopy(model.fnet).double()
+    for mod in fnet64.modules():
+        if isinstance(mod, InstanceNorm):
+            mod.forward = functools.partial(F.instance_norm, eps=mod.eps)
+    seen = {}
+
+    def keep(module, args, outs):
+        seen["views"] = [v.detach() for v in args[0]]
+        for o in outs:
+            o.retain_grad()
+        seen["outs"] = outs
+
+    hook = model.fnet.register_forward_hook(keep)
+    optimizer, schedule = make_optimizer(model.parameters(), LR, NUM_STEPS)
+    step = make_train_step(model, optimizer, schedule, iters=ITERS, clip=1e9)
+    step(tuple(torch.from_numpy(a) for a in oracle["batch"]), 0)
+    hook.remove()
+
+    outs = fnet64([v.double() for v in seen["views"]])
+    names = ["fnet." + n for n, _ in fnet64.named_parameters()]
+    ref = torch.autograd.grad(outs, list(fnet64.parameters()),
+                              [o.grad.double() for o in seen["outs"]])
+    floor = GRAD_FLOOR * oracle["metrics"]["train/grad_norm"]
+    got = dict(model.named_parameters())
+    port, jax_err = {}, {}
+    for n, r in zip(names, ref):
+        r = r.numpy()
+        port[n] = _rel_l2(got[n].grad.double().numpy(), r, floor)
+        jax_err[n] = _rel_l2(oracle["grads"][n], r, floor)
+    print("encoder gradients against float64, worst: port "
+          f"{max(port.values()):.2e} ({max(port, key=port.get)}), JAX "
+          f"{max(jax_err.values()):.2e} ({max(jax_err, key=jax_err.get)})")
+    for n in names:
+        assert port[n] <= GRAD_RTOL / 2, (n, port[n])
+        assert jax_err[n] <= GRAD_RTOL, (n, jax_err[n])
+
+
+def test_one_cycle_linear_matches_optax():
+    T = NUM_STEPS + 100
+    warm = max(int(0.05 * T), 1)
+    ours = one_cycle_linear(LR, T)
+    ref = joptim.one_cycle_linear(LR, T)
+    for s in (0, warm - 1, warm, warm + 1, T // 2, T - 1, T, T + 5):
+        # optax evaluates in f32, the port in f64
+        np.testing.assert_allclose(ours(s), float(ref(s)), rtol=1e-5,
+                                   err_msg=str(s))
+
+
+def test_sequence_loss_matches_jax(rng):
+    preds = rng.normal(0, 20, (3, 2, 16, 32, 2)).astype(np.float32)
+    gt = rng.normal(0, 20, (2, 16, 32, 2)).astype(np.float32)
+    gt[0, 0, :3] = 500.0                       # beyond max_flow
+    valid = (rng.uniform(size=(2, 16, 32)) > 0.2).astype(np.float32)
+    ref_loss, ref_m = jloss.uniform_sequence_loss(
+        jnp.asarray(preds), jnp.asarray(gt), jnp.asarray(valid), prefix="A-")
+    loss, m = uniform_sequence_loss(torch.from_numpy(preds),
+                                    torch.from_numpy(gt),
+                                    torch.from_numpy(valid), prefix="A-")
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-5)
+    assert set(m) == set(ref_m)
+    for k in m:
+        np.testing.assert_allclose(float(m[k]), float(ref_m[k]), rtol=1e-5,
+                                   err_msg=k)
+
+
+def test_flo_a2b_matches_jax():
+    flow = _batch(seed=4, b=1)[2]
+    ref = np.asarray(jwarp.flo_a2b(jnp.asarray(flow)))
+    got = warp.flo_a2b(torch.from_numpy(flow)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+def test_train_forward_last_prediction_is_test_mode_flow():
+    """The training forward's last branch-A prediction is the test-mode
+    output: the same recurrence, both mask heads every iteration."""
+    model = build_model("cpu", seed=2)
+    i1, i2, _, _ = (torch.from_numpy(a) for a in _batch(seed=1, b=1))
+    preds_A, preds_B = model(i1, i2, iters=2, test_mode=False)
+    assert preds_A.shape == preds_B.shape == (2, 1, H, W, 2)
+    assert preds_A.requires_grad
+    np.testing.assert_allclose(preds_A[-1].detach().numpy(),
+                               model(i1, i2, iters=2).numpy(), atol=1e-5)
+    model.dropout = 0.1
+    with pytest.raises(NotImplementedError):
+        model(i1, i2, iters=1, test_mode=False)
+
+
+def test_trainer_save_and_resume(tmp_path):
+    """Two steps, save, resume in a fresh Trainer: the third step equals an
+    uninterrupted run's."""
+    cfg = TrainerConfig(num_steps=10, iters=1, lr=1e-3, seed=5)
+    batches = [tuple(torch.from_numpy(a) for a in _batch(seed=s, b=1,
+                                                          h=32, w=64))
+               for s in range(3)]
+    full = Trainer(cfg, device="cpu")
+    full.run(batches)
+    part = Trainer(cfg, device="cpu")
+    logged = []
+    part.run(batches[:2], log=lambda m, s: logged.append((s, m)))
+    assert [s for s, _ in logged] == [0, 1]
+    assert np.isfinite(logged[-1][1]["train/loss"])
+    path = str(tmp_path / "state.pt")
+    part.save(path)
+    resumed = Trainer(cfg, device="cpu")
+    resumed.load(path)
+    assert resumed.step == 2
+    resumed.run(batches[2:])
+    for (n, a), b in zip(full.model.state_dict().items(),
+                         resumed.model.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=n)
+
+
+@pytest.mark.slow  # interpret-mode Pallas scan and deferred scatter on CPU
+def test_taped_grads_match_jax_taped_pallas():
+    """The port's taped gradients against JAX's ``taped_value_and_grad``
+    with the Pallas lookup in interpret mode (as tests/test_model.py does),
+    32x64 (its 1/64 pyramid level is empty), batch 1, 2 iterations."""
+    jm = JaxPriOrRAFT(lookup_mode="pallas", precision="highest")
+    variables = _variables(jm, seed=6)
+    i1, i2, flow, valid = _batch(seed=2, b=1, h=32, w=64)
+    flow_B = np.asarray(jwarp.flo_a2b(jnp.asarray(flow)))
+    valid_B = ((np.abs(flow_B[..., 0]) < 1000)
+               & (np.abs(flow_B[..., 1]) < 1000)).astype(np.float32)
+    (loss, _), grads = jax.jit(
+        lambda v: jtrainer.taped_value_and_grad(
+            jm, v, *(jnp.asarray(a) for a in (i1, i2, flow, valid, flow_B,
+                                              valid_B)),
+            jax.random.PRNGKey(0), 2, 0.8))(variables)
+    ref = {k: v.numpy() for k, v in state_dict_from_jax(
+        {"params": grads}).items()}
+
+    from prior_flow_tpu_torch.train.trainer import taped_value_and_grad
+    model = build_model("cpu", state_dict=state_dict_from_jax(variables))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    got_loss, _ = taped_value_and_grad(model, t(i1), t(i2), t(flow),
+                                       t(valid), t(flow_B), t(valid_B), 2,
+                                       0.8)
+    np.testing.assert_allclose(float(got_loss), float(loss), rtol=LOSS_RTOL)
+    g_norm = np.sqrt(sum(float((v ** 2).sum()) for v in
+                         jax.tree_util.tree_leaves(grads)))
+    for n, p in model.named_parameters():
+        err = _rel_l2(p.grad.numpy(), ref[n], GRAD_FLOOR * g_norm)
+        assert err <= GRAD_RTOL, (n, err)
