@@ -29,14 +29,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step, median ms/step, peak GB; standard and taped agree on the first
    step's loss and gradients;
 10. one step on the card and on the CPU at 128x256, batch 1, 2 iterations,
-   f32, both grad modes, same weights.
+   f32, both grad modes, same weights;
+11. the lookup at given cross coords against its plain version and against
+   the grid lookup (kernel 1), bitwise, at the four level shapes of a
+   1024x2048 forward (B x Q = 32768), f32 and bf16, with the coords from
+   the coords kernel (the planes route); one bf16 level-0 launch at batch
+   3 (more than 2^31 volume elements) checked on its first and last batch
+   element;
+12. the all-levels lookup against four per-level launches, bitwise, at
+   512x1024, batch 1 and 4, f32 and bf16;
+13. the chunked pyramid build against the dense one at 512x1024 and
+   1024x2048, f32 and bf16 (bitwise expected; else gated at 2^-20 of
+   max|level| in f32 and one bf16 step), ms and peak GB of each;
+14. the 1024x2048 test-mode forward, batch 1, 12 iterations, fp32 then bf16
+   (48 lookups at given coords, 24 coords launches, no kernel 1, 15 norms
+   per forward; median ms/pair over 5 runs; peak GB); the 128x256 forward
+   with the chunked build and the planes route forced on the card against
+   the CPU's default routes; the 512x1024 fp32 forward with
+   PRIORFLOW_DCCL_FUSE_LEVELS=1 (12 all-levels launches, no kernel 1) within
+   1e-5 x flow scale of phase 4's flow.
 Then the card's name and power limit, a ``kernels`` JSON line with each
-kernel's launches, error, times and bound, and the result line.
+kernel's launches per path, error, times and bound, and the result line.
 
 TF32 is off for matmuls and cuDNN convolutions in every phase, so "fp32"
 is full f32 and the card-vs-CPU comparisons are like for like.
 ``--profile`` adds a torch.profiler kernel breakdown of one forward per
-precision and of one training step per grad mode. Imports nothing of JAX
+precision (512x1024 and 1024x2048) and of one training step per grad
+mode. Imports nothing of JAX
 or of the JAX package.
 """
 
@@ -56,6 +75,10 @@ sys.path.insert(0, REPO)
 
 H, W, ITERS = 512, 1024, 12
 FNET_SHAPES = [(4, 64, 256, 512), (4, 96, 128, 256), (4, 128, 64, 128)]
+# the high-resolution path: a 1024x2048 pair, batch 1 (ROADMAP Queue 2
+# items 4 and 5), and its fnet norm shapes
+H2, W2 = 1024, 2048
+FNET_SHAPES_HR = [(4, 64, 512, 1024), (4, 96, 256, 512), (4, 128, 128, 256)]
 NORMS_PER_SHAPE = 5
 LOOKUP_ATOL = 2e-5        # unit-scale volumes; kernel and plain round alike
 SUMS_RTOL = SUMS_ATOL = 1e-5
@@ -81,6 +104,14 @@ LEVELS = 4
 COORDS_OPS_PER_TAP = 51
 SCATTER_OPS_PER_TAP = 66
 SCATTER_RTOL = 1e-5       # of max|plain|; atomics reorder the f32 sums
+# f32 operations per (query, tap) of the lookup at given coords, both
+# branches (2 x (own 35 + cross 35 + window 4)), and the batch of its
+# launch with more than 2^31 volume elements
+LOOKUP_COORDS_OPS_PER_TAP = 148
+BIG_B = 3
+# the fused-levels forward against the per-level one: the same kernel
+# arithmetic, so only the convolutions' run-to-run rounding may differ
+FUSED_FLOW_TOL = 1e-5
 MODE_GRAD_RTOL = 2e-2     # standard vs taped: per-iteration bf16 dV sums
 STEP_LOSS_RTOL = 1e-5
 CARD_CPU_GRAD_RTOL = 1e-3
@@ -88,6 +119,10 @@ CARD_CPU_GRAD_RTOL = 1e-3
 # exact arithmetic and carry only round-off: their norms are floored at
 # this share of the global one (every other norm at 1e-6)
 ZERO_GRAD_FLOOR = 1e-2
+# the port's CUDA kernels by function name, for the profiles
+PORT_KERNELS = ("dccl_level_kernel", "dccl_all_levels_kernel",
+                "dccl_coords_lookup_kernel", "dccl_coords_kernel",
+                "dccl_scatter_kernel", "row_sums_kernel")
 
 
 def fail(msg: str) -> None:
@@ -131,10 +166,12 @@ def bound(bytes_moved: float, ops: float, peaks):
 
 # -- phase 2: DCCL level lookup ------------------------------------------------
 
-def lookup_inputs(lvl: int, dtype, dev, grids, b: int = 1):
+def lookup_inputs(lvl: int, dtype, dev, grids, b: int = 1, size=None):
+    """Random level volumes (b, Q, Hl, Wl) of an (H, W) input (``size``,
+    default the 512x1024 main path), centres and the input's grids."""
     import torch
     g = torch.Generator(device=dev).manual_seed(100 + lvl)
-    h8, w8 = H // 8, W // 8
+    h8, w8 = (size or (H, W))[0] // 8, (size or (H, W))[1] // 8
     Q = h8 * w8
     Hl, Wl = h8 >> lvl, w8 >> lvl
     vA = torch.randn(b, Q, Hl, Wl, generator=g, device=dev).to(dtype)
@@ -185,9 +222,45 @@ def touched_sectors(vol, coord_sets) -> int:
     return int(torch.unique(torch.cat(secs)).numel())
 
 
-def phase_lookup(dev, grids, peaks):
+def lookup_bytes(vA, vB, coords, extra: int) -> tuple:
+    """Bytes a batch-1 lookup launch must move: the touched sectors of both
+    volumes at ``coords`` (own_A, cross_A, own_B, cross_B, as from
+    ``lookup_sample_coords``), the 4 output rows and the centres, plus
+    ``extra`` bytes (the grids, or the given coords). Returns (bytes,
+    sectors)."""
+    BQ = vA.shape[1]
+    sectors = (touched_sectors(vA, [coords[0], coords[3]])
+               + touched_sectors(vB, [coords[2], coords[1]]))
+    return sectors * 32 + 4 * BQ * 81 * 4 + 2 * BQ * 2 * 4 + extra, sectors
+
+
+def grid_sample_library(vA, vB, coords):
+    """One level's library yardstick: 4 ``F.grid_sample`` calls at the
+    precomputed tap coords (own_A in A, cross_A in B, own_B in B, cross_B
+    in A), wrapped and normalised beforehand; None for a 1-pixel extent."""
     import torch
     import torch.nn.functional as F
+    _, BQ, Hl, Wl = vA.shape
+    if Hl < 2 or Wl < 2:
+        return None
+
+    def norm(c):
+        xn = torch.remainder(c[..., 0], Wl) * (2.0 / (Wl - 1)) - 1
+        yn = c[..., 1] * (2.0 / (Hl - 1)) - 1
+        return torch.stack([xn, yn], -1).reshape(BQ, 1, 81, 2)
+    gs = [norm(c) for c in coords]
+    iA = vA.reshape(BQ, 1, Hl, Wl)
+    iB = vB.reshape(BQ, 1, Hl, Wl)
+
+    def library():
+        for img, grid in ((iA, gs[0]), (iB, gs[1]), (iB, gs[2]), (iA, gs[3])):
+            F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                          align_corners=True)
+    return library
+
+
+def phase_lookup(dev, grids, peaks):
+    import torch
     from prior_flow_tpu_torch.ops.kernels.dccl_lookup import (
         NTAP, dccl_level_lookup, dccl_level_lookup_plain)
 
@@ -213,28 +286,13 @@ def phase_lookup(dev, grids, peaks):
                                    warmup=2)
                 coords = lookup_sample_coords(cA, cB, gA, gB, s)
                 BQ, Hl, Wl = vA.shape[1], vA.shape[2], vA.shape[3]
-                sectors = (touched_sectors(vA, [coords[0], coords[3]])
-                           + touched_sectors(vB, [coords[2], coords[1]]))
-                nbytes = (sectors * 32 + 4 * BQ * NTAP * 4 + 2 * BQ * 2 * 4
-                          + 2 * gA.numel() * 4)
+                nbytes, sectors = lookup_bytes(vA, vB, coords,
+                                               2 * gA.numel() * 4)
                 ops = BQ * NTAP * LOOKUP_OPS_PER_TAP
                 b_ms, _ = bound(nbytes, ops, peaks)
+                library = grid_sample_library(vA, vB, coords)
                 lib_ms = None
-                if dtype == torch.float32 and Hl > 1 and Wl > 1:
-                    def norm(c):
-                        xn = torch.remainder(c[..., 0], Wl) * (2.0 / (Wl - 1)) - 1
-                        yn = c[..., 1] * (2.0 / (Hl - 1)) - 1
-                        return torch.stack([xn, yn], -1).reshape(BQ, 1, NTAP, 2)
-                    gs = [norm(c) for c in coords]
-                    iA = vA.reshape(BQ, 1, Hl, Wl)
-                    iB = vB.reshape(BQ, 1, Hl, Wl)
-
-                    def library():
-                        for img, grid in ((iA, gs[0]), (iB, gs[1]),
-                                          (iB, gs[2]), (iA, gs[3])):
-                            F.grid_sample(img, grid, mode="bilinear",
-                                          padding_mode="zeros",
-                                          align_corners=True)
+                if dtype == torch.float32 and library is not None:
                     lib_ms = cuda_ms(library, 50)
             print(f"  dccl {tag} level {lvl} ({BQ}x{Hl}x{Wl}): err {err:.3e} "
                   f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
@@ -285,11 +343,14 @@ def phase_sums(dev, peaks):
         instance_norm_sums, instance_norm_sums_plain)
 
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = "f32" if dtype == torch.float32 else "bf16"
+    for dtype, shapes, size in ((torch.float32, FNET_SHAPES, ""),
+                                (torch.bfloat16, FNET_SHAPES, ""),
+                                (torch.float32, FNET_SHAPES_HR, " 1024x2048"),
+                                (torch.bfloat16, FNET_SHAPES_HR, " 1024x2048")):
+        tag = ("f32" if dtype == torch.float32 else "bf16") + size
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
                    err=0.0)
-        for shape in FNET_SHAPES:
+        for shape in shapes:
             g = torch.Generator(device=dev).manual_seed(sum(shape))
             # activation-like data with a non-zero mean, so each sum is far
             # from 0 and the relative tolerance is meaningful
@@ -335,12 +396,26 @@ def images(seed: int, h: int, w: int):
     return tuple(torch.rand(1, h, w, 3, generator=g) * 255 for _ in range(2))
 
 
-def phase_forward(dev, mixed: bool, i1, i2):
+def forward_counts(**nonzero) -> dict:
+    """The launch counts of one test-mode forward: 15 instance-norm sums,
+    the given DCCL launches, every other kernel 0."""
+    from prior_flow_tpu_torch.ops.kernels import WRAPPERS
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["instance_norm_sums"] = 15
+    want.update(nonzero)
+    return want
+
+
+def phase_forward(dev, mixed: bool, i1, i2, want=None, runs: int = 7):
+    """The test-mode forward through ``build_model`` on the card: one
+    warm-up, one counted run (launch counts against ``want``, default the
+    512x1024 grid route's: 48 lookups), then ``runs`` timed runs."""
     import torch
     from prior_flow_tpu_torch import build_model
     from prior_flow_tpu_torch.ops.kernels import (launch_counts,
                                                   reset_launch_counts)
     tag = "bf16" if mixed else "fp32"
+    _, h, w, _ = i1.shape
     model = build_model(seed=0, mixed_precision=mixed)   # default: the card
     model(i1, i2, iters=ITERS)                           # warm-up
     torch.cuda.synchronize()
@@ -350,27 +425,26 @@ def phase_forward(dev, mixed: bool, i1, i2):
     torch.cuda.synchronize()
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if tuple(flow.shape) != (1, H, W, 2):
+    if tuple(flow.shape) != (1, h, w, 2):
         fail(f"{tag} forward: shape {tuple(flow.shape)}")
     if not bool(torch.isfinite(flow).all()):
         fail(f"{tag} forward: non-finite output")
-    want = {"dccl_level_lookup": 4 * ITERS, "instance_norm_sums": 15,
-            "dccl_grid_coords": 0, "dccl_level_scatter": 0}
+    want = want or forward_counts(dccl_level_lookup=4 * ITERS)
     if counts != want:
-        fail(f"{tag} forward: launch counts {counts}, expected {want}")
+        fail(f"{tag} forward {h}x{w}: launch counts {counts}, expected {want}")
     times = []
-    for _ in range(7):
+    for _ in range(runs):
         t0 = time.perf_counter()
         model(i1, i2, iters=ITERS)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
-    print(f"  forward {tag} {H}x{W} iters {ITERS}: launches {counts}; "
+    print(f"  forward {tag} {h}x{w} iters {ITERS}: launches {counts}; "
           f"median {med:.2f} ms/pair over {len(times)} runs "
           f"(min {min(times):.2f}, max {max(times):.2f}); peak "
           f"{peak_gb:.2f} GB; flow |max| {flow.abs().max().item():.3f}",
           flush=True)
-    return model, flow, counts, med
+    return model, flow, counts, med, peak_gb
 
 
 def profile_forward(model, i1, i2, tag: str):
@@ -388,12 +462,13 @@ def profile_forward(model, i1, i2, tag: str):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    ours = sum(e.self_device_time_total for e in events
-               if "dccl_level_kernel" in e.key or "row_sums_kernel" in e.key)
+    ours = {k: sum(e.self_device_time_total for e in events if k in e.key)
+            / 1e3 for k in PORT_KERNELS}
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     print(f"  profile {tag}: wall {wall:.2f} ms (profiled), device busy "
-          f"{busy:.2f} ms ({100 * busy / wall:.1f}%), the two port kernels "
-          f"{ours / 1e3:.3f} ms", flush=True)
+          f"{busy:.2f} ms ({100 * busy / wall:.1f}%); port kernels "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items() if v),
+          flush=True)
     for e in events[:20]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
@@ -728,9 +803,9 @@ def phase_train(dev):
     for mode in ("standard", "taped"):
         model, step = make_trainer(dev, mode, True, ITERS)
         per = 2 * LEVELS * (ITERS if mode == "standard" else 1)
-        want = {"dccl_level_lookup": LEVELS * ITERS,
-                "instance_norm_sums": 30, "dccl_grid_coords": per,
-                "dccl_level_scatter": per}
+        want = forward_counts(dccl_level_lookup=LEVELS * ITERS,
+                              instance_norm_sums=30, dccl_grid_coords=per,
+                              dccl_level_scatter=per)
         times, losses, norms, counts = [], [], [], None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -803,10 +878,8 @@ def profile_train_step(dev, mode: str):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    names = ("dccl_level_kernel", "row_sums_kernel", "dccl_coords_kernel",
-             "dccl_scatter_kernel")
     ours = {k: sum(e.self_device_time_total for e in events if k in e.key)
-            / 1e3 for k in names}
+            / 1e3 for k in PORT_KERNELS}
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     print(f"  profile train {mode}: wall {wall:.1f} ms (profiled), device busy "
           f"{busy:.1f} ms ({100 * busy / wall:.1f}%); port kernels "
@@ -848,6 +921,311 @@ def phase_train_card_vs_cpu(dev):
     return worst
 
 
+# -- phase 11: the lookup at given cross coords, 1024x2048 ----------------------
+
+def given_coords(cen, grid, scale):
+    """The planes route's cross tap coords at one level (the coords kernel
+    at the pre-scaled centres), as (B, Q, 81) planes."""
+    from prior_flow_tpu_torch.ops.corr import cross_coords_all_levels
+    B, Q, _ = cen.shape
+    return [c.reshape(B, Q, 81)
+            for c in cross_coords_all_levels(cen, grid, [scale])]
+
+
+def phase_lookup_coords(dev, grids2, peaks):
+    """Row 3 against its plain version and against kernel 1, bitwise, at the
+    four level shapes of a 1024x2048 forward (B x Q = 32768), f32 and bf16;
+    one bf16 level-0 launch at batch 3 (more than 2^31 volume elements).
+    Times per iteration (4 levels): row 3, kernel 1, the planes route's two
+    coords launches, the plain version and 4 F.grid_sample per level."""
+    import torch
+    from prior_flow_tpu_torch.ops.corr import cross_coords_all_levels
+    from prior_flow_tpu_torch.ops.kernels.dccl_lookup import (
+        NTAP, dccl_level_lookup, dccl_level_lookup_coords,
+        dccl_level_lookup_coords_plain)
+
+    rows = {}
+    scales = [1.0 / 2 ** lvl for lvl in range(LEVELS)]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
+                   err=0.0, grid_route_ms=0.0)
+        for lvl, s in enumerate(scales):
+            vA, vB, cA, cB, gA, gB = lookup_inputs(lvl, dtype, dev, grids2,
+                                                   size=(H2, W2))
+            with torch.no_grad():
+                given = given_coords(cA, gA, s) + given_coords(cB, gB, s)
+                args = (vA, vB, cA, cB, s, *given)
+                got = dccl_level_lookup_coords(*args)
+                ref = dccl_level_lookup_coords_plain(*args)
+                k1 = dccl_level_lookup(vA, vB, cA, cB, gA, gB, s)
+                torch.cuda.synchronize()
+                for name, other in (("its plain version", ref),
+                                    ("kernel 1", k1)):
+                    if not all(torch.equal(a, b) for a, b in zip(got, other)):
+                        err = max((a - b).abs().max().item()
+                                  for a, b in zip(got, other))
+                        fail(f"lookup at given coords {tag} level {lvl} "
+                             f"1024x2048: not bitwise equal to {name} (max "
+                             f"abs err {err})")
+                ms = cuda_ms(lambda: dccl_level_lookup_coords(*args), 20)
+                k1_ms = cuda_ms(lambda: dccl_level_lookup(vA, vB, cA, cB, gA,
+                                                          gB, s), 20)
+                plain_ms = cuda_ms(lambda: dccl_level_lookup_coords_plain(
+                    *args), 3, warmup=1)
+                coords = lookup_sample_coords(cA, cB, gA, gB, s)
+                BQ = vA.shape[1]
+                nbytes, sectors = lookup_bytes(vA, vB, coords,
+                                               4 * BQ * NTAP * 4)
+                ops = BQ * NTAP * LOOKUP_COORDS_OPS_PER_TAP
+                b_ms, _ = bound(nbytes, ops, peaks)
+                library = grid_sample_library(vA, vB, coords)
+                lib_ms = (cuda_ms(library, 10) if dtype == torch.float32
+                          and library is not None else 0.0)
+            print(f"  lookup at given coords {tag} level {lvl} "
+                  f"({BQ}x{vA.shape[2]}x{vA.shape[3]}): bitwise equal to "
+                  f"plain and to kernel 1; kernel {ms:.4f} ms  kernel 1 "
+                  f"{k1_ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+                  f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({sectors} sectors, "
+                  f"{nbytes / 1e6:.2f} MB)", flush=True)
+            for k, v in (("ms", ms), ("grid_route_ms", k1_ms),
+                         ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bytes", nbytes), ("ops", ops)):
+                tot[k] += v
+            del vA, vB, args, got, ref, k1, coords, library
+            torch.cuda.empty_cache()
+        # the planes route's coords: one launch per branch, all levels
+        cen = lookup_inputs(0, torch.float32, dev, grids2, size=(H2, W2))[2]
+        with torch.no_grad():
+            tot["coords_ms"] = 2 * cuda_ms(lambda: cross_coords_all_levels(
+                cen, grids2.a2b_w2c_8, scales), 20)
+        tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"],
+                                                 peaks)
+        rows[tag] = tot
+        print(f"  {tag} one 1024x2048 iteration: planes route {tot['ms']:.4f} "
+              f"(4 lookups) + {tot['coords_ms']:.4f} (2 coords launches) = "
+              f"{tot['ms'] + tot['coords_ms']:.4f} ms; grid route (kernel 1, "
+              f"4 launches) {tot['grid_route_ms']:.4f} ms; bound "
+              f"{tot['bound_ms']:.4f} ms", flush=True)
+
+    # 64-bit offsets: a bf16 level-0 batch of 3 x 32768 queries has
+    # 3.2e9 > 2^31 elements per volume
+    vA, vB, cA, cB, gA, gB = lookup_inputs(0, torch.bfloat16, dev, grids2,
+                                           BIG_B, size=(H2, W2))
+    with torch.no_grad():
+        given = given_coords(cA, gA, 1.0) + given_coords(cB, gB, 1.0)
+        got = dccl_level_lookup_coords(vA, vB, cA, cB, 1.0, *given)
+        torch.cuda.synchronize()
+        for b in (0, BIG_B - 1):
+            one = lambda t: t[b:b + 1]
+            ref = dccl_level_lookup_coords_plain(
+                one(vA), one(vB), one(cA), one(cB), 1.0, *map(one, given))
+            if not all(torch.equal(one(a), r) for a, r in zip(got, ref)):
+                fail(f"lookup at given coords, bf16 level 0, batch {BIG_B} "
+                     f"({vA.numel()} elements per volume): batch element {b} "
+                     f"differs from the plain version")
+    print(f"  lookup at given coords bf16 level 0 batch {BIG_B} "
+          f"({vA.numel()} elements per volume, > 2^31): batch elements 0 and "
+          f"{BIG_B - 1} bitwise equal to the plain version", flush=True)
+    del vA, vB, given, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 12: all levels in one launch ------------------------------------------
+
+def phase_all_levels(dev, grids, peaks):
+    """Row 4 against four per-level kernel-1 launches, bitwise, at 512x1024,
+    batch 1 and 4, f32 and bf16; times of both, and at batch 1 f32 the
+    plain version, the bound and 16 F.grid_sample."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels.dccl_lookup import (
+        NTAP, dccl_level_lookup, dccl_lookup_all_levels,
+        dccl_lookup_all_levels_plain)
+
+    scales = [1.0 / 2 ** lvl for lvl in range(LEVELS)]
+    row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
+               err=0.0)
+    for b in (1, TRAIN_B):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            ins = [lookup_inputs(lvl, dtype, dev, grids, b)
+                   for lvl in range(LEVELS)]
+            cA, cB, gA, gB = ins[0][2:]
+            vAs, vBs = [i[0] for i in ins], [i[1] for i in ins]
+            args = (vAs, vBs, cA, cB, gA, gB, scales)
+            per_level = lambda: [dccl_level_lookup(vAs[lvl], vBs[lvl], cA, cB,
+                                                   gA, gB, scales[lvl])
+                                 for lvl in range(LEVELS)]
+            with torch.no_grad():
+                got = dccl_lookup_all_levels(*args)
+                ref = per_level()
+                torch.cuda.synchronize()
+                for lvl in range(LEVELS):
+                    if not all(torch.equal(a, r)
+                               for a, r in zip(got[lvl], ref[lvl])):
+                        fail(f"all-levels lookup {tag} batch {b}: level {lvl} "
+                             f"differs from its per-level launch")
+                ms = cuda_ms(lambda: dccl_lookup_all_levels(*args), 20)
+                per_ms = cuda_ms(per_level, 20)
+                if b == 1 and dtype == torch.float32:
+                    row["ms"], row["per_level_ms"] = ms, per_ms
+                    row["plain_ms"] = cuda_ms(
+                        lambda: dccl_lookup_all_levels_plain(*args), 3,
+                        warmup=1)
+                    for lvl in range(LEVELS):
+                        coords = lookup_sample_coords(cA, cB, gA, gB,
+                                                      scales[lvl])
+                        nbytes, _ = lookup_bytes(vAs[lvl], vBs[lvl], coords, 0)
+                        row["bytes"] += nbytes
+                        row["ops"] += cA.shape[1] * NTAP * LOOKUP_OPS_PER_TAP
+                        library = grid_sample_library(vAs[lvl], vBs[lvl],
+                                                      coords)
+                        if library is not None:
+                            row["library_ms"] += cuda_ms(library, 20)
+                    row["bytes"] += 2 * gA.numel() * 4
+            print(f"  all-levels lookup {tag} batch {b}: bitwise equal to 4 "
+                  f"per-level launches; one launch {ms:.4f} ms, 4 launches "
+                  f"{per_ms:.4f} ms", flush=True)
+            del ins, vAs, vBs, args, got, ref
+            torch.cuda.empty_cache()
+    row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"], peaks)
+    print(f"  all-levels f32 batch 1: plain {row['plain_ms']:.4f} ms, "
+          f"16 F.grid_sample {row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms", flush=True)
+    return row
+
+
+# -- phase 13: the chunked pyramid build -----------------------------------------
+
+def phase_pyramid_lean(dev):
+    """build_pyramid_lean against the dense build cast per level, at
+    512x1024 and 1024x2048, f32 and bf16: bitwise expected; otherwise the
+    worst difference is reported and held to 2^-20 of max|level| (f32) or
+    one bf16 step. ms and peak GB (outputs included) of each build."""
+    import torch
+    from prior_flow_tpu_torch.ops.corr import (all_pairs_correlation,
+                                               build_pyramid,
+                                               build_pyramid_lean)
+    out = {}
+    for h, w in ((H, W), (H2, W2)):
+        g = torch.Generator(device=dev).manual_seed(h)
+        f1, f2 = (torch.randn(1, h // 8, w // 8, 256, generator=g, device=dev)
+                  for _ in range(2))
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{h}x{w} {'f32' if dtype == torch.float32 else 'bf16'}"
+            dense_fn = lambda: [p.to(dtype).contiguous() for p in build_pyramid(
+                all_pairs_correlation(f1, f2), LEVELS)]
+            lean_fn = lambda: build_pyramid_lean(f1, f2, LEVELS, dtype)
+            res, peak = {}, {}
+            with torch.no_grad():
+                for name, fn in (("lean", lean_fn), ("dense", dense_fn)):
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    res[name] = fn()
+                    torch.cuda.synchronize()
+                    peak[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+                worst = 0.0
+                for lvl, (a, d) in enumerate(zip(res["lean"], res["dense"])):
+                    if torch.equal(a, d):
+                        continue
+                    diff = (a.float() - d.float()).abs()
+                    worst = max(worst, diff.max().item())
+                    if dtype == torch.float32:
+                        ok = diff.max().item() <= 2.0 ** -20 * d.abs().max().item()
+                    else:
+                        ok = bool((diff <= 2.0 ** -7 * d.float().abs()).all())
+                    if not ok:
+                        fail(f"lean build {tag} level {lvl}: max abs diff "
+                             f"{diff.max().item()} from the dense build")
+                del res
+                torch.cuda.empty_cache()
+                lean_ms = cuda_ms(lean_fn, 3, warmup=1)
+                dense_ms = cuda_ms(dense_fn, 3, warmup=1)
+            torch.cuda.empty_cache()
+            verdict = "bitwise equal" if worst == 0.0 else f"max abs diff {worst:.3e}"
+            print(f"  pyramid {tag}: lean {verdict} to dense; lean {lean_ms:.3f} "
+                  f"ms, peak {peak['lean']:.2f} GB; dense {dense_ms:.3f} ms, "
+                  f"peak {peak['dense']:.2f} GB", flush=True)
+            out[tag] = dict(lean_ms=lean_ms, dense_ms=dense_ms, worst=worst,
+                            lean_gb=peak["lean"], dense_gb=peak["dense"])
+        del f1, f2
+    return out
+
+
+# -- phase 14: the 1024x2048 forward, forced routes, fused levels ----------------
+
+def phase_forward_hr(dev, ref_128, flow32, c1, c2, i1, i2):
+    """The 1024x2048 test-mode forward (fp32, bf16) through build_model:
+    48 lookups at given coords, 24 coords launches, no kernel 1; then the
+    128x256 forward with the chunked build and the planes route forced on
+    the card against the CPU's default routes; then the 512x1024 fp32
+    forward with all levels in one launch (PRIORFLOW_DCCL_FUSE_LEVELS=1)
+    against phase 4's flow."""
+    import torch
+    from prior_flow_tpu_torch import build_model
+    from prior_flow_tpu_torch.models import prior_raft
+    from prior_flow_tpu_torch.ops.corr import DCCLFused
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    out = {}
+    want = forward_counts(dccl_level_lookup_coords=LEVELS * ITERS,
+                          dccl_grid_coords=2 * ITERS)
+    h1, h2 = (t.to(dev) for t in images(2, H2, W2))
+    for mixed in (False, True):
+        tag = "bf16" if mixed else "fp32"
+        model, flow, counts, ms, peak = phase_forward(dev, mixed, h1, h2,
+                                                      want, runs=5)
+        out[tag] = dict(ms=ms, peak_gb=peak, counts=counts, model=model)
+        del flow
+
+    # forced routes on the card against the CPU's default routes
+    lean_at = prior_raft.LEAN_BUILD_QUERIES
+    prior_raft.LEAN_BUILD_QUERIES = 0
+    try:
+        model = build_model(seed=0)
+        model.dccl = DCCLFused(grid_in_kernel=False)
+        reset_launch_counts()
+        got = model(c1.to(dev), c2.to(dev), iters=4).cpu()
+        counts = launch_counts()
+    finally:
+        prior_raft.LEAN_BUILD_QUERIES = lean_at
+    forced = forward_counts(dccl_level_lookup_coords=4 * LEVELS,
+                            dccl_grid_coords=2 * 4)
+    if counts != forced:
+        fail(f"forced planes + lean forward: launch counts {counts}, "
+             f"expected {forced}")
+    err = (got - ref_128).abs().max().item()
+    scale = ref_128.abs().max().item()
+    print(f"  128x256 iters 4 f32, chunked build + planes route on the card "
+          f"vs default routes on the CPU: max abs err {err:.3e}, ratio "
+          f"{err / scale:.3e} (gate {CARD_CPU_TOL})", flush=True)
+    if not (torch.isfinite(got).all() and err <= CARD_CPU_TOL * scale):
+        fail("forced routes on the card and the CPU's defaults disagree")
+    out["forced_ratio"] = err / scale
+
+    # all levels in one launch, selected as in JAX by the environment
+    os.environ["PRIORFLOW_DCCL_FUSE_LEVELS"] = "1"
+    try:
+        model, flow, counts, ms, _ = phase_forward(
+            dev, False, i1, i2,
+            forward_counts(dccl_lookup_all_levels=ITERS), runs=5)
+    finally:
+        del os.environ["PRIORFLOW_DCCL_FUSE_LEVELS"]
+    err = (flow - flow32).abs().max().item()
+    scale = flow32.abs().max().item()
+    print(f"  fused levels vs per-level fp32 flow at {H}x{W}: max abs diff "
+          f"{err:.3e} (gate {FUSED_FLOW_TOL} x flow scale {scale:.3f})",
+          flush=True)
+    if err > FUSED_FLOW_TOL * scale:
+        fail("the fused-levels forward departs from the per-level one")
+    out["fused"] = dict(ms=ms, counts=counts, diff=err)
+    del model, flow
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -874,7 +1252,7 @@ def main(argv=None) -> None:
           f"{peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s f32",
           flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib = _build.load_library()
     print(f"phase 1 build: {lib.build_seconds:.1f} s "
           f"({time.perf_counter() - t0:.1f} s with load) -> {lib.path.name}",
@@ -891,8 +1269,8 @@ def main(argv=None) -> None:
 
     print("phase 4 forward", flush=True)
     i1, i2 = (t.to(dev) for t in images(0, H, W))
-    model32, flow32, counts, ms32 = phase_forward(dev, False, i1, i2)
-    model16, flow16, counts16, ms16 = phase_forward(dev, True, i1, i2)
+    model32, flow32, counts, ms32, _ = phase_forward(dev, False, i1, i2)
+    model16, flow16, counts16, ms16, _ = phase_forward(dev, True, i1, i2)
     diff = (flow16 - flow32).abs().max().item()
     print(json.dumps({"forward_ms_per_pair": {"fp32": ms32, "bf16": ms16},
                       "build_s": lib.build_seconds}))
@@ -937,6 +1315,31 @@ def main(argv=None) -> None:
           flush=True)
     phase_train_card_vs_cpu(dev)
 
+    grids2 = rotation_grids(H2, W2).to_device(dev)
+    print(f"phase 11 lookup at given cross coords vs plain and kernel 1, "
+          f"{H2}x{W2}", flush=True)
+    lookup_coords = phase_lookup_coords(dev, grids2, peaks)
+    print("phase 12 all levels in one launch vs per-level launches",
+          flush=True)
+    all_levels = phase_all_levels(dev, grids, peaks)
+    print("phase 13 chunked pyramid build vs dense", flush=True)
+    pyramids = phase_pyramid_lean(dev)
+    print(f"phase 14 forward {H2}x{W2}; forced routes vs CPU; fused levels",
+          flush=True)
+    hr = phase_forward_hr(dev, ref, flow32, c1, c2, i1, i2)
+    print(json.dumps({"forward_1024x2048_ms_per_pair": {
+        m: hr[m]["ms"] for m in ("fp32", "bf16")},
+        "forward_1024x2048_peak_gb": {m: hr[m]["peak_gb"]
+                                      for m in ("fp32", "bf16")},
+        "forward_fused_levels_ms_per_pair": hr["fused"]["ms"],
+        "pyramids": pyramids}))
+    if args.profile:
+        h1, h2 = (t.to(dev) for t in images(2, H2, W2))
+        for m in ("fp32", "bf16"):
+            profile_forward(hr[m]["model"], h1, h2, f"{H2}x{W2} {m}")
+
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -945,19 +1348,29 @@ def main(argv=None) -> None:
     print(smi.stdout.strip().splitlines()[0])
 
     std, tap = train["standard"]["counts"], train["taped"]["counts"]
-    per_step = ("launches: one standard train step (512x1024, batch 4, 12 "
-                "iterations, bf16); launches_taped: one taped step; "
-                "launches_forward: one test-mode forward")
+    hr_counts, fused_counts = hr["fp32"]["counts"], hr["fused"]["counts"]
+    per_path = ("launches: one run of the path in launches_path; "
+                "launches_train / launches_taped: one standard / taped train "
+                "step (512x1024, batch 4, 12 iterations, bf16); "
+                "launches_forward: one 512x1024 test-mode forward; "
+                "launches_forward_1024x2048: one 1024x2048 forward; "
+                "launches_forward_fused_levels: one 512x1024 forward with "
+                "PRIORFLOW_DCCL_FUSE_LEVELS=1")
 
-    def row(name, src, replaces, d, work, err):
+    def row(name, src, replaces, d, work, err, path="train"):
+        paths = {"train": std, "forward_1024x2048": hr_counts,
+                 "forward_fused_levels": fused_counts}
         return {"name": name, "route": "cuda",
                 "source": f"prior_flow_tpu_torch/csrc/{src}",
-                "replaces": replaces, "launches": std[name],
+                "replaces": replaces, "launches": paths[path][name],
+                "launches_path": path, "launches_train": std[name],
                 "launches_taped": tap[name],
                 "launches_forward": counts.get(name, 0),
+                "launches_forward_1024x2048": hr_counts[name],
+                "launches_forward_fused_levels": fused_counts[name],
                 "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-                "library_ms": d["library_ms"], "work": work + "; " + per_step}
+                "library_ms": d["library_ms"], "work": work + "; " + per_path}
 
     lk = lookup["f32"]
     kernels = [
@@ -988,6 +1401,24 @@ def main(argv=None) -> None:
             "of the precomputed weighted corners into f32 (leaves out the "
             "corners, the zeroing and the cast); one standard step's 96 S=1 "
             f"launches: {scatter['standard_step_ms']:.4f} ms", scatter["err"]),
+        row("dccl_level_lookup_coords", "dccl_lookup.cu",
+            "prior_flow_tpu/ops/pallas/dccl_gather.py:314",
+            lookup_coords["f32"],
+            "ms/plain/bound/library: one GRU iteration of the 1024x2048 "
+            "forward, 4 level launches at given coords, f32 volumes, batch 1 "
+            "(B x Q = 32768); library_ms = 4 F.grid_sample per level at the "
+            "given coords; the route's 2 coords launches per iteration: "
+            f"{lookup_coords['f32']['coords_ms']:.4f} ms; kernel 1 at the "
+            f"same shapes: {lookup_coords['f32']['grid_route_ms']:.4f} ms",
+            max(lookup_coords["f32"]["err"], lookup_coords["bf16"]["err"]),
+            path="forward_1024x2048"),
+        row("dccl_lookup_all_levels", "dccl_lookup.cu",
+            "prior_flow_tpu/ops/pallas/dccl_gather.py:271", all_levels,
+            "ms/plain/bound/library: one GRU iteration at 512x1024, batch 1, "
+            "f32, one launch for 4 levels; library_ms = 16 F.grid_sample at "
+            "precomputed coords (leaves out the grid-window stage); 4 "
+            f"per-level launches: {all_levels['per_level_ms']:.4f} ms",
+            all_levels["err"], path="forward_fused_levels"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,8 +1,10 @@
-"""Smoke-test CLI: a random 512x1024 pair through the test-mode forward;
-prints the output shape and the steady-state time. Runs on the card unless
-``--device cpu`` is given (counterpart of ``prior_flow_tpu/cli/demo.py``).
+"""Smoke-test CLI: a random pair (512x1024 unless ``--height``/``--width``
+say otherwise) through the test-mode forward; prints the output shape and
+the steady-state time. Runs on the card unless ``--device cpu`` is given
+(counterpart of ``prior_flow_tpu/cli/demo.py``).
 
     python -m prior_flow_tpu_torch.cli.demo [--mixed_precision] [--iters 12]
+    python -m prior_flow_tpu_torch.cli.demo --height 1024 --width 2048
 """
 
 from __future__ import annotations

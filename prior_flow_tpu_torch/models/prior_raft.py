@@ -13,9 +13,12 @@ layout the samplers take.
 Mixed precision: ``torch.autocast(bfloat16)`` around the networks only.
 Feature maps, the volume matmul, the lookups and the flaw maps stay f32,
 and the pyramid is stored in bf16 (``prior_raft.py:385``), the split the
-JAX package makes. ``DCCLOnTheFly``, ``build_pyramid_lean``, the
-two-scan ``deferred_vol_grad`` path, rematerialisation and dropout in
-training are not ported.
+JAX package makes. Above ``LEAN_BUILD_QUERIES`` 1/8 queries (as at
+1024x2048) the pyramids are built in query chunks
+(``ops.corr.build_pyramid_lean``, ``prior_raft.py:394-409``), and there
+the 1/8 grid is wider than 128 columns, so ``DCCLFused`` takes its planes
+route. ``DCCLOnTheFly``, the two-scan ``deferred_vol_grad`` path,
+rematerialisation and dropout in training are not ported.
 """
 
 from __future__ import annotations
@@ -30,9 +33,16 @@ from ..geometry import grids as gridlib
 from ..nn.encoder import BasicEncoder
 from ..nn.update import BasicMultiUpdateBlock, BasicUpdateBlock
 from ..ops.corr import (DCCLFused, all_pairs_correlation, build_pyramid,
-                        groupwise_corr)
+                        build_pyramid_lean, groupwise_corr)
 from ..ops.samplers import cycle_bilinear_sample
 from ..ops.warp import flo_rotate, img_rotate
+
+
+# above this many 1/8 queries (H*W/64) the pyramids are built in query
+# chunks, as in the JAX package (``prior_raft.py:394``): the dense build's
+# f32 volume and f32 pyramid would not fit beside each other before the
+# cast on the device the JAX package sized it for
+LEAN_BUILD_QUERIES = 16384
 
 
 def upsample_flow_convex(flow: torch.Tensor, mask: torch.Tensor):
@@ -125,13 +135,20 @@ class PriOrRAFT(nn.Module):
 
     def build_pyramids(self, fmaps):
         """Both branches' 4-level pyramids from the channels-last fmaps,
-        stored in bf16 under mixed precision (``prior_raft.py:385``);
+        stored in bf16 under mixed precision (``prior_raft.py:385``), built
+        in query chunks above ``LEAN_BUILD_QUERIES`` queries
+        (``prior_raft.py:394-414``; the same bits as the dense build);
         differentiable when autograd records."""
         fmap1_A, fmap2_A, fmap1_B, fmap2_B = fmaps
         dt = torch.bfloat16 if self.mixed_precision else torch.float32
+        pairs = ((fmap1_A, fmap2_A), (fmap1_B, fmap2_B))
+        _, h8, w8, _ = fmap1_A.shape
+        if h8 * w8 > LEAN_BUILD_QUERIES:
+            return tuple(build_pyramid_lean(f1, f2, self.corr_levels, dt)
+                         for f1, f2 in pairs)
         return tuple([p.to(dt).contiguous() for p in build_pyramid(
             all_pairs_correlation(f1, f2), self.corr_levels)]
-            for f1, f2 in ((fmap1_A, fmap2_A), (fmap1_B, fmap2_B)))
+            for f1, f2 in pairs)
 
     def _step(self, net_A, net_B, coords1_A, coords1_B, k: StepConsts,
               corr_fn, mask_A: bool, mask_B: bool):

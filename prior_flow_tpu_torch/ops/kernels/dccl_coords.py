@@ -20,9 +20,8 @@ import ctypes
 
 import torch
 
-from ..samplers import cycle_bilinear_sample
 from . import _build
-from .dccl_lookup import NTAP, RADIUS, window_delta
+from .dccl_lookup import NTAP, grid_window_coords
 
 
 def dccl_grid_coords_plain(cen: torch.Tensor, grid: torch.Tensor,
@@ -31,11 +30,8 @@ def dccl_grid_coords_plain(cen: torch.Tensor, grid: torch.Tensor,
     Returns (cx, cy), each (N, 81) f32, slot k = i*9 + j with x-offset i-4
     and y-offset j-4: ``cycle_bilinear_sample`` of the grid at the window
     coords, the computation of ``dccl_level_lookup_plain``."""
-    N = cen.shape[0]
-    coords = (cen * scale).unsqueeze(1) + window_delta(RADIUS, cen.device)
-    out = cycle_bilinear_sample(grid.unsqueeze(0), coords.reshape(1, -1, 2))
-    out = out.reshape(N, NTAP, 2)
-    return out[..., 0].contiguous(), out[..., 1].contiguous()
+    cx, cy = grid_window_coords(cen, grid, scale)
+    return cx.contiguous(), cy.contiguous()
 
 
 def _kernel():

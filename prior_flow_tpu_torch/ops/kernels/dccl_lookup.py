@@ -1,17 +1,26 @@
-"""DCCL level lookup for both branches: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""DCCL level lookup for both branches: the CUDA kernels' wrappers and
+their plain PyTorch versions.
 
-Counterpart of ``prior_flow_tpu/ops/pallas/dccl_gather.py::
-dccl_level_lookup_grid_fused`` (kernel ``_dccl_grid_kernel``); kernel
-source ``prior_flow_tpu_torch/csrc/dccl_lookup.cu``. For one pyramid level,
-each branch gets its own 9x9 window taps from its own volume, and cross
-taps: the 1/8 rotation grid bilinearly sampled at the level-scaled window
-coords, then used unscaled to sample the OTHER branch's volume.
+Kernel source ``prior_flow_tpu_torch/csrc/dccl_lookup.cu``; three entries,
+counterparts of the JAX package's ``prior_flow_tpu/ops/pallas/
+dccl_gather.py`` kernels:
+
+- ``dccl_level_lookup`` (``_dccl_grid_kernel``, via
+  ``dccl_level_lookup_grid_fused``): for one pyramid level, each branch
+  gets its own 9x9 window taps from its own volume, and cross taps: the 1/8
+  rotation grid bilinearly sampled at the level-scaled window coords, then
+  used unscaled to sample the OTHER branch's volume;
+- ``dccl_lookup_all_levels`` (``_dccl_grid_kernel_all``, via
+  ``dccl_packed_lookup_grid_all``): the same for every level in one launch;
+- ``dccl_level_lookup_coords`` (``_dccl_kernel``, via
+  ``dccl_packed_lookup_planes``): the own taps as above and the cross taps
+  at GIVEN coords (the other branch's volume sampled there).
 
 A tensor on the CPU goes through the plain version; a CUDA tensor launches
-the kernel or raises. The wrapper itself is forward-only; its gradient is
-``ops/corr.py::DCCLLevelLookup``, whose backward runs the coords and
-scatter kernels.
+the kernel or raises. The wrappers themselves are forward-only; their
+gradients are ``ops/corr.py::DCCLLevelLookup``, ``DCCLAllLevelsLookup`` and
+``DCCLLevelLookupCoords``, whose backwards run the coords and scatter
+kernels.
 """
 
 from __future__ import annotations
@@ -45,6 +54,38 @@ def sample_volume_level(vol_l: torch.Tensor, coords: torch.Tensor):
     return out.reshape(B, Q, K)
 
 
+def dccl_level_lookup_coords_plain(vol_A, vol_B, cen_A, cen_B, scale: float,
+                                   cxA, cyA, cxB, cyB):
+    """Plain version of the lookup at given cross coords: own taps at the
+    level-scaled window (``sample_volume_level``), branch A's cross taps at
+    (cxA, cyA) in volume B and branch B's at (cxB, cyB) in volume A
+    (``_dccl_kernel``, ``dccl_gather.py:323-330``).
+
+    vol_*: (B, Q, Hl, Wl) f32 or bf16; cen_*: (B, Q, 2) f32 unscaled 1/8
+    coords; cx*, cy*: (B, Q, 81) f32. Returns (own_A, cross_A, own_B,
+    cross_B), each (B, Q, 81) f32.
+    """
+    delta = window_delta(RADIUS, cen_A.device)
+    outs = []
+    for own_vol, other_vol, cen, cx, cy in ((vol_A, vol_B, cen_A, cxA, cyA),
+                                            (vol_B, vol_A, cen_B, cxB, cyB)):
+        coords = (cen * scale).unsqueeze(2) + delta           # (B, Q, K, 2)
+        outs.append(sample_volume_level(own_vol, coords).float())
+        outs.append(sample_volume_level(other_vol,
+                                        torch.stack([cx, cy], -1)).float())
+    return tuple(outs)
+
+
+def grid_window_coords(cen, grid, scale: float):
+    """The cross tap coords of the plain lookup: ``cycle_bilinear_sample``
+    of the (Hg, Wg, 2) grid at the window around ``cen * scale``.
+    cen: (..., 2) f32 -> (cx, cy), each (..., 81) f32."""
+    win = (cen * scale).unsqueeze(-2) + window_delta(RADIUS, cen.device)
+    out = cycle_bilinear_sample(grid.unsqueeze(0), win.reshape(1, -1, 2))
+    out = out.reshape(win.shape)
+    return out[..., 0], out[..., 1]
+
+
 def dccl_level_lookup_plain(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B,
                             scale: float):
     """Plain version: the gathers of ``DCCL(lookup_mode='gather')``
@@ -54,27 +95,30 @@ def dccl_level_lookup_plain(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B,
     coords; grid_*: (Hg, Wg, 2) f32 world-to-camera grids (A->B for branch
     A). Returns (own_A, cross_A, own_B, cross_B), each (B, Q, 81) f32.
     """
-    B, Q = cen_A.shape[:2]
-    delta = window_delta(RADIUS, cen_A.device)
-    outs = []
-    for own_vol, other_vol, cen, grid in ((vol_A, vol_B, cen_A, grid_A),
-                                          (vol_B, vol_A, cen_B, grid_B)):
-        coords = (cen * scale).unsqueeze(2) + delta           # (B, Q, K, 2)
-        outs.append(sample_volume_level(own_vol, coords).float())
-        coords_other = cycle_bilinear_sample(
-            grid.unsqueeze(0), coords.reshape(1, -1, 2)).reshape(B, Q, NTAP, 2)
-        outs.append(sample_volume_level(other_vol, coords_other).float())
-    return tuple(outs)
+    return dccl_level_lookup_coords_plain(
+        vol_A, vol_B, cen_A, cen_B, scale,
+        *grid_window_coords(cen_A, grid_A, scale),
+        *grid_window_coords(cen_B, grid_B, scale))
 
 
-def _check_inputs(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B):
-    tensors = (vol_A, vol_B, cen_A, cen_B, grid_A, grid_B)
+def dccl_lookup_all_levels_plain(vols_A, vols_B, cen_A, cen_B, grid_A,
+                                 grid_B, scales):
+    """Plain version of the all-levels launch: one
+    ``dccl_level_lookup_plain`` per level. vols_*: L volumes (B, Q, Hl, Wl);
+    scales: L level scales. Returns L tuples (own_A, cross_A, own_B,
+    cross_B)."""
+    return tuple(dccl_level_lookup_plain(vA, vB, cen_A, cen_B, grid_A, grid_B,
+                                         s)
+                 for vA, vB, s in zip(vols_A, vols_B, scales))
+
+
+def _check_common(name, tensors, vol_A, vol_B, cen_A, cen_B):
     dev = vol_A.device
     if any(t.device != dev for t in tensors):
-        raise ValueError("dccl_level_lookup: inputs on different devices")
+        raise ValueError(f"{name}: inputs on different devices")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("dccl_level_lookup: the wrapper is forward-only; "
-                           "differentiate through ops.corr.DCCLLevelLookup")
+        raise RuntimeError(f"{name}: the wrapper is forward-only; "
+                           f"differentiate through its ops.corr Function")
     if vol_A.dtype not in (torch.float32, torch.bfloat16) \
             or vol_B.dtype != vol_A.dtype:
         raise TypeError(f"volumes must both be float32 or bfloat16, got "
@@ -87,43 +131,66 @@ def _check_inputs(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B):
         if c.shape != (B, Q, 2) or c.dtype != torch.float32:
             raise ValueError(f"centres must be ({B}, {Q}, 2) float32, got "
                              f"{tuple(c.shape)} {c.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _check_grids(grid_A, grid_B):
     if grid_A.dim() != 3 or grid_A.shape[-1] != 2 \
             or grid_B.shape != grid_A.shape:
         raise ValueError(f"grids must be (Hg, Wg, 2) of one shape, got "
                          f"{tuple(grid_A.shape)} and {tuple(grid_B.shape)}")
     if grid_A.dtype != torch.float32 or grid_B.dtype != torch.float32:
         raise TypeError("grids must be float32")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("dccl_level_lookup: inputs must be contiguous")
 
 
-def _kernel():
-    fn = _build.load_library().lib.dccl_level_lookup
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                   ctypes.c_float, p]
+def _kernel(name: str):
+    fn = getattr(_build.load_library().lib, name)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = {
+        "dccl_level_lookup": [p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                              f, p],
+        "dccl_lookup_all_levels": [i, p, p, i, p, p, p, p, p, i, p, p, p, i,
+                                   i, p],
+        "dccl_level_lookup_coords": [p, p, i, p, p, p, p, p, p, p, p, p, p, i,
+                                     i, i, f, p],
+    }[name]
     fn.restype = i
     return fn
+
+
+def _device_or_plain(name, vol):
+    """True when ``vol`` lies on the CPU (take the plain version); raises
+    on a device with no kernel."""
+    if vol.device.type == "cpu":
+        return True
+    if vol.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {vol.device}")
+    return False
+
+
+def _outputs(B, Q, device):
+    return [torch.empty((B, Q, NTAP), dtype=torch.float32, device=device)
+            for _ in range(4)]
 
 
 def dccl_level_lookup(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B,
                       scale: float):
     """Both branches' own and cross taps for one pyramid level; same
     arguments and results as ``dccl_level_lookup_plain``."""
-    if vol_A.device.type == "cpu":
+    if _device_or_plain("dccl_level_lookup", vol_A):
         return dccl_level_lookup_plain(vol_A, vol_B, cen_A, cen_B,
                                        grid_A, grid_B, scale)
-    if vol_A.device.type != "cuda":
-        raise RuntimeError(f"dccl_level_lookup: no kernel for device "
-                           f"{vol_A.device}")
-    _check_inputs(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B)
+    _check_common("dccl_level_lookup",
+                  (vol_A, vol_B, cen_A, cen_B, grid_A, grid_B),
+                  vol_A, vol_B, cen_A, cen_B)
+    _check_grids(grid_A, grid_B)
     B, Q, Hl, Wl = vol_A.shape
     Hg, Wg, _ = grid_A.shape
-    outs = [torch.empty((B, Q, NTAP), dtype=torch.float32, device=vol_A.device)
-            for _ in range(4)]
+    outs = _outputs(B, Q, vol_A.device)
     with torch.cuda.device(vol_A.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = _kernel()(
+        status = _kernel("dccl_level_lookup")(
             vol_A.data_ptr(), vol_B.data_ptr(),
             int(vol_A.dtype == torch.bfloat16),
             cen_A.data_ptr(), cen_B.data_ptr(),
@@ -136,3 +203,84 @@ def dccl_level_lookup(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B,
 
 
 dccl_level_lookup.launches = 0
+
+MAX_LEVELS = 4   # the level descriptors the all-levels launch takes
+
+
+def dccl_lookup_all_levels(vols_A, vols_B, cen_A, cen_B, grid_A, grid_B,
+                           scales):
+    """Every level's both-branch taps in one launch; same arguments and
+    results as ``dccl_lookup_all_levels_plain``, bitwise equal to one
+    ``dccl_level_lookup`` per level on the card."""
+    L = len(vols_A)
+    if _device_or_plain("dccl_lookup_all_levels", vols_A[0]):
+        return dccl_lookup_all_levels_plain(vols_A, vols_B, cen_A, cen_B,
+                                            grid_A, grid_B, scales)
+    if not 1 <= L <= MAX_LEVELS or len(vols_B) != L or len(scales) != L:
+        raise ValueError(f"dccl_lookup_all_levels: 1 to {MAX_LEVELS} levels "
+                         f"of volume pairs and scales, got {len(vols_A)}, "
+                         f"{len(vols_B)} and {len(scales)}")
+    for vA, vB in zip(vols_A, vols_B):
+        _check_common("dccl_lookup_all_levels",
+                      (vA, vB, cen_A, cen_B, grid_A, grid_B), vA, vB,
+                      cen_A, cen_B)
+        if vA.dtype != vols_A[0].dtype:
+            raise TypeError("dccl_lookup_all_levels: levels of mixed dtypes")
+    _check_grids(grid_A, grid_B)
+    B, Q = cen_A.shape[:2]
+    Hg, Wg, _ = grid_A.shape
+    outs = [_outputs(B, Q, cen_A.device) for _ in range(L)]
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+    with torch.cuda.device(cen_A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = _kernel("dccl_lookup_all_levels")(
+            L, ptrs(vols_A), ptrs(vols_B),
+            int(vols_A[0].dtype == torch.bfloat16),
+            cen_A.data_ptr(), cen_B.data_ptr(),
+            grid_A.data_ptr(), grid_B.data_ptr(),
+            ptrs([o for lv in outs for o in lv]), B * Q,
+            (ctypes.c_int * L)(*(v.shape[2] for v in vols_A)),
+            (ctypes.c_int * L)(*(v.shape[3] for v in vols_A)),
+            (ctypes.c_float * L)(*(float(s) for s in scales)),
+            Hg, Wg, stream)
+    _build.check(status, "dccl_lookup_all_levels")
+    dccl_lookup_all_levels.launches += 1
+    return tuple(tuple(lv) for lv in outs)
+
+
+dccl_lookup_all_levels.launches = 0
+
+
+def dccl_level_lookup_coords(vol_A, vol_B, cen_A, cen_B, scale: float,
+                             cxA, cyA, cxB, cyB):
+    """Both branches' own taps and their cross taps at given coords for one
+    level; same arguments and results as
+    ``dccl_level_lookup_coords_plain``."""
+    if _device_or_plain("dccl_level_lookup_coords", vol_A):
+        return dccl_level_lookup_coords_plain(vol_A, vol_B, cen_A, cen_B,
+                                              scale, cxA, cyA, cxB, cyB)
+    coords = (cxA, cyA, cxB, cyB)
+    _check_common("dccl_level_lookup_coords",
+                  (vol_A, vol_B, cen_A, cen_B) + coords,
+                  vol_A, vol_B, cen_A, cen_B)
+    B, Q, Hl, Wl = vol_A.shape
+    for c in coords:
+        if c.shape != (B, Q, NTAP) or c.dtype != torch.float32:
+            raise ValueError(f"cross coords must be ({B}, {Q}, {NTAP}) "
+                             f"float32, got {tuple(c.shape)} {c.dtype}")
+    outs = _outputs(B, Q, vol_A.device)
+    with torch.cuda.device(vol_A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = _kernel("dccl_level_lookup_coords")(
+            vol_A.data_ptr(), vol_B.data_ptr(),
+            int(vol_A.dtype == torch.bfloat16),
+            cen_A.data_ptr(), cen_B.data_ptr(),
+            *(c.data_ptr() for c in coords),
+            *(o.data_ptr() for o in outs),
+            B * Q, Hl, Wl, float(scale), stream)
+    _build.check(status, "dccl_level_lookup_coords")
+    dccl_level_lookup_coords.launches += 1
+    return tuple(outs)
+
+
+dccl_level_lookup_coords.launches = 0

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain versions, and a train
-step on the card against the CPU.
+"""The port's CUDA kernels against their plain versions, the DCCL routes
+against each other, and a forward and a train step on the card against
+the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports no JAX, so it runs as it is on a machine with the card:
@@ -13,6 +14,7 @@ import torch
 
 from prior_flow_tpu_torch.geometry import rotation_grids
 from prior_flow_tpu_torch.models import build_model
+from prior_flow_tpu_torch.ops import corr
 from prior_flow_tpu_torch.ops.kernels import (dccl_coords, dccl_lookup,
                                               dccl_scatter, instance_norm,
                                               launch_counts,
@@ -120,7 +122,9 @@ def test_forward_on_card_matches_cpu_and_counts_launches(dev):
     torch.cuda.synchronize()
     assert launch_counts() == {"dccl_level_lookup": 4 * iters,
                                "instance_norm_sums": 15,
-                               "dccl_grid_coords": 0, "dccl_level_scatter": 0}
+                               "dccl_grid_coords": 0, "dccl_level_scatter": 0,
+                               "dccl_level_lookup_coords": 0,
+                               "dccl_lookup_all_levels": 0}
     err = (out.cpu() - ref).abs().max().item()
     assert err <= 1e-3 * ref.abs().max().item(), err
 
@@ -217,7 +221,8 @@ def test_train_step_on_card_matches_cpu(dev, grad_mode):
     assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
     want = {"dccl_level_lookup": 8, "instance_norm_sums": 30,
             "dccl_grid_coords": 16 if grad_mode == "standard" else 8,
-            "dccl_level_scatter": 16 if grad_mode == "standard" else 8}
+            "dccl_level_scatter": 16 if grad_mode == "standard" else 8,
+            "dccl_level_lookup_coords": 0, "dccl_lookup_all_levels": 0}
     assert counts == want, counts
     total = torch.sqrt(sum((t ** 2).sum() for t in g_cpu.values()))
     for n, ref in g_cpu.items():
@@ -226,3 +231,135 @@ def test_train_step_on_card_matches_cpu(dev, grad_mode):
         err = (g_gpu[n] - ref).norm() / max(ref.norm(),
                                             (1e-2 if zero else 1e-6) * total)
         assert err <= 1e-3, (n, float(err))
+
+
+def _given_coords(dev, B, Q, Hl, Wl, seed):
+    """Cross tap coords (B, Q, 81) x 4 over the plane and a margin, with
+    the seam column, x a hair below 0 and the pole rows."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(2):
+        x = torch.rand(B, Q, 81, generator=g) * 3 * Wl - Wl
+        y = torch.rand(B, Q, 81, generator=g) * (Hl + 3) - 2
+        x[0, 0, :4] = torch.tensor([-1e-8, Wl - 1, Wl - 0.5, 0.0])
+        y[0, 0, :4] = torch.tensor([0.0, Hl - 1, -0.5, Hl - 0.5])
+        out += [x.to(dev), y.to(dev)]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_lookup_coords_kernel_is_bitwise_plain(dev, dtype, lvl):
+    vA, vB, cA, cB, _, _ = _level_inputs(dev, 2, 16, 32, lvl, dtype)
+    B, Q, Hl, Wl = vA.shape
+    given = _given_coords(dev, B, Q, Hl, Wl, lvl)
+    scale = 1.0 / 2 ** lvl
+    with torch.no_grad():
+        n0 = dccl_lookup.dccl_level_lookup_coords.launches
+        got = dccl_lookup.dccl_level_lookup_coords(vA, vB, cA, cB, scale,
+                                                   *given)
+        torch.cuda.synchronize()
+        assert dccl_lookup.dccl_level_lookup_coords.launches == n0 + 1
+        ref = dccl_lookup.dccl_level_lookup_coords_plain(vA, vB, cA, cB,
+                                                         scale, *given)
+    for o, r in zip(got, ref):
+        assert o.dtype == torch.float32 and torch.equal(o, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_planes_route_is_bitwise_kernel_1(dev, dtype):
+    """On a 128x256 grid (a 1024x2048 input), the planes route (one coords
+    launch per branch for all levels, then the lookup at given coords)
+    gives kernel 1's bits, level by level."""
+    g = torch.Generator().manual_seed(2)
+    Q, h, w = 2048, 128, 256           # a sample of the 32768 queries
+    vols = [[torch.randn(1, Q, h >> lvl, w >> lvl, generator=g).to(dtype)
+             .to(dev) for _ in range(2)] for lvl in range(4)]
+    u = torch.rand(2, 2, 1, Q, generator=g)
+    cA, cB = (torch.stack([t[0] * (w + 4) - 2, t[1] * (h + 4) - 2], -1)
+              .to(dev).contiguous() for t in u)
+    grids = rotation_grids(8 * h, 8 * w).to_device(dev)
+    gA, gB = grids.a2b_w2c_8, grids.b2a_w2c_8
+    scales = [1.0 / 2 ** lvl for lvl in range(4)]
+    with torch.no_grad():
+        planes = (*corr.cross_coords_all_levels(cA, gA, scales),
+                  *corr.cross_coords_all_levels(cB, gB, scales))
+        BQ = cA.shape[0] * cA.shape[1]
+        for lvl, (vA, vB, *_) in enumerate(vols):
+            given = [p[lvl * BQ:(lvl + 1) * BQ].reshape(*cA.shape[:2], 81)
+                     for p in planes]
+            got = dccl_lookup.dccl_level_lookup_coords(vA, vB, cA, cB,
+                                                       scales[lvl], *given)
+            ref = dccl_lookup.dccl_level_lookup(vA, vB, cA, cB, gA, gB,
+                                                scales[lvl])
+            for o, r in zip(got, ref):
+                assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 4])
+def test_all_levels_kernel_is_bitwise_per_level(dev, dtype, B):
+    vols = [_level_inputs(dev, B, 16, 32, lvl, dtype, seed=lvl)
+            for lvl in range(4)]
+    cA, cB, gA, gB = vols[0][2:]
+    scales = [1.0 / 2 ** lvl for lvl in range(4)]
+    with torch.no_grad():
+        n0 = dccl_lookup.dccl_lookup_all_levels.launches
+        got = dccl_lookup.dccl_lookup_all_levels(
+            [v[0] for v in vols], [v[1] for v in vols], cA, cB, gA, gB,
+            scales)
+        torch.cuda.synchronize()
+        assert dccl_lookup.dccl_lookup_all_levels.launches == n0 + 1
+        for lvl, (vA, vB, *_) in enumerate(vols):
+            ref = dccl_lookup.dccl_level_lookup(vA, vB, cA, cB, gA, gB,
+                                                scales[lvl])
+            for o, r in zip(got[lvl], ref):
+                assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("fn", ["coords", "all_levels"])
+def test_new_functions_gradient_on_card_matches_plain_autograd(dev, fn):
+    """The volumes' gradients through ``DCCLLevelLookupCoords`` and
+    ``DCCLAllLevelsLookup`` (kernels forward and backward) against autograd
+    of the plain versions on the card: f32, 1e-5 of max|plain| (the
+    scatter's atomics reorder the sums)."""
+    vols = [_level_inputs(dev, 2, 16, 32, lvl, torch.float32, seed=lvl)
+            for lvl in range(4)]
+    cA, cB, gA, gB = vols[0][2:]
+    scales = tuple(1.0 / 2 ** lvl for lvl in range(4))
+    given = [_given_coords(dev, 2, 512, 16 >> lvl, 32 >> lvl, 10 + lvl)
+             for lvl in range(4)]
+    g = torch.Generator().manual_seed(5)
+    cts = [torch.randn(2, 512, 81, generator=g).to(dev) for _ in range(16)]
+
+    def grads(function):
+        vA = [v[0].clone().requires_grad_() for v in vols]
+        vB = [v[1].clone().requires_grad_() for v in vols]
+        if fn == "coords":
+            lookup = (corr.DCCLLevelLookupCoords.apply if function
+                      else dccl_lookup.dccl_level_lookup_coords_plain)
+            outs = [o for lvl in range(4) for o in lookup(
+                vA[lvl], vB[lvl], cA, cB, scales[lvl], *given[lvl])]
+        elif function:
+            outs = corr.DCCLAllLevelsLookup.apply(
+                cA, cB, gA, gB, scales,
+                *(v for pair in zip(vA, vB) for v in pair))
+        else:
+            outs = [o for lv in dccl_lookup.dccl_lookup_all_levels_plain(
+                vA, vB, cA, cB, gA, gB, scales) for o in lv]
+        torch.autograd.backward(outs, cts)
+        return [v.grad for v in vA + vB]
+
+    reset_launch_counts()
+    got = grads(True)
+    counts = launch_counts()
+    ref = grads(False)
+    if fn == "coords":
+        assert counts["dccl_level_lookup_coords"] == 4
+        assert counts["dccl_level_scatter"] == 8
+    else:
+        assert counts["dccl_lookup_all_levels"] == 1
+        assert counts["dccl_grid_coords"] == 8
+        assert counts["dccl_level_scatter"] == 8
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item() + 1e-6

@@ -1,5 +1,7 @@
 """The port's test-mode PriOr-RAFT forward against the JAX model on the
-CPU, plus the weight bridge, the demo CLI and import hygiene."""
+CPU, through each of its routes (the default; the chunked pyramid build
+with the lookup at given cross coords, as at 1024x2048; all levels in one
+lookup call), plus the weight bridge, the demo CLI and import hygiene."""
 
 import json
 import os
@@ -19,7 +21,8 @@ from prior_flow_tpu.models.prior_raft import \
     upsample_flow_convex as jax_upsample
 from prior_flow_tpu_torch.checkpoint import (load_pth, state_dict_from_jax,
                                              strip_module_prefix)
-from prior_flow_tpu_torch.models import PriOrRAFT, build_model
+from prior_flow_tpu_torch.models import PriOrRAFT, build_model, prior_raft
+from prior_flow_tpu_torch.ops.corr import DCCLFused
 from prior_flow_tpu_torch.models.prior_raft import upsample_flow_convex
 from test_torch_port_nn import random_variables
 
@@ -59,15 +62,65 @@ def _compare(jm, variables, tm, H, W, iters, init_flow=None, seed=1, B=1):
     assert err <= FLOW_TOL * scale
 
 
-@pytest.mark.parametrize("with_init", [False, True])
-def test_forward_matches_jax(models, with_init):
-    """64x128, 4 iterations, f32 against PriOrRAFT(precision='highest')."""
+def _force_route(monkeypatch, tm, route):
+    """Put the module-scoped model on one of the port's routes for this
+    test: "planes_lean" builds the pyramids in query chunks (the threshold
+    lowered to 0) and looks up at given cross coords, as at 1024x2048;
+    "fused_levels" runs all levels in one lookup call. Returns the calls
+    of ``build_pyramid_lean`` seen."""
+    calls = []
+    lean = prior_raft.build_pyramid_lean
+
+    def spy(*a, **k):
+        calls.append(a[0].shape)
+        return lean(*a, **k)
+
+    monkeypatch.setattr(prior_raft, "build_pyramid_lean", spy)
+    if route == "planes_lean":
+        monkeypatch.setattr(prior_raft, "LEAN_BUILD_QUERIES", 0)
+        monkeypatch.setattr(tm, "dccl", DCCLFused(grid_in_kernel=False))
+    elif route == "fused_levels":
+        monkeypatch.setattr(tm, "dccl", DCCLFused(fuse_levels=True))
+    return calls
+
+
+@pytest.mark.parametrize("route,with_init", [
+    pytest.param("default", False, id="False"),
+    pytest.param("default", True, id="True"),
+    pytest.param("planes_lean", False, id="planes_lean-False"),
+    pytest.param("planes_lean", True, id="planes_lean-True"),
+    pytest.param("fused_levels", False, id="fused_levels-False"),
+    pytest.param("fused_levels", True, id="fused_levels-True")])
+def test_forward_matches_jax(models, monkeypatch, route, with_init):
+    """64x128, 4 iterations, f32 against PriOrRAFT(precision='highest'),
+    through each of the port's routes (JAX takes its default one)."""
     jm, variables, tm = models
+    lean_calls = _force_route(monkeypatch, tm, route)
     init = None
     if with_init:
         init = np.random.default_rng(7).normal(0, 1.5, (1, 8, 16, 2)).astype(
             np.float32)
     _compare(jm, variables, tm, 64, 128, 4, init)
+    assert len(lean_calls) == (2 if route == "planes_lean" else 0)
+
+
+def test_lean_build_routing(monkeypatch):
+    """The pyramids are built in query chunks exactly above
+    LEAN_BUILD_QUERIES (16384, as in JAX: 1024x2048 has 32768 queries,
+    512x1024 8192), and both builds give the same bits."""
+    assert prior_raft.LEAN_BUILD_QUERIES == 16384
+    tm = PriOrRAFT()
+    g = torch.Generator().manual_seed(0)
+    fmaps = tuple(torch.randn(1, 8, 16, 256, generator=g) for _ in range(4))
+    dense = tm.build_pyramids(fmaps)
+    calls = _force_route(monkeypatch, tm, "default")
+    monkeypatch.setattr(prior_raft, "LEAN_BUILD_QUERIES", 128)
+    assert tm.build_pyramids(fmaps) and calls == []
+    monkeypatch.setattr(prior_raft, "LEAN_BUILD_QUERIES", 127)
+    lean = tm.build_pyramids(fmaps)
+    assert len(calls) == 2
+    for d, l in zip(dense, lean):
+        assert all(torch.equal(a, b) for a, b in zip(d, l))
 
 
 def test_forward_matches_jax_batch_2(models):

@@ -120,12 +120,18 @@ def test_wrappers_refuse_devices_without_a_kernel():
     x = torch.empty(1, 2, 4, 4, device="meta")
     with pytest.raises(RuntimeError):
         tin.instance_norm_sums(x, x)
-    from prior_flow_tpu_torch.ops.kernels.dccl_lookup import dccl_level_lookup
+    from prior_flow_tpu_torch.ops.kernels.dccl_lookup import (
+        dccl_level_lookup, dccl_level_lookup_coords, dccl_lookup_all_levels)
     v = torch.empty(1, 2, 4, 8, device="meta")
     c = torch.empty(1, 2, 2, device="meta")
     g = torch.empty(4, 8, 2, device="meta")
+    x = torch.empty(1, 2, 81, device="meta")
     with pytest.raises(RuntimeError):
         dccl_level_lookup(v, v, c, c, g, g, 1.0)
+    with pytest.raises(RuntimeError):
+        dccl_level_lookup_coords(v, v, c, c, 1.0, x, x, x, x)
+    with pytest.raises(RuntimeError):
+        dccl_lookup_all_levels([v], [v], c, c, g, g, [1.0])
 
 
 @pytest.mark.parametrize("norm_fn,stride", [("instance", 1), ("instance", 2),

@@ -1,7 +1,9 @@
 """Port ops (samplers, warps, static resample, correlation, plain DCCL, and
 the backward pieces: sampler VJPs, the resample transpose, the DCCL cross
-tap coords and volume scatter) against the JAX package on the CPU. Inputs
-come from numpy seeds and go through both implementations."""
+tap coords and volume scatter; the chunked pyramid build, the lookup at
+given cross coords, and the planes and all-levels DCCL routes) against the
+JAX package on the CPU. Inputs come from numpy seeds and go through both
+implementations."""
 
 import numpy as np
 import pytest
@@ -483,3 +485,282 @@ def test_record_gives_the_summed_fields(rng):
     assert torch.equal(f_A, own_A + cross_A) and torch.equal(f_B, own_B + cross_B)
     assert torch.equal(cen_A, T(cA).reshape(2, 128, 2))
     assert not f_A.requires_grad
+
+
+# -- the 1024x2048 path: chunked pyramid build, lookup at given cross coords,
+# -- the planes and all-levels routes --
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_build_pyramid_lean_matches_jax_and_dense(rng, dtype):
+    """The chunked build against JAX's ``build_pyramid_lean`` (B = 2, 8x16,
+    C = 32, q_chunk 32): f32 to 1e-5, bf16 to one bf16 step of the value;
+    and bitwise equal to the port's dense build cast level by level."""
+    B, h, w, C = 2, 8, 16, 32
+    f1 = rng.normal(size=(B, h, w, C)).astype(np.float32)
+    f2 = rng.normal(size=(B, h, w, C)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    with jax.default_matmul_precision("highest"):
+        ref = jcorr.build_pyramid_lean(jnp.asarray(f1), jnp.asarray(f2), 4,
+                                       jdt, q_chunk=32)
+    lean = corr.build_pyramid_lean(T(f1), T(f2), 4, dtype, q_chunk=32)
+    dense = corr.build_pyramid(corr.all_pairs_correlation(T(f1), T(f2)), 4)
+    assert [tuple(p.shape) for p in lean] == [r.shape for r in ref]
+    for p, r, d in zip(lean, ref, dense):
+        assert p.dtype == dtype
+        r = np.asarray(r.astype(jnp.float32))
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * np.abs(r) + 1e-6
+        assert np.all(np.abs(p.float().numpy() - r) <= tol)
+        assert torch.equal(p, d.to(dtype))
+    with pytest.raises(AssertionError):
+        corr.build_pyramid_lean(T(f1), T(f2), 4, dtype, q_chunk=48)
+
+
+@pytest.mark.parametrize("size", [(512, 1024), (1024, 2048)])
+def test_planes_coords_match_jax_window_planes(rng, size):
+    """The planes route's cross tap coords (all four level scales in one
+    coords call) against JAX's ``sample_image_window_planes`` on the 1/8
+    grids of a 512x1024 (64x128) and a 1024x2048 (128x256) input.
+
+    Both compute the grid sampled at the window around cen * scale, in
+    two f32 orders: JAX takes the fraction of the wrapped centre and adds
+    the integer offsets after, the port (bit for bit the lookup kernel's
+    own) wraps centre + offset. Where the cell's four corners (zero beyond
+    the last column, the seam quirk) span less than 8 px the two agree
+    within 1e-4 px (measured 4.6e-5 at 128x256). A window that wraps to
+    just below W takes its fraction at W's f32 spacing, and next to the
+    seam a corner spread of up to ~W turns that into up to 1.7e-3 px
+    (measured at 128x256): every tap is held to 1e-4 px plus two f32
+    spacings of its coordinate times its cell's corner spread."""
+    H, W = size
+    h, w = H // 8, W // 8
+    N = 256
+    cen = _centres(rng, N, h, w)
+    scales = [1.0 / 2 ** i for i in range(4)]
+    g = rotation_grids(H, W).to_device("cpu")
+    delta = corr.window_delta(4).numpy()
+    for grid in (g.a2b_w2c_8, g.b2a_w2c_8):
+        cx, cy = corr.cross_coords_all_levels(T(cen).reshape(1, N, 2), grid,
+                                              scales)
+        assert cx.shape == cy.shape == (4 * N, 81)
+        gn = grid.numpy()
+        for lvl, s in enumerate(scales):
+            with jax.default_matmul_precision("highest"):
+                rx, ry = jcorr.sample_image_window_planes(
+                    jnp.asarray(gn[None, ..., 0]), jnp.asarray(gn[None, ..., 1]),
+                    jnp.asarray(cen[None] * np.float32(s)), 4)
+            rows = slice(lvl * N, (lvl + 1) * N)
+            err = np.maximum(np.abs(cx[rows].numpy() - np.asarray(rx)[0]),
+                             np.abs(cy[rows].numpy() - np.asarray(ry)[0]))
+            win = (cen * np.float32(s))[:, None, :] + delta
+            x = np.mod(win[..., 0], np.float32(w))
+            y = win[..., 1]
+            x0, y0 = np.floor(x).astype(int), np.floor(y).astype(int)
+            corners = []
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    ix, iy = x0 + dx, y0 + dy
+                    ok = (ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)
+                    corners.append(gn[np.clip(iy, 0, h - 1),
+                                      np.clip(ix, 0, w - 1)] * ok[..., None])
+            corners = np.stack(corners)
+            spread = (corners.max(0) - corners.min(0)).max(-1)
+            mag = np.maximum(np.maximum(x, np.abs(y)), 1.0).astype(np.float32)
+            assert np.all(err <= 1e-4 + 2 * np.spacing(mag) * spread)
+            assert np.all(err[spread < 8] <= 1e-4)
+
+
+def test_lookup_at_given_coords_matches_jax_gathers(rng):
+    """The plain lookup at given cross coords against the gathers of JAX's
+    ``DCCL(lookup_mode='gather')`` (``sample_volume_level``) at the same
+    own window and the same cross coords, f32 and bf16 volumes, all four
+    levels, at DCCL_ATOL; the wrapper takes the plain version on the CPU
+    and launches nothing."""
+    pyr_A, pyr_B, cA, cB = _dccl_inputs(rng)
+    cqA, cqB = cA.reshape(2, 128, 2), cB.reshape(2, 128, 2)
+    delta = jcorr._window_delta(4)[None, None]
+    for dtype, jdt in ((torch.float32, jnp.float32),
+                       (torch.bfloat16, jnp.bfloat16)):
+        for lvl in range(4):
+            vA, vB = pyr_A[lvl].to(dtype), pyr_B[lvl].to(dtype)
+            Hl, Wl = vA.shape[2:]
+            s = 1.0 / 2 ** lvl
+            given = []
+            for _ in range(2):
+                c = _coords(rng, 2, 128 * 81, Hl, Wl).reshape(2, 128, 81, 2)
+                given += [c[..., 0], c[..., 1]]
+            jA = jnp.asarray(vA.float().numpy()).astype(jdt)
+            jB = jnp.asarray(vB.float().numpy()).astype(jdt)
+            ref = []
+            for own, other, cq, (gx, gy) in ((jA, jB, cqA, given[:2]),
+                                             (jB, jA, cqB, given[2:])):
+                ref.append(jcorr.sample_volume_level(
+                    own, jnp.asarray(cq * s)[:, :, None] + delta))
+                ref.append(jcorr.sample_volume_level(
+                    other, jnp.asarray(np.stack([gx, gy], -1))))
+            n0 = dccl_lookup.dccl_level_lookup_coords.launches
+            got = dccl_lookup.dccl_level_lookup_coords(
+                vA, vB, T(cqA), T(cqB), s, *(T(c) for c in given))
+            assert dccl_lookup.dccl_level_lookup_coords.launches == n0
+            for t, r in zip(got, ref):
+                assert t.dtype == torch.float32 and t.shape == (2, 128, 81)
+                np.testing.assert_allclose(t.numpy(),
+                                           np.asarray(r.astype(jnp.float32)),
+                                           atol=DCCL_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("route", ["planes", "fused_levels"])
+def test_dccl_routes_are_bitwise_the_grid_route(rng, route):
+    """``DCCLFused(grid_in_kernel=False)`` (coords first, then the lookup
+    at given coords) and ``DCCLFused(fuse_levels=True)`` (all levels in one
+    call) give the default route's bits on the CPU, seam and pole edges
+    included, for f32 and bf16 pyramids."""
+    pyr_A, pyr_B, cA, cB = _dccl_inputs(rng)
+    g = rotation_grids(64, 128).to_device("cpu")
+    kw = ({"grid_in_kernel": False} if route == "planes"
+          else {"fuse_levels": True})
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (T(cA), T(cB), [p.to(dtype) for p in pyr_A],
+                [p.to(dtype) for p in pyr_B], g.a2b_w2c_8, g.b2a_w2c_8,
+                g.a2b_8, g.b2a_8)
+        ref = corr.DCCLFused(4, 4)(*args)
+        got = corr.DCCLFused(4, 4, **kw)(*args)
+        for r, t in zip(ref, got):
+            assert torch.equal(r, t)
+
+
+@pytest.mark.parametrize("fn", ["coords", "all_levels"])
+def test_new_lookup_functions_gradient_matches_autograd_of_plain(rng, fn):
+    """``DCCLLevelLookupCoords`` (backward: scatters at the saved given
+    coords) and ``DCCLAllLevelsLookup`` (backward: per level, coords
+    recomputed, then scatters) give the volumes the gradient autograd
+    takes through their plain versions, f32 to 1e-5; bf16 volumes within
+    half a bf16 step of the f32 gradient of the same values."""
+    pyr_A, pyr_B, cA, cB = _dccl_inputs(rng)
+    g = rotation_grids(64, 128).to_device("cpu")
+    cqA, cqB = T(cA).reshape(2, 128, 2), T(cB).reshape(2, 128, 2)
+    scales = tuple(1.0 / 2 ** i for i in range(4))
+    given = [T(_coords(rng, 2, 128 * 81, 8 >> lvl, 16 >> lvl)
+               .reshape(2, 128, 81, 2)) for lvl in range(4) for _ in range(2)]
+    cts = [T(rng.normal(size=(2, 128, 81)).astype(np.float32))
+           for _ in range(16)]
+
+    def grads(function, dtype):
+        vA = [p.detach().to(dtype).clone().requires_grad_() for p in pyr_A]
+        vB = [p.detach().to(dtype).clone().requires_grad_() for p in pyr_B]
+        if fn == "coords":
+            lookup = (corr.DCCLLevelLookupCoords.apply if function
+                      else dccl_lookup.dccl_level_lookup_coords_plain)
+            outs = [o for lvl in range(4) for o in lookup(
+                vA[lvl], vB[lvl], cqA, cqB, scales[lvl],
+                given[2 * lvl][..., 0], given[2 * lvl][..., 1],
+                given[2 * lvl + 1][..., 0], given[2 * lvl + 1][..., 1])]
+        elif function:
+            outs = corr.DCCLAllLevelsLookup.apply(
+                cqA, cqB, g.a2b_w2c_8, g.b2a_w2c_8, scales,
+                *(v for pair in zip(vA, vB) for v in pair))
+        else:
+            outs = [o for lv in dccl_lookup.dccl_lookup_all_levels_plain(
+                vA, vB, cqA, cqB, g.a2b_w2c_8, g.b2a_w2c_8, scales)
+                for o in lv]
+        torch.autograd.backward(outs, cts)
+        return [v.grad for v in vA + vB]
+
+    for a, b in zip(grads(True, torch.float32), grads(False, torch.float32)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-5)
+    pyr_A = [p.to(torch.bfloat16).float() for p in pyr_A]
+    pyr_B = [p.to(torch.bfloat16).float() for p in pyr_B]
+    for a, b in zip(grads(True, torch.bfloat16), grads(False, torch.float32)):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(), b.numpy(),
+                                   rtol=2.0 ** -8, atol=1e-6)
+
+
+def test_dccl_route_rules(monkeypatch):
+    """The planes route is taken exactly when the 1/8 grid is wider than
+    128 columns or ``grid_in_kernel=False``, and ``record`` refuses it;
+    ``fuse_levels=None`` reads ``PRIORFLOW_DCCL_FUSE_LEVELS``."""
+    narrow, wide = torch.zeros(64, 128, 2), torch.zeros(64, 129, 2)
+    assert not corr.DCCLFused().planes_route(narrow)
+    assert corr.DCCLFused().planes_route(wide)
+    assert corr.DCCLFused(grid_in_kernel=False).planes_route(narrow)
+    with pytest.raises(ValueError):
+        corr.DCCLFused(grid_in_kernel=False).record(
+            torch.zeros(1, 2, 2, 2), torch.zeros(1, 2, 2, 2), [], [],
+            narrow, narrow, narrow, narrow)
+    monkeypatch.delenv("PRIORFLOW_DCCL_FUSE_LEVELS", raising=False)
+    assert corr.DCCLFused().fuse_levels is False
+    monkeypatch.setenv("PRIORFLOW_DCCL_FUSE_LEVELS", "1")
+    assert corr.DCCLFused().fuse_levels is True
+    assert corr.DCCLFused(fuse_levels=False).fuse_levels is False
+    monkeypatch.setenv("PRIORFLOW_DCCL_FUSE_LEVELS", "0")
+    assert corr.DCCLFused().fuse_levels is False
+
+
+def _away_from_seam(c, W):
+    """Move x that wraps to exactly W (a hair below 0) off that edge: there
+    the Pallas kernels clip to column W-1 and the port samples zero
+    (ROADMAP Queue 3)."""
+    c = c.copy()
+    x = c[..., 0]
+    x[(x < 0) & (np.mod(x, np.float32(W)) == W)] = -0.5
+    return c
+
+
+@pytest.mark.slow  # interpret-mode Pallas on the CPU
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lookup_coords_matches_pallas_interpret(rng, dtype):
+    """The plain lookup at given coords against the Pallas lookup it stands
+    for (``dccl_level_lookup_fused``, kernel ``_dccl_kernel``) in interpret
+    mode, away from the x == W edge, at DCCL_ATOL."""
+    from prior_flow_tpu.ops.pallas.dccl_gather import dccl_level_lookup_fused
+    pyr_A, pyr_B, _, _ = _dccl_inputs(rng)
+    base = np.broadcast_to(jgrids.identity_grid(8, 16), (2, 8, 16, 2))
+    cA = (base + rng.uniform(-3, 3, base.shape)).astype(np.float32).reshape(
+        2, 128, 2)
+    cB = (base + rng.uniform(-3, 3, base.shape)).astype(np.float32).reshape(
+        2, 128, 2)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    for lvl in range(4):
+        vA, vB = pyr_A[lvl].to(dtype), pyr_B[lvl].to(dtype)
+        Hl, Wl = vA.shape[2:]
+        s = 1.0 / 2 ** lvl
+        xA, xB = (_away_from_seam(_coords(rng, 2, 128 * 81, Hl, Wl), Wl)
+                  .reshape(2, 128, 81, 2) for _ in range(2))
+        ref = dccl_level_lookup_fused(
+            jnp.asarray(vA.float().numpy()).astype(jdt),
+            jnp.asarray(vB.float().numpy()).astype(jdt),
+            jnp.asarray(cA), jnp.asarray(cB), jnp.asarray(xA),
+            jnp.asarray(xB), s, interpret=True)
+        got = dccl_lookup.dccl_level_lookup_coords_plain(
+            vA, vB, T(cA), T(cB), s, T(xA[..., 0]), T(xA[..., 1]),
+            T(xB[..., 0]), T(xB[..., 1]))
+        for r, t in zip(ref, got):
+            np.testing.assert_allclose(t.numpy(), np.asarray(r),
+                                       atol=DCCL_ATOL, rtol=0)
+
+
+@pytest.mark.slow  # interpret-mode Pallas on the CPU
+def test_all_levels_matches_pallas_interpret(rng):
+    """The plain all-levels lookup against ``dccl_packed_lookup_grid_all``
+    (kernel ``_dccl_grid_kernel_all``) in interpret mode, centres away from
+    the x == W edge, f32, at DCCL_ATOL."""
+    from prior_flow_tpu.ops.pallas.dccl_gather import (
+        dccl_packed_lookup_grid_all, pack_volume)
+    pyr_A, pyr_B, _, _ = _dccl_inputs(rng)
+    g = jgrids.rotation_grids(64, 128)
+    base = np.broadcast_to(jgrids.identity_grid(8, 16), (2, 8, 16, 2))
+    cA, cB = ((base + rng.uniform(-3, 3, base.shape)).astype(np.float32)
+              .reshape(2, 128, 2) for _ in range(2))
+    scales = tuple(1.0 / 2 ** i for i in range(4))
+    pA = [pack_volume(jnp.asarray(p.numpy())) for p in pyr_A]
+    pB = [pack_volume(jnp.asarray(p.numpy())) for p in pyr_B]
+    ref = dccl_packed_lookup_grid_all(
+        tuple(p for p, _ in pA), tuple(p for p, _ in pB),
+        tuple(m for _, m in pA), jnp.asarray(cA), jnp.asarray(cB),
+        (jnp.asarray(g.a2b_w2c_8), jnp.asarray(g.b2a_w2c_8)), scales, True)
+    got = dccl_lookup.dccl_lookup_all_levels_plain(
+        pyr_A, pyr_B, T(cA), T(cB), T(g.a2b_w2c_8), T(g.b2a_w2c_8), scales)
+    for r_lv, t_lv in zip(ref, got):
+        for r, t in zip(r_lv, t_lv):
+            np.testing.assert_allclose(t.numpy(), np.asarray(r),
+                                       atol=DCCL_ATOL, rtol=0)
