@@ -7,7 +7,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. build the CUDA kernels from ``prior_flow_tpu_torch/csrc``;
 2. the DCCL level-lookup kernel against its plain version at the four
    pyramid-level shapes of a 512x1024 forward (batch 1) and of the batch-4
-   training step (B x Q = 32768 queries), f32 and bf16 volumes;
+   training step (B x Q = 32768 queries), f32 and bf16 volumes; its time
+   and its library yardstick's both issued back to back and queued;
 3. the instance-norm sums kernel against its plain version at the three
    fnet shapes, f32 and bf16;
 4. the test-mode forward at 512x1024, batch 1, 12 iterations, seeded
@@ -47,8 +48,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    with the chunked build and the planes route forced on the card against
    the CPU's default routes; the 512x1024 fp32 forward with
    PRIORFLOW_DCCL_FUSE_LEVELS=1 (12 all-levels launches, no kernel 1) within
-   1e-5 x flow scale of phase 4's flow.
-Then the card's name and power limit, a ``kernels`` JSON line with each
+   1e-5 x flow scale of phase 4's flow;
+15. the primitive-rate anchors (``tools/microbench_vpu_anchor.py``) at the
+   tool's size (128 x (512, 128) f32, K = 256): the six (kind, ilp) chains
+   bitwise against their plain versions, the SASS step instructions per
+   element (K less at most one per chain, or the chain was folded), the
+   card's ms and T elem-ops/s beside the operations bound from the SM count
+   and the max SM clock; the copy kernel bitwise 2x, its per-block slope
+   from 512 to 4096 blocks, and one empty launch;
+16. the DCCL stage split (``tools/microbench_kernel_split.py``) at 512x1024,
+   batch 1, four levels, f32 and bf16: own-only and cross-only bitwise equal
+   to kernel 1's outputs, gridwin-only bitwise equal to two coords-kernel
+   launches, each beside its plain version; per level the ms of kernel 1,
+   of row 3 at random coords and of each stage beside its bytes bound;
+17. the grid-window variants (``tools/microbench_gridwin.py``) at Q = 8192,
+   64x128 grids: every semantic variant and the pair bitwise equal to the
+   coords kernel; ms of each variant, diagnostic and the pair, the plain
+   version and F.grid_sample.
+The launches of phases 15-17 are the tools' measurement runs (path
+"tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
 
 TF32 is off for matmuls and cuDNN convolutions in every phase, so "fp32"
@@ -66,12 +84,14 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
+
+from prior_flow_tpu_torch.tools._timing import (  # noqa: E402
+    cuda_ms, max_sm_clock_hz, nvidia_smi, queued_ms)
 
 H, W, ITERS = 512, 1024, 12
 FNET_SHAPES = [(4, 64, 256, 512), (4, 96, 128, 256), (4, 128, 64, 128)]
@@ -141,21 +161,6 @@ def card_peaks(name: str):
     if "NVL" in n:
         return 3.9e12, 60e12
     return 3.35e12, 67e12
-
-
-def cuda_ms(fn, n: int, warmup: int = 5) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
 
 
 def bound(bytes_moved: float, ops: float, peaks):
@@ -234,21 +239,25 @@ def lookup_bytes(vA, vB, coords, extra: int) -> tuple:
     return sectors * 32 + 4 * BQ * 81 * 4 + 2 * BQ * 2 * 4 + extra, sectors
 
 
+def normalised(c, Hl: int, Wl: int):
+    """Pixel coords (..., 2) of an (Hl, Wl) plane, x wrapped mod Wl, as
+    ``F.grid_sample(align_corners=True)`` takes them: with zero padding it
+    then blends column Wl - 1 toward zero, as the port's sampler does."""
+    import torch
+    xn = torch.remainder(c[..., 0], Wl) * (2.0 / (Wl - 1)) - 1
+    yn = c[..., 1] * (2.0 / (Hl - 1)) - 1
+    return torch.stack([xn, yn], -1)
+
+
 def grid_sample_library(vA, vB, coords):
     """One level's library yardstick: 4 ``F.grid_sample`` calls at the
     precomputed tap coords (own_A in A, cross_A in B, own_B in B, cross_B
     in A), wrapped and normalised beforehand; None for a 1-pixel extent."""
-    import torch
     import torch.nn.functional as F
     _, BQ, Hl, Wl = vA.shape
     if Hl < 2 or Wl < 2:
         return None
-
-    def norm(c):
-        xn = torch.remainder(c[..., 0], Wl) * (2.0 / (Wl - 1)) - 1
-        yn = c[..., 1] * (2.0 / (Hl - 1)) - 1
-        return torch.stack([xn, yn], -1).reshape(BQ, 1, 81, 2)
-    gs = [norm(c) for c in coords]
+    gs = [normalised(c, Hl, Wl).reshape(BQ, 1, 81, 2) for c in coords]
     iA = vA.reshape(BQ, 1, Hl, Wl)
     iB = vB.reshape(BQ, 1, Hl, Wl)
 
@@ -268,7 +277,7 @@ def phase_lookup(dev, grids, peaks):
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
-                   err=0.0)
+                   err=0.0, queued_ms=0.0, library_queued_ms=0.0)
         for lvl in range(4):
             vA, vB, cA, cB, gA, gB = lookup_inputs(lvl, dtype, dev, grids)
             s = 1.0 / 2 ** lvl
@@ -282,6 +291,7 @@ def phase_lookup(dev, grids, peaks):
                     fail(f"dccl lookup {tag} level {lvl}: max abs err {err} "
                          f"> {LOOKUP_ATOL}")
                 ms = cuda_ms(lambda: dccl_level_lookup(*args), 50)
+                q_ms = queued_ms(lambda: dccl_level_lookup(*args), 50)
                 plain_ms = cuda_ms(lambda: dccl_level_lookup_plain(*args), 5,
                                    warmup=2)
                 coords = lookup_sample_coords(cA, cB, gA, gB, s)
@@ -291,25 +301,31 @@ def phase_lookup(dev, grids, peaks):
                 ops = BQ * NTAP * LOOKUP_OPS_PER_TAP
                 b_ms, _ = bound(nbytes, ops, peaks)
                 library = grid_sample_library(vA, vB, coords)
-                lib_ms = None
+                lib_ms = lib_q_ms = None
                 if dtype == torch.float32 and library is not None:
                     lib_ms = cuda_ms(library, 50)
+                    lib_q_ms = queued_ms(library, 50)
             print(f"  dccl {tag} level {lvl} ({BQ}x{Hl}x{Wl}): err {err:.3e} "
                   f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                   f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
-                  f"bound {b_ms:.4f} ms ({sectors} sectors, {nbytes / 1e6:.2f} MB)",
-                  flush=True)
+                  f"bound {b_ms:.4f} ms ({sectors} sectors, {nbytes / 1e6:.2f} MB); "
+                  f"card's own time (launches queued): kernel {q_ms:.4f} ms, "
+                  f"library {lib_q_ms if lib_q_ms is None else round(lib_q_ms, 4)} "
+                  f"ms", flush=True)
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
             tot["bytes"] += nbytes
             tot["ops"] += ops
             tot["library_ms"] += lib_ms or 0.0
+            tot["queued_ms"] += q_ms
+            tot["library_queued_ms"] += lib_q_ms or 0.0
             tot["err"] = max(tot["err"], err)
         tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"], peaks)
         rows[tag] = tot
         print(f"  dccl {tag} one iteration (4 levels): kernel {tot['ms']:.4f} ms "
-              f"plain {tot['plain_ms']:.4f} ms bound {tot['bound_ms']:.4f} ms",
-              flush=True)
+              f"plain {tot['plain_ms']:.4f} ms bound {tot['bound_ms']:.4f} ms; "
+              f"queued: kernel {tot['queued_ms']:.4f} ms, library "
+              f"{tot['library_queued_ms']:.4f} ms", flush=True)
 
     # the shapes of the training step: batch 4, bf16 volumes on its path
     for dtype in (torch.float32, torch.bfloat16):
@@ -1226,6 +1242,234 @@ def phase_forward_hr(dev, ref_128, flow32, c1, c2, i1, i2):
     return out
 
 
+# -- phase 15: primitive-rate anchors ----------------------------------------------
+
+def phase_anchors(dev, peaks, sms: int, clock_hz: float):
+    """The anchor tool's run (gates, SASS counts, measurement) at its size,
+    beside each kernel's bound; returns the two kernels' rows and the tool
+    run's launch counts."""
+    import torch
+    from prior_flow_tpu_torch.tools import microbench_vpu_anchor as va
+
+    try:
+        chains, step, launches = va.run(dev)
+    except va.GateError as e:
+        fail(str(e))
+    # x and idx read, the output written
+    t_bytes = 3 * va.GRID * va.TILE_R * va.LANES * 4 / peaks[0] * 1e3
+    chain = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
+                 bound_by="operations", err=0.0, per={})
+    for (kind, ilp), c in chains.items():
+        t_ops = va.ops_bound_ms(kind, va.N_ELEM, sms, clock_hz)
+        print(f"  anchor {va.chain_line(kind, ilp, c, sms, clock_hz).strip()}"
+              f"; bytes bound {t_bytes:.4f} ms", flush=True)
+        chain["ms"] += c["ms"]
+        chain["plain_ms"] += c["plain_ms"]
+        chain["bound_ms"] += max(t_ops, t_bytes)
+        chain["err"] = max(chain["err"], c["err"])
+        chain["per"][f"{kind}_ilp{ilp}"] = round(c["ms"], 4)
+    t0, t1 = va.STEP_TILES
+    copy = dict(step, ms=step["ms"][t1], small_ms=step["ms"][t0], err=0.0,
+                library_ms=va.cold_ms(lambda x: torch.mul(x, 2.0), dev, t1))
+    n = t1 * va.TILE_ROWS * va.LANES
+    copy["bound_ms"], copy["bound_by"] = bound(2 * n * 4, n, peaks)
+    print(f"  {va.step_line(step)}; {t1} blocks: torch.mul "
+          f"{copy['library_ms']:.4f} ms, bound {copy['bound_ms']:.4f} ms",
+          flush=True)
+    print(f"  anchors, six chains: {chain['ms']:.4f} ms against a bound of "
+          f"{chain['bound_ms']:.4f} ms ({sms} SMs at "
+          f"{clock_hz / 1e9:.3f} GHz)", flush=True)
+    return chain, copy, launches
+
+
+# -- phase 16: the DCCL stage split ------------------------------------------------
+
+# f32 operations per (query, tap) of each stage, both branches, counted as
+# LOOKUP_OPS_PER_TAP is (own 35, grid window 47, cross sample 35, window 4)
+STAGE_OPS_PER_TAP = {"own_only": 2 * (35 + 4), "gridwin_only": 2 * (47 + 4),
+                     "cross_only": 2 * (47 + 35 + 4)}
+
+
+def stage_bytes(vA, vB, coords, planes):
+    """Bytes each launch of phase 16 must move at one level: the touched
+    sectors of the volumes it samples, its outputs, centres, grids (64x128
+    f32 x2) and given coords."""
+    import torch
+    own_A, cross_A, own_B, cross_B = coords
+    BQ = vA.shape[1]
+    out = BQ * 81 * 4
+    cen = 2 * BQ * 8
+    grids = 2 * (H // 8) * (W // 8) * 2 * 4
+    at = lambda x, y: torch.stack([x, y], -1)
+    return {
+        "grid_full": lookup_bytes(vA, vB, coords, grids)[0],
+        "planes": (touched_sectors(vA, [own_A, at(planes[2], planes[3])])
+                   + touched_sectors(vB, [own_B, at(planes[0], planes[1])])
+                   ) * 32 + 4 * out + cen + 4 * out,
+        "own_only": (touched_sectors(vA, [own_A])
+                     + touched_sectors(vB, [own_B])) * 32 + 2 * out + cen,
+        "gridwin_only": cen + 4 * out + grids,
+        "cross_only": (touched_sectors(vB, [cross_A])
+                       + touched_sectors(vA, [cross_B])) * 32 + 2 * out
+        + cen + grids}
+
+
+def stage_libraries(vA, vB, gA, gB, coords):
+    """One level's library yardsticks of two stages, each one
+    ``F.grid_sample`` with the two branches stacked on the batch, at the
+    precomputed normalised window coords (own_A, own_B of ``coords``): the
+    volumes for the own taps, the rotation grids for the grid window. The
+    cross taps have none: their second sampling reads the first's
+    output. The own taps have none for a 1-pixel extent."""
+    import torch
+    import torch.nn.functional as F
+    _, BQ, Hl, Wl = vA.shape
+    Hg, Wg, _ = gA.shape
+    sample = lambda img, at: F.grid_sample(img, at, mode="bilinear",
+                                           padding_mode="zeros",
+                                           align_corners=True)
+    grids = torch.stack([gA, gB]).permute(0, 3, 1, 2).contiguous()
+    win = normalised(torch.cat([coords[0], coords[2]]), Hg, Wg)
+    libs = {"gridwin_only": lambda: sample(grids, win)}
+    if Hl > 1 and Wl > 1:
+        vols = torch.cat([vA, vB], 1).reshape(2 * BQ, 1, Hl, Wl)
+        own = normalised(torch.cat([coords[0], coords[2]], 1), Hl,
+                         Wl).reshape(2 * BQ, 1, 81, 2)
+        libs["own_only"] = lambda: sample(vols, own)
+    return libs
+
+
+def phase_stage_split(dev, peaks):
+    """The kernel-split tool's run at 512x1024, batch 1, four levels, f32
+    and bf16 (gates, then measurement), beside each launch's bound, the
+    plain versions and the library calls. Returns the three stage rows
+    (f32, four levels summed) and the tool run's launch counts."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels import WRAPPERS
+    from prior_flow_tpu_torch.ops.kernels.dccl_lookup import NTAP
+    from prior_flow_tpu_torch.ops.kernels.dccl_stages import PLAIN
+    from prior_flow_tpu_torch.tools import microbench_kernel_split as ks
+
+    ops_per_tap = dict(STAGE_OPS_PER_TAP, grid_full=LOOKUP_OPS_PER_TAP,
+                       planes=LOOKUP_COORDS_OPS_PER_TAP)
+    rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=None, bytes=0.0,
+                       ops=0.0, err=0.0) for name in ks.STAGES}
+    launches = dict.fromkeys(WRAPPERS, 0)
+    try:
+        for run in ks.run(dev):
+            tag, lvl, rec, s = run["dtype"], run["level"], run["rec"], \
+                run["scale"]
+            for k, v in run["launches"].items():
+                launches[k] += v
+            vA, vB, cA, cB, gA, gB = ins = run["ins"]
+            BQ = vA.shape[1]
+            with torch.no_grad():
+                coords = lookup_sample_coords(cA, cB, gA, gB, s)
+                nbytes = stage_bytes(vA, vB, coords, run["planes"])
+                libs = stage_libraries(vA, vB, gA, gB, coords)
+            parts = []
+            for name in ("grid_full", "planes") + tuple(ks.STAGES):
+                ops = BQ * NTAP * ops_per_tap[name]
+                b_ms, _ = bound(nbytes[name], ops, peaks)
+                parts.append(f"{name} {rec[name + '_ms']:.4f} (bound "
+                             f"{b_ms:.4f})")
+                if name not in ks.STAGES:
+                    continue
+                r = rows[name]
+                r["err"] = max(r["err"], run["errs"][name])
+                if tag != "f32":
+                    continue
+                r["ms"] += rec[name + "_ms"]
+                r["bytes"] += nbytes[name]
+                r["ops"] += ops
+                with torch.no_grad():
+                    r["plain_ms"] += cuda_ms(lambda: PLAIN[
+                        name.split("_")[0]](*ins, s), 1, warmup=1)
+                    if name in libs:
+                        lib = queued_ms(libs[name], 50)
+                        r["library_ms"] = (r["library_ms"] or 0.0) + lib
+                        parts[-1] += f" [F.grid_sample {lib:.4f}]"
+            print(f"  stage split {tag} level {lvl} ({BQ}x{vA.shape[2]}x"
+                  f"{vA.shape[3]}): own and cross bitwise kernel 1's, grid "
+                  f"window bitwise the coords kernel's; plain errors "
+                  f"{', '.join(f'{k} {v:.2e}' for k, v in run['errs'].items())}"
+                  f"; card ms (queued): " + "; ".join(parts)
+                  + f"; kernel 1 issued back to back "
+                  f"{rec['grid_full_paced_ms']:.4f}", flush=True)
+            del run, ins, vA, vB, coords, libs
+            torch.cuda.empty_cache()
+    except ks.GateError as e:
+        fail(f"stage split {e}")
+    for r in rows.values():
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], peaks)
+    print("  stage split f32, four levels (card ms, queued): " + "; ".join(
+        f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.2f}, library "
+        f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
+        f", bound {r['bound_ms']:.4f})" for k, r in rows.items()), flush=True)
+    return rows, launches
+
+
+# -- phase 17: grid-window variants ------------------------------------------------
+
+def phase_gridwin(dev, peaks):
+    """The gridwin tool's run at its shapes (gates, then measurement),
+    the plain versions and F.grid_sample. Returns the variant and pair rows
+    and the tool run's launch counts."""
+    import torch
+    import torch.nn.functional as F
+    from prior_flow_tpu_torch.ops.kernels.dccl_lookup import (NTAP,
+                                                              window_delta)
+    from prior_flow_tpu_torch.ops.kernels.gridwin_variants import (
+        gridwin_pair_plain, gridwin_variant_plain)
+    from prior_flow_tpu_torch.tools import microbench_gridwin as gw
+
+    try:
+        (cen, cenB, gA, gB), rec, launches = gw.run(dev)
+    except gw.GateError as e:
+        fail(str(e))
+    N = cen.shape[0]
+    Hg, Wg, _ = gA.shape
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: gridwin_variant_plain(cen, gA, gB, gw.SCALE),
+                           3, warmup=1)
+        pair_plain_ms = cuda_ms(lambda: gridwin_pair_plain(cen, cenB, gA, gB,
+                                                           gw.SCALE), 3,
+                                warmup=1)
+        # library: F.grid_sample of each grid at the normalised window coords
+        libs = [normalised((c * gw.SCALE).unsqueeze(1) + window_delta(4, dev),
+                           Hg, Wg).unsqueeze(0) for c in (cen, cenB)]
+        imgs = [g.permute(2, 0, 1).unsqueeze(0).contiguous() for g in (gA, gB)]
+
+        def library(second):
+            for img in imgs:
+                F.grid_sample(img, libs[second], mode="bilinear",
+                              padding_mode="zeros", align_corners=True)
+        lib_ms = queued_ms(lambda: library(0), 50)
+        pair_lib_ms = queued_ms(lambda: [F.grid_sample(
+            img, g, mode="bilinear", padding_mode="zeros", align_corners=True)
+            for img, g in zip(imgs, libs)], 50)
+    out_bytes = 4 * N * NTAP * 4
+    grid_bytes = 2 * gA.numel() * 4
+    ops = 2 * N * NTAP * COORDS_OPS_PER_TAP
+    variant = dict(ms=rec["direct_ms"], plain_ms=plain_ms, library_ms=lib_ms,
+                   err=0.0)
+    variant["bound_ms"], variant["bound_by"] = bound(
+        N * 8 + out_bytes + grid_bytes, ops, peaks)
+    pair = dict(ms=rec["pair_ms"], plain_ms=pair_plain_ms,
+                library_ms=pair_lib_ms, err=0.0)
+    pair["bound_ms"], pair["bound_by"] = bound(
+        2 * N * 8 + out_bytes + grid_bytes, ops, peaks)
+    print(f"  gridwin Q={N}, grids {Hg}x{Wg}: direct and smem_grid variants "
+          f"and the pair bitwise equal to the coords kernel; ms: "
+          + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in rec.items())
+          + f"; plain {plain_ms:.4f} (pair {pair_plain_ms:.4f}); 2 "
+          f"F.grid_sample {lib_ms:.4f} (pair {pair_lib_ms:.4f}); bound "
+          f"{variant['bound_ms']:.4f} (pair {pair['bound_ms']:.4f}, "
+          f"{variant['bound_by']})", flush=True)
+    variant["per"] = {k: round(v, 4) for k, v in rec.items()}
+    return variant, pair, launches
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1337,15 +1581,27 @@ def main(argv=None) -> None:
         h1, h2 = (t.to(dev) for t in images(2, H2, W2))
         for m in ("fp32", "bf16"):
             profile_forward(hr[m]["model"], h1, h2, f"{H2}x{W2} {m}")
+    del hr["fp32"]["model"], hr["bf16"]["model"]
+    torch.cuda.empty_cache()
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_hz = max_sm_clock_hz()
+    print(f"phase 15 primitive-rate anchors ({sms} SMs, max SM clock "
+          f"{clock_hz / 1e6:.0f} MHz)", flush=True)
+    chain, copy, tool_anchor = phase_anchors(dev, peaks, sms, clock_hz)
+    print(f"phase 16 DCCL stage split, {H}x{W}, batch 1", flush=True)
+    stages, tool_split = phase_stage_split(dev, peaks)
+    print("phase 17 grid-window variants", flush=True)
+    variant, pair, tool_gridwin = phase_gridwin(dev, peaks)
+    tool = {k: tool_anchor[k] + tool_split[k] + tool_gridwin[k]
+            for k in tool_anchor}
 
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    try:
+        print(nvidia_smi("name,power.limit"))
+    except RuntimeError as e:
+        fail(str(e))
 
     std, tap = train["standard"]["counts"], train["taped"]["counts"]
     hr_counts, fused_counts = hr["fp32"]["counts"], hr["fused"]["counts"]
@@ -1355,11 +1611,12 @@ def main(argv=None) -> None:
                 "launches_forward: one 512x1024 test-mode forward; "
                 "launches_forward_1024x2048: one 1024x2048 forward; "
                 "launches_forward_fused_levels: one 512x1024 forward with "
-                "PRIORFLOW_DCCL_FUSE_LEVELS=1")
+                "PRIORFLOW_DCCL_FUSE_LEVELS=1; the tools' kernels (path "
+                "tool): one measurement run of phases 15-17")
 
     def row(name, src, replaces, d, work, err, path="train"):
         paths = {"train": std, "forward_1024x2048": hr_counts,
-                 "forward_fused_levels": fused_counts}
+                 "forward_fused_levels": fused_counts, "tool": tool}
         return {"name": name, "route": "cuda",
                 "source": f"prior_flow_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": paths[path][name],
@@ -1379,7 +1636,10 @@ def main(argv=None) -> None:
             "ms/plain/bound/library: one GRU iteration, 4 level launches, f32 "
             "volumes, 512x1024, batch 1; library_ms = 4 F.grid_sample per "
             "level at precomputed cross coords (leaves out the grid-window "
-            "stage)", max(lk["err"], lookup["bf16"]["err"])),
+            "stage); issued back to back; with launches queued ahead (the "
+            f"card's own time): kernel {lk['queued_ms']:.4f} ms, library "
+            f"{lk['library_queued_ms']:.4f} ms",
+            max(lk["err"], lookup["bf16"]["err"])),
         row("instance_norm_sums", "instance_norm.cu",
             "prior_flow_tpu/ops/pallas/instance_norm.py:52", sums_train,
             "ms/plain/bound/library: one batch-4 train step's 30 sums, 15 "
@@ -1419,6 +1679,60 @@ def main(argv=None) -> None:
             "precomputed coords (leaves out the grid-window stage); 4 "
             f"per-level launches: {all_levels['per_level_ms']:.4f} ms",
             all_levels["err"], path="forward_fused_levels"),
+        row("anchor_chain", "microbench_anchor.cu",
+            "tools/microbench_vpu_anchor.py:46", chain,
+            "ms/plain/bound: the six (kind, ilp) chains of the anchor tool, "
+            "one launch each, 128 x (512, 128) f32, K = 256, summed; per "
+            f"chain ms {chain['per']}; max_abs_err over finite outputs; "
+            "library_ms "
+            "null: no single PyTorch call computes a 256-deep dependent "
+            "chain", chain["err"], path="tool"),
+        row("step_cost_copy", "microbench_anchor.cu",
+            "tools/microbench_vpu_anchor.py:91", copy,
+            "ms/plain/bound/library: o = 2x over 4096 (8, 128) f32 tiles, "
+            "one block each, every call on inputs and outputs out of the L2 "
+            "(512 tiles: "
+            f"{copy['small_ms']:.4f} ms; slope {copy['slope_us']:.4f} us per "
+            f"block; empty launch {copy['empty_us']:.3f} us queued, "
+            f"{copy['empty_paced_us']:.3f} us issued back to back); ms, "
+            "plain_ms and library_ms with launches queued ahead; library_ms = "
+            "torch.mul(x, 2.0), the plain version's own call", copy["err"],
+            path="tool"),
+        row("dccl_own_only", "dccl_stages.cu",
+            "tools/microbench_kernel_split.py:70", stages["own_only"],
+            "ms/plain/bound/library: the own-taps stage of kernel 1 alone, "
+            "512x1024, batch 1, f32, four level launches summed; library_ms "
+            "= one F.grid_sample per level of both volumes stacked on the "
+            "batch at precomputed normalised window coords (leaves out the "
+            "window)", stages["own_only"]["err"], path="tool"),
+        row("dccl_gridwin_only", "gridwin_variants.cu",
+            "tools/microbench_kernel_split.py:81", stages["gridwin_only"],
+            "ms/plain/bound/library: the grid-window stage of kernel 1 alone "
+            "(both branches' cross tap coords) by the pair kernel, 512x1024, "
+            "batch 1, four level launches summed; library_ms = one "
+            "F.grid_sample per level of both grids stacked on the batch at "
+            "precomputed normalised window coords (leaves out the window)",
+            stages["gridwin_only"]["err"], path="tool"),
+        row("dccl_cross_only", "dccl_stages.cu",
+            "tools/microbench_kernel_split.py:93", stages["cross_only"],
+            "ms/plain/bound: kernel 1's grid window and cross taps, no own "
+            "taps, 512x1024, batch 1, f32, four level launches summed; "
+            "library_ms null: the second sampling reads the first's output, "
+            "no single call computes both",
+            stages["cross_only"]["err"], path="tool"),
+        row("gridwin_pair", "gridwin_variants.cu",
+            "tools/microbench_gridwin.py:358", pair,
+            "ms/plain/bound/library: both branches' coords at their own "
+            "centres (B reversed), Q = 8192, 64x128 grids, scale 1; "
+            "library_ms = 2 F.grid_sample of the grids at precomputed "
+            "normalised window coords", pair["err"], path="tool"),
+        row("gridwin_variant", "gridwin_variants.cu",
+            "tools/microbench_gridwin.py:394", variant,
+            "ms/plain/bound/library: the direct variant, both grids at one "
+            "centre set, Q = 8192, 64x128 grids, scale 1; every variant, "
+            f"diagnostic and two coords-kernel launches (ms): "
+            f"{variant['per']}; library_ms = 2 F.grid_sample at precomputed "
+            "normalised window coords", variant["err"], path="tool"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

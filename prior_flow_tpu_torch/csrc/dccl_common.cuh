@@ -2,11 +2,13 @@
 // level plane, the sampler of the 1/8 rotation grid, and the 9x9 window
 // coords of one tap.
 //
-// dccl_lookup.cu (the lookup), dccl_coords.cu (the cross tap coords alone)
-// and dccl_scatter.cu (the lookup's transpose) all take their window and
-// grid arithmetic from here, and every source is built with --fmad=false,
-// so the coords kernel gives the lookup's own cross tap coords bit for bit
-// and the scatter visits exactly the corners the lookup read.
+// dccl_lookup.cu (the lookup), dccl_coords.cu (the cross tap coords alone),
+// dccl_scatter.cu (the lookup's transpose), dccl_stages.cu (the lookup's
+// stages one at a time) and gridwin_variants.cu (the grid-window stage's
+// variants) all take their window and grid arithmetic from here, and every
+// source is built with --fmad=false, so the coords kernel gives the
+// lookup's own cross tap coords bit for bit and the scatter visits exactly
+// the corners the lookup read.
 //
 // The sampler is cycle_bilinear_sample (prior_flow_tpu/ops/samplers.py:139):
 // x wrapped mod W with the sign of the divisor (fmodf alone is wrong for
@@ -88,10 +90,22 @@ __device__ __forceinline__ float sample_plane(const T* __restrict__ plane,
   return out;
 }
 
-// cycle_bilinear_sample of the (Hg, Wg, 2) rotation grid at (x_in, y)
-__device__ __forceinline__ float2 sample_grid(const float2* __restrict__ g,
-                                              int Hg, int Wg, float x_in,
-                                              float y) {
+// Reads cell `off` of a grid in device memory through the read-only cache.
+// A kernel that stages the grid in shared memory passes its own reader to
+// cross_coord_from below, so its arithmetic stays this header's.
+struct GlobalGrid {
+  const float2* g;
+  __device__ __forceinline__ float2 operator()(int off) const {
+    return __ldg(g + off);
+  }
+};
+
+// cycle_bilinear_sample of the (Hg, Wg, 2) rotation grid at (x_in, y),
+// grid cells read by `fetch`
+template <class Fetch>
+__device__ __forceinline__ float2 sample_grid_from(const Fetch& fetch, int Hg,
+                                                   int Wg, float x_in,
+                                                   float y) {
   const Corners c(Hg, Wg, x_in, y);
   float2 out = make_float2(0.0f, 0.0f);
 #pragma unroll
@@ -102,7 +116,7 @@ __device__ __forceinline__ float2 sample_grid(const float2* __restrict__ g,
       const float w = c.at(dx, dy, Wg, &off);
       float tx = 0.0f, ty = 0.0f;
       if (w >= 0.0f) {
-        const float2 v = __ldg(g + off);
+        const float2 v = fetch(off);
         tx = v.x * w;
         ty = v.y * w;
       }
@@ -128,11 +142,18 @@ __device__ __forceinline__ float2 window_coord(float2 cen, float scale, int k) {
 // Cross tap coords of tap k: the rotation grid sampled at the level-scaled
 // window coords, used unscaled in the other volume (the reference's
 // parity quirk).
+template <class Fetch>
+__device__ __forceinline__ float2 cross_coord_from(const Fetch& fetch, int Hg,
+                                                   int Wg, float2 cen,
+                                                   float scale, int k) {
+  const float2 w = window_coord(cen, scale, k);
+  return sample_grid_from(fetch, Hg, Wg, w.x, w.y);
+}
+
 __device__ __forceinline__ float2 cross_coord(const float2* __restrict__ grid,
                                               int Hg, int Wg, float2 cen,
                                               float scale, int k) {
-  const float2 w = window_coord(cen, scale, k);
-  return sample_grid(grid, Hg, Wg, w.x, w.y);
+  return cross_coord_from(GlobalGrid{grid}, Hg, Wg, cen, scale, k);
 }
 
 }  // namespace dccl

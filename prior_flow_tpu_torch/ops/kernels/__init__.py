@@ -8,16 +8,27 @@
 | ``csrc/instance_norm.cu`` | ``ops/pallas/instance_norm.py::_sums_kernel`` | ``instance_norm.instance_norm_sums`` |
 | ``csrc/dccl_coords.cu`` | ``ops/pallas/dccl_gather.py::_coords_kernel`` | ``dccl_coords.dccl_grid_coords`` |
 | ``csrc/dccl_scatter.cu`` | the one-hot einsum backward of ``dccl_gather.py`` (``_scatter_own_cross``, ``_scatter_grads_*_multi``) | ``dccl_scatter.dccl_level_scatter`` |
+| ``csrc/microbench_anchor.cu`` | ``tools/microbench_vpu_anchor.py::_kernel`` | ``anchors.anchor_chain`` |
+| ``csrc/microbench_anchor.cu`` | ``tools/microbench_vpu_anchor.py::_copy_kernel`` | ``anchors.step_cost_copy`` |
+| ``csrc/dccl_stages.cu`` | ``tools/microbench_kernel_split.py::_own_only_kernel`` | ``dccl_stages.dccl_own_only`` |
+| ``csrc/gridwin_variants.cu`` (the pair kernel) | ``tools/microbench_kernel_split.py::_gridwin_only_kernel`` | ``dccl_stages.dccl_gridwin_only`` |
+| ``csrc/dccl_stages.cu`` | ``tools/microbench_kernel_split.py::_cross_only_kernel`` | ``dccl_stages.dccl_cross_only`` |
+| ``csrc/gridwin_variants.cu`` | ``tools/microbench_gridwin.py::_pair_kernel`` | ``gridwin_variants.gridwin_pair`` |
+| ``csrc/gridwin_variants.cu`` | ``tools/microbench_gridwin.py::_variant_kernel`` | ``gridwin_variants.gridwin_variant`` |
 
 ``csrc/dccl_common.cuh`` holds the sampler and window arithmetic the DCCL
-kernels share. Each wrapper counts its launches in
-``<wrapper>.launches``.
+kernels share. The last seven rows are the kernels of the port's
+measurement tools (``prior_flow_tpu_torch/tools``), off the model's paths.
+Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
+from .anchors import anchor_chain, step_cost_copy
 from .dccl_coords import dccl_grid_coords
 from .dccl_lookup import (dccl_level_lookup, dccl_level_lookup_coords,
                           dccl_lookup_all_levels)
 from .dccl_scatter import dccl_level_scatter
+from .dccl_stages import dccl_cross_only, dccl_gridwin_only, dccl_own_only
+from .gridwin_variants import gridwin_pair, gridwin_variant
 from .instance_norm import instance_norm_sums
 
 WRAPPERS = {"dccl_level_lookup": dccl_level_lookup,
@@ -25,7 +36,14 @@ WRAPPERS = {"dccl_level_lookup": dccl_level_lookup,
             "dccl_grid_coords": dccl_grid_coords,
             "dccl_level_scatter": dccl_level_scatter,
             "dccl_level_lookup_coords": dccl_level_lookup_coords,
-            "dccl_lookup_all_levels": dccl_lookup_all_levels}
+            "dccl_lookup_all_levels": dccl_lookup_all_levels,
+            "anchor_chain": anchor_chain,
+            "step_cost_copy": step_cost_copy,
+            "dccl_own_only": dccl_own_only,
+            "dccl_gridwin_only": dccl_gridwin_only,
+            "dccl_cross_only": dccl_cross_only,
+            "gridwin_pair": gridwin_pair,
+            "gridwin_variant": gridwin_variant}
 
 
 def reset_launch_counts() -> None:

@@ -15,9 +15,10 @@ import torch
 from prior_flow_tpu_torch.geometry import rotation_grids
 from prior_flow_tpu_torch.models import build_model
 from prior_flow_tpu_torch.ops import corr
-from prior_flow_tpu_torch.ops.kernels import (dccl_coords, dccl_lookup,
-                                              dccl_scatter, instance_norm,
-                                              launch_counts,
+from prior_flow_tpu_torch.ops.kernels import (WRAPPERS, anchors, dccl_coords,
+                                              dccl_lookup, dccl_scatter,
+                                              dccl_stages, gridwin_variants,
+                                              instance_norm, launch_counts,
                                               reset_launch_counts)
 from prior_flow_tpu_torch.train import make_optimizer, make_train_step
 
@@ -33,6 +34,11 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _counts(**nonzero):
+    """Launch counts with the given wrappers' and 0 for every other."""
+    return {**dict.fromkeys(WRAPPERS, 0), **nonzero}
 
 
 def _level_inputs(dev, B, h, w, lvl, dtype, seed=0):
@@ -120,11 +126,8 @@ def test_forward_on_card_matches_cpu_and_counts_launches(dev):
     reset_launch_counts()
     out = card(i1.to(dev), i2.to(dev), iters=iters)
     torch.cuda.synchronize()
-    assert launch_counts() == {"dccl_level_lookup": 4 * iters,
-                               "instance_norm_sums": 15,
-                               "dccl_grid_coords": 0, "dccl_level_scatter": 0,
-                               "dccl_level_lookup_coords": 0,
-                               "dccl_lookup_all_levels": 0}
+    assert launch_counts() == _counts(dccl_level_lookup=4 * iters,
+                                      instance_norm_sums=15)
     err = (out.cpu() - ref).abs().max().item()
     assert err <= 1e-3 * ref.abs().max().item(), err
 
@@ -219,10 +222,9 @@ def test_train_step_on_card_matches_cpu(dev, grad_mode):
                         model.named_parameters()})
     (l_cpu, _, g_cpu), (l_gpu, counts, g_gpu) = out["cpu"], out["cuda"]
     assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
-    want = {"dccl_level_lookup": 8, "instance_norm_sums": 30,
-            "dccl_grid_coords": 16 if grad_mode == "standard" else 8,
-            "dccl_level_scatter": 16 if grad_mode == "standard" else 8,
-            "dccl_level_lookup_coords": 0, "dccl_lookup_all_levels": 0}
+    per = 16 if grad_mode == "standard" else 8
+    want = _counts(dccl_level_lookup=8, instance_norm_sums=30,
+                   dccl_grid_coords=per, dccl_level_scatter=per)
     assert counts == want, counts
     total = torch.sqrt(sum((t ** 2).sum() for t in g_cpu.values()))
     for n, ref in g_cpu.items():
@@ -363,3 +365,116 @@ def test_new_functions_gradient_on_card_matches_plain_autograd(dev, fn):
         assert counts["dccl_level_scatter"] == 8
     for a, b in zip(got, ref):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item() + 1e-6
+
+
+# -- the measurement tools' kernels ------------------------------------------------
+
+def _anchor_inputs(dev, rows=64):
+    g = torch.Generator().manual_seed(rows)
+    x = torch.randn(rows, 128, generator=g)
+    idx = torch.argsort(torch.rand(rows, 128, generator=g), dim=1)
+    return x.to(dev), idx.to(torch.int32).to(dev)
+
+
+@pytest.mark.parametrize("ilp", [1, 4])
+@pytest.mark.parametrize("kind", ["select", "gather", "fma"])
+def test_anchor_chain_matches_plain(dev, kind, ilp):
+    """K = 256 on 75 rows (a partial last block of 3 of its 8 rows),
+    bitwise: the plain fma step rounds once, as the FFMA does."""
+    from prior_flow_tpu_torch.tools.microbench_vpu_anchor import ulps_apart
+    x, idx = _anchor_inputs(dev, 75)
+    n0 = anchors.anchor_chain.launches
+    got = anchors.anchor_chain(x, idx, kind, ilp)
+    torch.cuda.synchronize()
+    assert anchors.anchor_chain.launches == n0 + 1
+    ref = anchors.anchor_chain_plain(x, idx, kind, ilp)
+    assert ulps_apart(got, ref) == 0
+
+
+def test_anchor_chain_sass_keeps_every_step(dev):
+    """The built library's chain kernels hold K step instructions per
+    element, less at most one per chain: no chain was folded."""
+    from prior_flow_tpu_torch.tools import microbench_vpu_anchor as va
+    counts = va.sass_counts()
+    for kind in va.KINDS:
+        for ilp in (1, 4):
+            assert va.chain_intact(counts, kind, ilp), \
+                (kind, ilp, counts[kind, ilp])
+
+
+def test_step_cost_copy_and_empty_launch(dev):
+    x = torch.randn(40 * 8, 128, device=dev)
+    assert torch.equal(anchors.step_cost_copy(x), 2 * x)
+    anchors.launch_empty(dev)
+    torch.cuda.synchronize()
+
+
+def test_anchor_wrappers_refuse_bad_inputs(dev):
+    x, idx = _anchor_inputs(dev)
+    with pytest.raises(ValueError):
+        anchors.anchor_chain(x, idx, "fma", 1, K=16)
+    with pytest.raises(ValueError):
+        anchors.anchor_chain(x, idx.long(), "select")
+    with pytest.raises(ValueError):
+        anchors.anchor_chain(x[:, :64], idx[:, :64], "select")
+    with pytest.raises(ValueError):
+        anchors.step_cost_copy(x[:12])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_dccl_stages_are_kernel_1_and_coords_kernel(dev, dtype, lvl):
+    """Own-only and cross-only bitwise kernel 1's own and cross outputs,
+    gridwin-only bitwise two coords-kernel launches, each within
+    LOOKUP_ATOL of its plain version."""
+    from prior_flow_tpu_torch.tools import microbench_kernel_split as ks
+    ins, s = ks.level_inputs(dev, dtype, lvl, size=(128, 256))
+    reset_launch_counts()
+    errs = ks.gate(ins, s)
+    counts = launch_counts()
+    assert counts["dccl_own_only"] == counts["dccl_gridwin_only"] == \
+        counts["dccl_cross_only"] == 1
+    assert max(errs.values()) <= LOOKUP_ATOL
+
+
+def test_dccl_stage_refuses_bad_inputs(dev):
+    vA, vB, cA, cB, gA, gB = _level_inputs(dev, 1, 8, 16, 0, torch.float32)
+    with pytest.raises(TypeError):
+        dccl_stages.dccl_own_only(vA.half(), vB.half(), cA, cB, gA, gB, 1.0)
+    with pytest.raises(ValueError):
+        dccl_stages.dccl_cross_only(vA, vB, cA[:, :-1], cB, gA, gB, 1.0)
+    with pytest.raises(ValueError):
+        dccl_stages.dccl_gridwin_only(vA, vB, cA, cB, gA[:, :, :1], gB, 1.0)
+
+
+@pytest.mark.parametrize("size", [(64, 128), (512, 1024)])
+def test_gridwin_variants_and_pair_are_the_coords_kernel(dev, size):
+    """Every semantic variant and the pair bitwise equal to two
+    coords-kernel launches, and these to their plain version; the
+    diagnostics launch and give finite values."""
+    from prior_flow_tpu_torch.tools import microbench_gridwin as gw
+    ins = gw.inputs(dev, size=size)
+    reset_launch_counts()
+    gw.gate(*ins)
+    assert launch_counts()["gridwin_variant"] == len(gridwin_variants.VARIANTS)
+    assert launch_counts()["gridwin_pair"] == 1
+    for v in gridwin_variants.DIAGNOSTICS:
+        outs = gridwin_variants.gridwin_variant(ins[0], ins[2], ins[3], 0.5, v)
+        assert all(bool(torch.isfinite(o).all()) for o in outs)
+
+
+def test_gridwin_refuses_bad_inputs(dev):
+    from prior_flow_tpu_torch.tools import microbench_gridwin as gw
+    cen, cenB, gA, gB = gw.inputs(dev, size=(64, 128))
+    big = torch.zeros(128, 256, 2, device=dev)   # two grids > 227 KB
+    with pytest.raises(ValueError):
+        gridwin_variants.gridwin_variant(cen, big, big, 1.0, "smem_grid")
+    with pytest.raises(ValueError):
+        gridwin_variants.gridwin_variant(cen, gA, gB, 1.0, "preblend")
+    with pytest.raises(ValueError):
+        gridwin_variants.gridwin_pair(cen, cenB[:-1], gA, gB, 1.0)
+    with pytest.raises(ValueError):
+        gridwin_variants.gridwin_pair(cen, cenB, gA.double(), gB, 1.0)
+    # the same grids at 1024x2048 fit the direct variant
+    outs = gridwin_variants.gridwin_variant(cen, big, big, 1.0, "direct")
+    assert outs[0].shape == (cen.shape[0], 81)

@@ -192,9 +192,10 @@ def test_demo_cli_on_cpu(capsys):
 
 
 def test_import_hygiene_and_no_silent_cpu():
-    """A fresh interpreter imports the whole port without pulling in JAX or
-    the JAX package, and build_model() with no device raises on a host
-    without CUDA instead of running on the CPU."""
+    """A fresh interpreter imports the whole port, its tools included,
+    without pulling in JAX, the JAX package or the repo-root ``tools``
+    package (which imports JAX), and build_model() with no device raises on
+    a host without CUDA instead of running on the CPU."""
     code = """
 import json, sys
 import prior_flow_tpu_torch
@@ -203,9 +204,11 @@ import prior_flow_tpu_torch.ops.corr, prior_flow_tpu_torch.ops.kernels
 import prior_flow_tpu_torch.train, prior_flow_tpu_torch.eval
 import prior_flow_tpu_torch.ops.kernels.dccl_coords
 import prior_flow_tpu_torch.ops.kernels.dccl_scatter
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-             or m == "flax" or m.startswith("flax.")
-             or m == "prior_flow_tpu" or m.startswith("prior_flow_tpu."))
+import prior_flow_tpu_torch.tools.microbench_vpu_anchor
+import prior_flow_tpu_torch.tools.microbench_kernel_split
+import prior_flow_tpu_torch.tools.microbench_gridwin
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "prior_flow_tpu", "tools"))
 raised = None
 import torch
 if not torch.cuda.is_available():
@@ -228,10 +231,12 @@ print(json.dumps({"bad": bad, "raised": raised}))
 
 
 def test_no_jax_imports_in_port_sources():
-    """No module of the port, and not chip_smoke.py, imports JAX, Flax or
-    the JAX package, not even inside a function."""
-    pat = re.compile(r"^\s*(from|import)\s+(jax|flax|prior_flow_tpu)\b",
-                     re.M)
+    """No module of the port, and not chip_smoke.py, imports JAX, Flax, the
+    JAX package or the repo-root ``tools`` package (the JAX package's
+    measurement tools, which import JAX), not even inside a function. The
+    port's own tools are ``prior_flow_tpu_torch.tools``."""
+    pat = re.compile(
+        r"^\s*(from|import)\s+(jax|flax|prior_flow_tpu|tools)\b", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "prior_flow_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
