@@ -7,20 +7,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. build the CUDA kernels from ``prior_flow_tpu_torch/csrc``;
 2. the DCCL level-lookup kernel against its plain version at the four
    pyramid-level shapes of a 512x1024 forward (batch 1) and of the batch-4
-   training step (B x Q = 32768 queries), f32 and bf16 volumes; its time
-   and its library yardstick's both issued back to back and queued;
+   training step (B x Q = 32768 queries), f32 and bf16 volumes, and at the
+   512x1024 shapes bitwise against row 3 fed the coords kernel's coords;
+   its time and its library yardstick's both issued back to back and
+   queued; the grid-route DCCLFused call per iteration, both ways;
 3. the instance-norm sums kernel against its plain version at the three
    fnet shapes, f32 and bf16;
 4. the test-mode forward at 512x1024, batch 1, 12 iterations, seeded
    random weights, fp32 then mixed precision: output shape, finiteness,
    launch counts per forward (48 lookups, 15 norms), median ms/pair;
 5. the same weights on the card and on the CPU at 128x256, 4 iterations;
-6. the cross-tap-coords kernel against its plain version at the training
-   size (N = 12 x 4 x 8192 centres, four level scales, both grids):
-   bitwise; and the lookup kernel's cross taps, at batch 4, bitwise equal
-   to the plain sampler of the other volume at the coords kernel's coords;
-7. the volume-scatter kernel against its plain version at the training
-   level shapes (B = 4), S = 1 and 12, f32 and bf16 output;
+6. the cross-tap-coords kernel where the main paths launch it, the planes
+   route of the 1024x2048 forward (per branch and iteration one launch of
+   N = 4 levels x 32768 pre-scaled centres, both grids): bitwise against
+   its plain version, ms per forward (24 launches); and the lookup
+   kernel's cross taps, at batch 4, bitwise equal to the plain sampler of
+   the other volume at the coords kernel's coords;
+7. the volume scatter's two entries (grid, given coords) against their
+   plain versions and against each other at the training level shapes
+   (B = 4), S = 1 and 12, f32 and bf16 output; per taped and standard
+   step, each beside its bound;
 8. the instance-norm sums of a batch-4 step, forward (x, x) in bf16 and
    backward (xhat, dy) in f32 with a zero-mean dy, at the three fnet shapes
    (B = 16), within the rounding of an f64-accumulated sum;
@@ -30,7 +36,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step, median ms/step, peak GB; standard and taped agree on the first
    step's loss and gradients;
 10. one step on the card and on the CPU at 128x256, batch 1, 2 iterations,
-   f32, both grad modes, same weights;
+   f32, both grad modes, same weights; and a standard step with the planes
+   route forced on the card (the scatter's given-coords entry);
 11. the lookup at given cross coords against its plain version and against
    the grid lookup (kernel 1), bitwise, at the four level shapes of a
    1024x2048 forward (B x Q = 32768), f32 and bf16, with the coords from
@@ -57,7 +64,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and the max SM clock; the copy kernel bitwise 2x, its per-block slope
    from 512 to 4096 blocks, and one empty launch;
 16. the DCCL stage split (``tools/microbench_kernel_split.py``) at 512x1024,
-   batch 1, four levels, f32 and bf16: own-only and cross-only bitwise equal
+   batch 1, four levels, f32 and bf16, each stage kernel 1's column body
+   with the other stages compiled out: own-only and cross-only bitwise equal
    to kernel 1's outputs, gridwin-only bitwise equal to two coords-kernel
    launches, each beside its plain version; per level the ms of kernel 1,
    of row 3 at random coords and of each stage beside its bytes bound;
@@ -73,8 +81,7 @@ TF32 is off for matmuls and cuDNN convolutions in every phase, so "fp32"
 is full f32 and the card-vs-CPU comparisons are like for like.
 ``--profile`` adds a torch.profiler kernel breakdown of one forward per
 precision (512x1024 and 1024x2048) and of one training step per grad
-mode. Imports nothing of JAX
-or of the JAX package.
+mode. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -119,10 +126,12 @@ TRAIN_B, TRAIN_STEPS = 4, 5
 TRAIN_LR, TRAIN_NUM_STEPS = 1e-4, 60000
 LEVELS = 4
 # f32 operations per (centre, tap) of the coords kernel (window 4 + grid
-# sample 47) and per (s, query, tap) of the scatter kernel (window 4 + two
-# corner sets 2 x 23 + eight weighted atomic adds 16)
+# sample 47) and per (s, query, tap) of the scatter's given-coords entry
+# (window 4 + two corner sets 2 x 23 + eight weighted shared-memory adds 16)
 COORDS_OPS_PER_TAP = 51
 SCATTER_OPS_PER_TAP = 66
+# the scatter's grid entry adds its cross taps' grid sample (47)
+SCATTER_GRID_OPS_PER_TAP = SCATTER_OPS_PER_TAP + 47
 SCATTER_RTOL = 1e-5       # of max|plain|; atomics reorder the f32 sums
 # f32 operations per (query, tap) of the lookup at given coords, both
 # branches (2 x (own 35 + cross 35 + window 4)), and the batch of its
@@ -271,7 +280,8 @@ def grid_sample_library(vA, vB, coords):
 def phase_lookup(dev, grids, peaks):
     import torch
     from prior_flow_tpu_torch.ops.kernels.dccl_lookup import (
-        NTAP, dccl_level_lookup, dccl_level_lookup_plain)
+        NTAP, dccl_level_lookup, dccl_level_lookup_coords,
+        dccl_level_lookup_plain)
 
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -290,6 +300,15 @@ def phase_lookup(dev, grids, peaks):
                 if not err <= LOOKUP_ATOL:
                     fail(f"dccl lookup {tag} level {lvl}: max abs err {err} "
                          f"> {LOOKUP_ATOL}")
+                # the column body against row 3's one-thread-per-tap body
+                # at the coords kernel's coords: the same bits
+                row3 = dccl_level_lookup_coords(
+                    vA, vB, cA, cB, s, *given_coords(cA, gA, s),
+                    *given_coords(cB, gB, s))
+                if not all(torch.equal(a, b) for a, b in zip(got, row3)):
+                    fail(f"dccl lookup {tag} level {lvl}: kernel 1 not "
+                         f"bitwise equal to row 3 at the coords kernel's "
+                         f"coords")
                 ms = cuda_ms(lambda: dccl_level_lookup(*args), 50)
                 q_ms = queued_ms(lambda: dccl_level_lookup(*args), 50)
                 plain_ms = cuda_ms(lambda: dccl_level_lookup_plain(*args), 5,
@@ -321,11 +340,20 @@ def phase_lookup(dev, grids, peaks):
             tot["library_queued_ms"] += lib_q_ms or 0.0
             tot["err"] = max(tot["err"], err)
         tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"], peaks)
+        tot["call_ms"], tot["call_queued_ms"] = dccl_call_ms(dtype, dev, grids)
         rows[tag] = tot
         print(f"  dccl {tag} one iteration (4 levels): kernel {tot['ms']:.4f} ms "
               f"plain {tot['plain_ms']:.4f} ms bound {tot['bound_ms']:.4f} ms; "
               f"queued: kernel {tot['queued_ms']:.4f} ms, library "
-              f"{tot['library_queued_ms']:.4f} ms", flush=True)
+              f"{tot['library_queued_ms']:.4f} ms; the grid-route DCCLFused "
+              f"call: {tot['call_ms']:.4f} ms, queued "
+              f"{tot['call_queued_ms']:.4f} ms", flush=True)
+        if dtype == torch.float32:
+            verdict = ("no slower than" if tot["ms"] <= tot["library_ms"]
+                       else "slower than")
+            print(f"  kernel 1 issued back to back is {verdict} its 16 "
+                  f"F.grid_sample ({tot['ms']:.4f} against "
+                  f"{tot['library_ms']:.4f} ms)", flush=True)
 
     # the shapes of the training step: batch 4, bf16 volumes on its path
     for dtype in (torch.float32, torch.bfloat16):
@@ -349,6 +377,25 @@ def phase_lookup(dev, grids, peaks):
             rows[tag]["err"] = max(rows[tag]["err"], err)
             del args, got, ref
     return rows
+
+
+def dccl_call_ms(dtype, dev, grids):
+    """One grid-route ``DCCLFused`` call, as the forward makes it every
+    iteration (four levels into the (1, Q, 4*81) fields, the cross fields
+    rotated back), at 512x1024, batch 1: ms issued back to back and
+    queued."""
+    import torch
+    from prior_flow_tpu_torch.ops.corr import DCCLFused
+    ins = [lookup_inputs(lvl, dtype, dev, grids) for lvl in range(LEVELS)]
+    cA, cB = (c.reshape(1, H // 8, W // 8, 2) for c in ins[0][2:4])
+    args = (cA, cB, [i[0] for i in ins], [i[1] for i in ins],
+            grids.a2b_w2c_8, grids.b2a_w2c_8, grids.a2b_8, grids.b2a_8)
+    dccl = DCCLFused(LEVELS, fuse_levels=False)
+    with torch.no_grad():
+        # a call launches some 120 kernels (the two back-rotations are
+        # plain PyTorch): 4 calls fit the card's queue
+        return (cuda_ms(lambda: dccl(*args), 50),
+                queued_ms(lambda: dccl(*args), 4))
 
 
 # -- phase 3: instance-norm sums -----------------------------------------------
@@ -492,12 +539,13 @@ def profile_forward(model, i1, i2, tag: str):
 
 # -- phase 6: cross tap coords --------------------------------------------------
 
-def train_centres(dev, N: int, seed: int):
-    """N unscaled 1/8 centres over the image and a margin, with the seam,
-    a hair below 0 and the pole rows pinned (as in lookup_inputs)."""
+def train_centres(dev, N: int, seed: int, size=None):
+    """N unscaled 1/8 centres of an (H, W) input (``size``, default the
+    512x1024 main path) over the image and a margin, with the seam, a hair
+    below 0 and the pole rows pinned (as in lookup_inputs)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
-    h8, w8 = H // 8, W // 8
+    h8, w8 = (size or (H, W))[0] // 8, (size or (H, W))[1] // 8
     u = torch.rand(2, N, generator=g, device=dev)
     c = torch.stack([u[0] * (w8 + 4) - 2, u[1] * (h8 + 4) - 2], dim=-1)
     c[:6] = torch.tensor([[w8 - 1, 0.0], [w8 - 0.5, h8 - 1], [-1e-8, 5.0],
@@ -506,59 +554,71 @@ def train_centres(dev, N: int, seed: int):
     return c.contiguous()
 
 
-def phase_coords(dev, grids, peaks):
+def phase_coords(dev, grids, grids2, peaks):
+    """The coords kernel where the main paths launch it: the planes route
+    of the 1024x2048 forward, one launch per branch and iteration for all
+    four levels (``ops/corr.py::cross_coords_all_levels``: the centres
+    pre-scaled per level and stacked, scale 1), bitwise against its plain
+    version on the same stacked centres; ms per forward (24 launches)
+    beside its bound. Then kernel 1's cross taps at the training batch,
+    bitwise the plain sampler at the coords kernel's coords."""
     import torch
     import torch.nn.functional as F
+    from prior_flow_tpu_torch.ops.corr import cross_coords_all_levels
     from prior_flow_tpu_torch.ops.kernels.dccl_coords import (
         dccl_grid_coords, dccl_grid_coords_plain)
     from prior_flow_tpu_torch.ops.kernels.dccl_lookup import (
         NTAP, dccl_level_lookup, sample_volume_level, window_delta)
 
-    N = ITERS * TRAIN_B * (H // 8) * (W // 8)
-    Hg, Wg = H // 8, W // 8
+    Hg, Wg = H2 // 8, W2 // 8
+    Q = Hg * Wg
+    scales = [1.0 / 2 ** lvl for lvl in range(LEVELS)]
+    N = LEVELS * Q
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
                err=0.0)
-    for branch, grid in (("A", grids.a2b_w2c_8), ("B", grids.b2a_w2c_8)):
-        cen = train_centres(dev, N, 7 if branch == "A" else 8)
-        for lvl in range(LEVELS):
-            s = 1.0 / 2 ** lvl
-            with torch.no_grad():
-                cx, cy = dccl_grid_coords(cen, grid, s)
-                rx, ry = dccl_grid_coords_plain(cen, grid, s)
-                torch.cuda.synchronize()
-                if not (torch.equal(cx, rx) and torch.equal(cy, ry)):
-                    err = max((cx - rx).abs().max().item(),
-                              (cy - ry).abs().max().item())
-                    fail(f"coords {branch} level {lvl}: not bitwise equal to "
-                         f"the plain version (max abs err {err})")
-                ms = cuda_ms(lambda: dccl_grid_coords(cen, grid, s), 20)
-                plain_ms = cuda_ms(
-                    lambda: dccl_grid_coords_plain(cen, grid, s), 3, warmup=1)
-                # library: F.grid_sample of the grid at the window coords,
-                # wrapped and normalised beforehand
-                win = (cen * s).unsqueeze(1) + window_delta(4, dev)
-                xn = torch.remainder(win[..., 0], Wg) * (2.0 / (Wg - 1)) - 1
-                yn = win[..., 1] * (2.0 / (Hg - 1)) - 1
-                gn = torch.stack([xn, yn], -1).reshape(1, N, NTAP, 2)
-                img = grid.permute(2, 0, 1).unsqueeze(0).contiguous()
-                lib_ms = cuda_ms(lambda: F.grid_sample(
-                    img, gn, mode="bilinear", padding_mode="zeros",
-                    align_corners=True), 20)
-                del win, xn, yn, gn
-            nbytes = N * 8 + 2 * N * NTAP * 4 + grid.numel() * 4
-            ops = N * NTAP * COORDS_OPS_PER_TAP
-            b_ms, _ = bound(nbytes, ops, peaks)
-            print(f"  coords {branch} level {lvl} (N={N}): bitwise equal; "
-                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  grid_sample "
-                  f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms", flush=True)
-            for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", lib_ms), ("bytes", nbytes),
-                         ("ops", ops)):
-                tot[k] += v
+    for branch, grid in (("A", grids2.a2b_w2c_8), ("B", grids2.b2a_w2c_8)):
+        cen = train_centres(dev, Q, 7 if branch == "A" else 8,
+                            (H2, W2)).reshape(1, Q, 2)
+        with torch.no_grad():
+            stacked = torch.cat([cen.reshape(-1, 2) * s for s in scales])
+            cx, cy = cross_coords_all_levels(cen, grid, scales)
+            rx, ry = dccl_grid_coords_plain(stacked, grid, 1.0)
+            torch.cuda.synchronize()
+            if not (torch.equal(cx, rx) and torch.equal(cy, ry)):
+                err = max((cx - rx).abs().max().item(),
+                          (cy - ry).abs().max().item())
+                fail(f"coords {branch} {H2}x{W2}: not bitwise equal to the "
+                     f"plain version (max abs err {err})")
+            # per forward: one launch per iteration and branch
+            ms = ITERS * cuda_ms(lambda: dccl_grid_coords(stacked, grid, 1.0),
+                                 20)
+            plain_ms = ITERS * cuda_ms(
+                lambda: dccl_grid_coords_plain(stacked, grid, 1.0), 3,
+                warmup=1)
+            # library: F.grid_sample of the grid at the window coords,
+            # wrapped and normalised beforehand
+            win = stacked.unsqueeze(1) + window_delta(4, dev)
+            gn = normalised(win, Hg, Wg).reshape(1, N, NTAP, 2)
+            img = grid.permute(2, 0, 1).unsqueeze(0).contiguous()
+            lib_ms = ITERS * cuda_ms(lambda: F.grid_sample(
+                img, gn, mode="bilinear", padding_mode="zeros",
+                align_corners=True), 20)
+            del win, gn, cx, cy, rx, ry
+        nbytes = ITERS * (N * 8 + 2 * N * NTAP * 4 + grid.numel() * 4)
+        ops = ITERS * N * NTAP * COORDS_OPS_PER_TAP
+        b_ms, _ = bound(nbytes, ops, peaks)
+        print(f"  coords {branch} {H2}x{W2} (N = {LEVELS} levels x {Q}): "
+              f"bitwise equal; per forward ({ITERS} launches): kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  grid_sample "
+              f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms", flush=True)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("library_ms", lib_ms), ("bytes", nbytes),
+                     ("ops", ops)):
+            tot[k] += v
     tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"], peaks)
-    print(f"  coords one taped step (8 launches): kernel {tot['ms']:.4f} ms "
-          f"plain {tot['plain_ms']:.4f} ms bound {tot['bound_ms']:.4f} ms",
-          flush=True)
+    print(f"  coords one {H2}x{W2} forward ({2 * ITERS} launches): kernel "
+          f"{tot['ms']:.4f} ms plain {tot['plain_ms']:.4f} ms bound "
+          f"{tot['bound_ms']:.4f} ms", flush=True)
 
     # the lookup kernel's cross taps are the plain sampler of the other
     # volume at the coords kernel's coords, bit for bit, at the training
@@ -587,8 +647,9 @@ def phase_coords(dev, grids, peaks):
 # -- phase 7: volume scatter -----------------------------------------------------
 
 def scatter_inputs(dev, lvl: int, S: int, grids):
-    """Tap cotangents, own centres and the other branch's cross coords (from
-    the coords kernel) at the training shape of one level."""
+    """Tap cotangents, own centres, the other branch's centres and its
+    cross coords (from the coords kernel) at the training shape of one
+    level."""
     import torch
     from prior_flow_tpu_torch.ops.kernels.dccl_coords import dccl_grid_coords
     Q = (H // 8) * (W // 8)
@@ -601,7 +662,8 @@ def scatter_inputs(dev, lvl: int, S: int, grids):
     with torch.no_grad():
         cx, cy = dccl_grid_coords(other, grids.b2a_w2c_8, 1.0 / 2 ** lvl)
     return (g_own, cen.reshape(S, TRAIN_B, Q, 2), g_cross,
-            cx.reshape(shape), cy.reshape(shape))
+            other.reshape(S, TRAIN_B, Q, 2), cx.reshape(shape),
+            cy.reshape(shape))
 
 
 def scatter_corners(g_own, cen, scale, g_cross, cx, cy, Hl, Wl):
@@ -623,80 +685,115 @@ def scatter_corners(g_own, cen, scale, g_cross, cx, cy, Hl, Wl):
 
 
 def phase_scatter(dev, grids, peaks):
+    """Both scatter entries against their plain versions at the training
+    level shapes (B = 4), S = 1 and 12, f32 and bf16 output; the grid entry
+    also against the given-coords entry fed the coords kernel's coords.
+    Times: one taped step (8 launches, S = 12) and one standard step (96
+    launches, S = 1) of each entry, bf16 output."""
     import torch
     from prior_flow_tpu_torch.ops.kernels.dccl_scatter import (
-        dccl_level_scatter, dccl_level_scatter_plain)
+        dccl_level_scatter, dccl_level_scatter_grid,
+        dccl_level_scatter_grid_plain, dccl_level_scatter_plain)
 
     Q = (H // 8) * (W // 8)
-    taped = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
-                 err=0.0)
-    standard_ms = 0.0
+    BQ = TRAIN_B * Q
+    grid = grids.b2a_w2c_8
+    rows = {e: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
+                    err=0.0, standard_step_ms=0.0, standard_bytes=0.0,
+                    standard_ops=0.0) for e in ("grid", "given")}
     for lvl in range(LEVELS):
         Hl, Wl = (H // 8) >> lvl, (W // 8) >> lvl
         s = 1.0 / 2 ** lvl
         full = scatter_inputs(dev, lvl, ITERS, grids)
         for S in (1, ITERS):
-            ins = [t[:S].contiguous() for t in full]
-            args = (ins[0], ins[1], s, ins[2], ins[3], ins[4], Hl, Wl)
+            g_own, cen, g_cross, other, cx, cy = (t[:S].contiguous()
+                                                  for t in full)
+            calls = {
+                "grid": (lambda d: dccl_level_scatter_grid(
+                    g_own, cen, g_cross, other, grid, s, Hl, Wl, d),
+                    lambda d: dccl_level_scatter_grid_plain(
+                        g_own, cen, g_cross, other, grid, s, Hl, Wl, d)),
+                "given": (lambda d: dccl_level_scatter(
+                    g_own, cen, s, g_cross, cx, cy, Hl, Wl, d),
+                    lambda d: dccl_level_scatter_plain(
+                        g_own, cen, s, g_cross, cx, cy, Hl, Wl, d))}
             for dtype in (torch.float32, torch.bfloat16):
                 with torch.no_grad():
-                    got = dccl_level_scatter(*args, dtype).float()
-                    ref = dccl_level_scatter_plain(*args, dtype).float()
+                    got = {e: k(dtype) for e, (k, _) in calls.items()}
+                    ref = {e: p(dtype) for e, (_, p) in calls.items()}
                     torch.cuda.synchronize()
-                    top = ref.abs().max().item()
-                    tol = SCATTER_RTOL * top + 1e-6
-                    over = (got - ref).abs() - tol
+                for key, a, b in (("grid", got["grid"], ref["grid"]),
+                                  ("given", got["given"], ref["given"]),
+                                  ("grid vs given", got["grid"],
+                                   got["given"])):
+                    a, b = a.float(), b.float()
+                    top = b.abs().max().item()
+                    over = (a - b).abs() - (SCATTER_RTOL * top + 1e-6)
                     if dtype == torch.bfloat16:   # one bf16 step apart
-                        over = over - 2.0 ** -7 * ref.abs()
+                        over = over - 2.0 ** -7 * b.abs()
+                    err = (a - b).abs().max().item()
                     if over.max().item() > 0:
-                        fail(f"scatter level {lvl} S={S} {dtype}: beyond "
-                             f"tolerance (max abs err "
-                             f"{(got - ref).abs().max().item():.3e}, "
-                             f"max|plain| {top:.3e})")
-                    err = (got - ref).abs().max().item()
-                    if dtype == torch.float32:
-                        taped["err"] = max(taped["err"], err)
+                        fail(f"scatter {key} level {lvl} S={S} {dtype}: "
+                             f"beyond tolerance (max abs err {err:.3e}, "
+                             f"max|ref| {top:.3e})")
+                    if dtype == torch.float32 and key in rows:
+                        rows[key]["err"] = max(rows[key]["err"], err)
                 del got, ref
             with torch.no_grad():
-                ms = cuda_ms(lambda: dccl_level_scatter(*args, torch.bfloat16),
-                             10, warmup=2)
+                ms = {e: cuda_ms(lambda: k(torch.bfloat16), 10, warmup=2)
+                      for e, (k, _) in calls.items()}
+            taps = S * BQ * 81
+            dv_bytes = BQ * Hl * Wl * 2
+            nbytes = {"grid": 2 * taps * 4 + 2 * S * BQ * 8
+                      + grid.numel() * 4 + dv_bytes,
+                      "given": 4 * taps * 4 + S * BQ * 8 + dv_bytes}
+            ops = {"grid": taps * SCATTER_GRID_OPS_PER_TAP,
+                   "given": taps * SCATTER_OPS_PER_TAP}
             if S == 1:
-                standard_ms += 2 * ms
+                # one standard step scatters both volumes of every level in
+                # each of its ITERS iterations
+                for e in rows:
+                    rows[e]["standard_step_ms"] += 2 * ITERS * ms[e]
+                    rows[e]["standard_bytes"] += 2 * ITERS * nbytes[e]
+                    rows[e]["standard_ops"] += 2 * ITERS * ops[e]
                 print(f"  scatter level {lvl} ({TRAIN_B}x{Q}x{Hl}x{Wl}) S=1 "
-                      f"bf16: kernel {ms:.4f} ms", flush=True)
+                      f"bf16: grid entry {ms['grid']:.4f} ms, given-coords "
+                      f"entry {ms['given']:.4f} ms", flush=True)
                 continue
             with torch.no_grad():
-                plain_ms = cuda_ms(lambda: dccl_level_scatter_plain(
-                    *args, torch.bfloat16), 2, warmup=1)
-                idx, val = scatter_corners(*args)
-                out = torch.zeros(TRAIN_B * Q * Hl * Wl, device=dev)
+                plain_ms = {e: cuda_ms(lambda: p(torch.bfloat16), 2, warmup=1)
+                            for e, (_, p) in calls.items()}
+                idx, val = scatter_corners(g_own, cen, s, g_cross, cx, cy, Hl,
+                                           Wl)
+                out = torch.zeros(BQ * Hl * Wl, device=dev)
                 lib_ms = cuda_ms(lambda: out.index_put_((idx,), val,
                                                         accumulate=True),
                                  5, warmup=1)
                 del idx, val, out
-            nbytes = (4 * S * TRAIN_B * Q * 81 * 4 + S * TRAIN_B * Q * 8
-                      + TRAIN_B * Q * Hl * Wl * 2)
-            ops = S * TRAIN_B * Q * 81 * SCATTER_OPS_PER_TAP
-            b_ms, _ = bound(nbytes, ops, peaks)
-            print(f"  scatter level {lvl} ({TRAIN_B}x{Q}x{Hl}x{Wl}) S={S} "
-                  f"bf16: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                  f"index_put_ {lib_ms:.4f} ms  bound {b_ms:.4f} ms "
-                  f"({nbytes / 1e9:.3f} GB)", flush=True)
-            # one taped step scatters both volumes of every level once
-            for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", lib_ms), ("bytes", nbytes),
-                         ("ops", ops)):
-                taped[k] += 2 * v
+            for e in rows:
+                b_ms, _ = bound(nbytes[e], ops[e], peaks)
+                print(f"  scatter {e} entry level {lvl} "
+                      f"({TRAIN_B}x{Q}x{Hl}x{Wl}) S={S} bf16: kernel "
+                      f"{ms[e]:.4f} ms  plain {plain_ms[e]:.4f} ms  "
+                      f"index_put_ {lib_ms:.4f} ms  bound {b_ms:.4f} ms "
+                      f"({nbytes[e] / 1e9:.3f} GB)", flush=True)
+                # one taped step scatters both volumes of every level once
+                for k, v in (("ms", ms[e]), ("plain_ms", plain_ms[e]),
+                             ("library_ms", lib_ms), ("bytes", nbytes[e]),
+                             ("ops", ops[e])):
+                    rows[e][k] += 2 * v
         del full
         torch.cuda.empty_cache()
-    taped["bound_ms"], taped["bound_by"] = bound(taped["bytes"], taped["ops"],
-                                                 peaks)
-    taped["standard_step_ms"] = ITERS * standard_ms
-    print(f"  scatter one taped step (8 launches, S={ITERS}): kernel "
-          f"{taped['ms']:.4f} ms plain {taped['plain_ms']:.4f} ms bound "
-          f"{taped['bound_ms']:.4f} ms; one standard step (96 launches, S=1): "
-          f"{taped['standard_step_ms']:.4f} ms", flush=True)
-    return taped
+    for e, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"], peaks)
+        r["standard_bound_ms"], _ = bound(r["standard_bytes"],
+                                          r["standard_ops"], peaks)
+        print(f"  scatter {e} entry, one taped step (8 launches, S={ITERS}): "
+              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
+              f"{r['bound_ms']:.4f} ms; one standard step (96 launches, "
+              f"S=1): {r['standard_step_ms']:.4f} ms, bound "
+              f"{r['standard_bound_ms']:.4f} ms", flush=True)
+    return rows
 
 
 # -- phase 8: instance-norm sums of the backward ---------------------------------
@@ -820,8 +917,8 @@ def phase_train(dev):
         model, step = make_trainer(dev, mode, True, ITERS)
         per = 2 * LEVELS * (ITERS if mode == "standard" else 1)
         want = forward_counts(dccl_level_lookup=LEVELS * ITERS,
-                              instance_norm_sums=30, dccl_grid_coords=per,
-                              dccl_level_scatter=per)
+                              instance_norm_sums=30,
+                              dccl_level_scatter_grid=per)
         times, losses, norms, counts = [], [], [], None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -908,16 +1005,41 @@ def profile_train_step(dev, mode: str):
 # -- phase 10: the train step on the card against the CPU ------------------------
 
 def phase_train_card_vs_cpu(dev):
+    """One step on the card and on the CPU at 128x256, batch 1, 2
+    iterations, f32, same weights: both grad modes on the default routes,
+    and a standard step with the planes route forced on the card (its
+    backward the scatter's given-coords entry) against the CPU's default
+    route. Returns the worst gradient difference of each and the forced
+    step's launch counts."""
     import torch
-    worst = {}
-    for mode in ("standard", "taped"):
+    from prior_flow_tpu_torch.ops.corr import DCCLFused
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    worst, planes_counts = {}, None
+    for mode in ("standard", "taped", "planes"):
         res = {}
         for d in (torch.device("cpu"), dev):
-            model, step = make_trainer(d, mode, False, 2, seed=3)
+            model, step = make_trainer(d, "taped" if mode == "taped"
+                                       else "standard", False, 2, seed=3)
+            if mode == "planes" and d.type == "cuda":
+                model.dccl = DCCLFused(grid_in_kernel=False)
+            reset_launch_counts()
             m = step(train_batch(5, 1, 128, 256, d), 0)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                counts = launch_counts()
             res[d.type] = (float(m["train/loss"]),
                            {n: p.grad.detach().cpu() for n, p in
                             model.named_parameters()})
+        if mode == "planes":
+            planes_counts = counts
+            want = forward_counts(instance_norm_sums=30,
+                                  dccl_level_lookup_coords=2 * LEVELS,
+                                  dccl_grid_coords=2 * 2,
+                                  dccl_level_scatter=2 * 2 * LEVELS)
+            if counts != want:
+                fail(f"train planes route: launch counts {counts}, expected "
+                     f"{want}")
         (l_c, g_c), (l_g, g_g) = res["cpu"], res["cuda"]
         if abs(l_g - l_c) > STEP_LOSS_RTOL * abs(l_c):
             fail(f"train {mode}: card loss {l_g} vs CPU {l_c}")
@@ -934,7 +1056,7 @@ def phase_train_card_vs_cpu(dev):
         print(f"  train {mode} 128x256 iters 2 f32: loss card {l_g:.6f} CPU "
               f"{l_c:.6f}; worst gradient rel L2 {worst[mode][0]:.3e} "
               f"({worst[mode][1]}; gate {CARD_CPU_GRAD_RTOL})", flush=True)
-    return worst
+    return worst, planes_counts
 
 
 # -- phase 11: the lookup at given cross coords, 1024x2048 ----------------------
@@ -1537,8 +1659,10 @@ def main(argv=None) -> None:
     if not (torch.isfinite(out).all() and err <= CARD_CPU_TOL * scale):
         fail("card and CPU forwards disagree")
 
-    print("phase 6 cross-tap-coords kernel vs plain", flush=True)
-    coords = phase_coords(dev, grids, peaks)
+    grids2 = rotation_grids(H2, W2).to_device(dev)
+    print(f"phase 6 cross-tap-coords kernel vs plain, {H2}x{W2} planes route",
+          flush=True)
+    coords = phase_coords(dev, grids, grids2, peaks)
     print("phase 7 volume-scatter kernel vs plain", flush=True)
     scatter = phase_scatter(dev, grids, peaks)
     print("phase 8 instance-norm sums of a train step", flush=True)
@@ -1557,9 +1681,8 @@ def main(argv=None) -> None:
             profile_train_step(dev, mode)
     print("phase 10 train step, card vs CPU, 128x256, 2 iterations, f32",
           flush=True)
-    phase_train_card_vs_cpu(dev)
+    _, planes_counts = phase_train_card_vs_cpu(dev)
 
-    grids2 = rotation_grids(H2, W2).to_device(dev)
     print(f"phase 11 lookup at given cross coords vs plain and kernel 1, "
           f"{H2}x{W2}", flush=True)
     lookup_coords = phase_lookup_coords(dev, grids2, peaks)
@@ -1610,13 +1733,16 @@ def main(argv=None) -> None:
                 "step (512x1024, batch 4, 12 iterations, bf16); "
                 "launches_forward: one 512x1024 test-mode forward; "
                 "launches_forward_1024x2048: one 1024x2048 forward; "
+                "launches_train_planes: one standard step with the planes "
+                "route forced (128x256, batch 1, 2 iterations, f32); "
                 "launches_forward_fused_levels: one 512x1024 forward with "
                 "PRIORFLOW_DCCL_FUSE_LEVELS=1; the tools' kernels (path "
                 "tool): one measurement run of phases 15-17")
 
     def row(name, src, replaces, d, work, err, path="train"):
         paths = {"train": std, "forward_1024x2048": hr_counts,
-                 "forward_fused_levels": fused_counts, "tool": tool}
+                 "forward_fused_levels": fused_counts, "tool": tool,
+                 "train_planes": planes_counts}
         return {"name": name, "route": "cuda",
                 "source": f"prior_flow_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": paths[path][name],
@@ -1625,6 +1751,7 @@ def main(argv=None) -> None:
                 "launches_forward": counts.get(name, 0),
                 "launches_forward_1024x2048": hr_counts[name],
                 "launches_forward_fused_levels": fused_counts[name],
+                "launches_train_planes": planes_counts[name],
                 "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
                 "library_ms": d["library_ms"], "work": work + "; " + per_path}
@@ -1638,7 +1765,9 @@ def main(argv=None) -> None:
             "level at precomputed cross coords (leaves out the grid-window "
             "stage); issued back to back; with launches queued ahead (the "
             f"card's own time): kernel {lk['queued_ms']:.4f} ms, library "
-            f"{lk['library_queued_ms']:.4f} ms",
+            f"{lk['library_queued_ms']:.4f} ms; the grid-route DCCLFused call "
+            f"per iteration: {lk['call_ms']:.4f} ms, queued "
+            f"{lk['call_queued_ms']:.4f} ms",
             max(lk["err"], lookup["bf16"]["err"])),
         row("instance_norm_sums", "instance_norm.cu",
             "prior_flow_tpu/ops/pallas/instance_norm.py:52", sums_train,
@@ -1649,18 +1778,32 @@ def main(argv=None) -> None:
                                         sums["bf16"]["err"])),
         row("dccl_grid_coords", "dccl_coords.cu",
             "prior_flow_tpu/ops/pallas/dccl_gather.py:1033", coords,
-            "ms/plain/bound/library: one taped step's 8 launches, N = 393216 "
-            "centres each; library_ms = F.grid_sample of the grid at "
-            "precomputed normalised window coords (leaves out the window and "
-            "the wrap)", coords["err"]),
-        row("dccl_level_scatter", "dccl_scatter.cu",
+            "ms/plain/bound/library: one 1024x2048 forward's 24 launches on "
+            "the planes route (12 iterations x 2 branches, each N = 4 levels "
+            "x 32768 centres pre-scaled and stacked, scale 1); the training "
+            "steps launch it no more; library_ms = F.grid_sample of the grid "
+            "at precomputed normalised window coords (leaves out the window "
+            "and the wrap)", coords["err"], path="forward_1024x2048"),
+        row("dccl_level_scatter_grid", "dccl_scatter.cu",
             "prior_flow_tpu/ops/pallas/dccl_gather.py:715 (_scatter_own_cross; "
-            "stacked: :1108, :1152)", scatter,
+            "stacked: :1108, :1152)", scatter["grid"],
             "ms/plain/bound/library: one taped step's 8 launches, S = 12, "
-            "batch 4, bf16 output; library_ms = index_put_(accumulate=True) "
-            "of the precomputed weighted corners into f32 (leaves out the "
-            "corners, the zeroing and the cast); one standard step's 96 S=1 "
-            f"launches: {scatter['standard_step_ms']:.4f} ms", scatter["err"]),
+            "batch 4, bf16 output, the cross tap coords computed inside; "
+            "library_ms = index_put_(accumulate=True) of the precomputed "
+            "weighted corners into f32 (leaves out the coords, the corners, "
+            "the zeroing and the cast); one standard step's 96 S=1 "
+            f"launches: {scatter['grid']['standard_step_ms']:.4f} ms, bound "
+            f"{scatter['grid']['standard_bound_ms']:.4f} ms",
+            scatter["grid"]["err"]),
+        row("dccl_level_scatter", "dccl_scatter.cu",
+            "prior_flow_tpu/ops/pallas/dccl_gather.py:715 (_scatter_own_cross, "
+            "the planes route's VJP :783-821)", scatter["given"],
+            "ms/plain/bound/library: the given-coords entry at a taped step's "
+            "shapes, 8 launches, S = 12, batch 4, bf16 output; library_ms = "
+            "index_put_(accumulate=True) of the precomputed weighted corners "
+            "(leaves out the corners, the zeroing and the cast); 96 S=1 "
+            f"launches: {scatter['given']['standard_step_ms']:.4f} ms",
+            scatter["given"]["err"], path="train_planes"),
         row("dccl_level_lookup_coords", "dccl_lookup.cu",
             "prior_flow_tpu/ops/pallas/dccl_gather.py:314",
             lookup_coords["f32"],
@@ -1705,11 +1848,11 @@ def main(argv=None) -> None:
             "= one F.grid_sample per level of both volumes stacked on the "
             "batch at precomputed normalised window coords (leaves out the "
             "window)", stages["own_only"]["err"], path="tool"),
-        row("dccl_gridwin_only", "gridwin_variants.cu",
+        row("dccl_gridwin_only", "dccl_stages.cu",
             "tools/microbench_kernel_split.py:81", stages["gridwin_only"],
             "ms/plain/bound/library: the grid-window stage of kernel 1 alone "
-            "(both branches' cross tap coords) by the pair kernel, 512x1024, "
-            "batch 1, four level launches summed; library_ms = one "
+            "(both branches' cross tap coords), kernel 1's column body, "
+            "512x1024, batch 1, four level launches summed; library_ms = one "
             "F.grid_sample per level of both grids stacked on the batch at "
             "precomputed normalised window coords (leaves out the window)",
             stages["gridwin_only"]["err"], path="tool"),

@@ -13,14 +13,16 @@
 //
 // dccl_lookup_all_levels replaces _dccl_grid_kernel_all (launched by
 // _grid_all_call): the same work for L <= 4 levels in one launch, the level
-// on blockIdx.y. Both kernels run one tap body (level_taps below), so the
-// all-levels launch gives the bits of L per-level launches.
+// on blockIdx.y. Both kernels run one body (dccl_columns.cuh's
+// level_columns), so the all-levels launch gives the bits of L per-level
+// launches.
 //
 // dccl_level_lookup_coords replaces _dccl_kernel (launched by
 // _packed_call_planes): the own taps as above, and the cross taps at given
 // coords, cross_A[q,k] = sample(volB[q], (cxA, cyA)[q,k]) and cross_B[q,k] =
-// sample(volA[q], (cxB, cyB)[q,k]). With the coords kernel's coords
-// (dccl_coords.cu) it gives the bits of dccl_level_lookup.
+// sample(volA[q], (cxB, cyB)[q,k]). It keeps the one-thread-per-tap body;
+// with the coords kernel's coords (dccl_coords.cu) it gives the bits of
+// dccl_level_lookup.
 //
 // sample() is the wrap-x bilinear sampler of dccl_common.cuh, which the
 // coords and scatter kernels share. The Pallas kernels clip an x that wraps
@@ -32,80 +34,56 @@
 // the two volumes (per query, the own 10x10 corner patch and the rotated
 // cross patch in each volume: a small part of the 32 KB f32 plane a query
 // has at level 0 of a 512x1024 input, 128 KB at 1024x2048) and writes
-// 4 x BQ x 81 f32 outputs; the coords variant also reads 4 x BQ x 81 f32
-// coords. The arithmetic is about 240 f32 operations per tap.
+// 4 x BQ x 81 f32; the coords variant also reads 4 x BQ x 81 f32 coords.
+// At 512x1024, batch 1, f32, the four levels of one iteration must move
+// 0.0289 ms of bytes on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
+// phase 2). The arithmetic is about 240 f32 operations per tap.
 //
-// Design: one thread per (query, tap); the 81 threads of a query share its
-// centre load, the output rows are read and written fully coalesced, and
-// corners are read through the read-only cache (__ldg). The TPU kernels'
+// Design of kernels 1 and 4: one thread per (query, branch, window column
+// i), 16 queries per block (dccl_columns.cuh). The 9 taps of a column share their x, so the
+// x half of the bilinear corners (wrap, floor, fraction, column validity)
+// is taken once per column for the own sample and for the grid sample
+// (dccl::ColumnSampler), and each tap reuses the row the tap above it read
+// wherever its y0 is that tap's plus one (checked per tap). So a column
+// reads 10 rows of corner pairs from its volume and 10 from its grid
+// instead of 9 x 8 corners, and does the x arithmetic once instead of 18
+// times. The cross taps stay true gathers at the grid's output. The
+// outputs go through shared memory and leave in runs of 81 floats, at a
+// row stride and a column offset the caller gives, so a level writes
+// straight into the (B, Q, L*81) arrays the model reads. The TPU kernels'
 // lane packing, row-select network, bf16 row-pair bitcasts, one-hot strip
 // matmul and 128-lane tap padding work around the TPU's lack of gathers;
 // Hopper gathers directly, so none of them is carried over, and the grid
-// width is not limited to 128 columns. The two (Hg, Wg, 2) grids stay
-// resident in L1/L2. Plane offsets are 64-bit (size_t), so a batch whose
-// volume exceeds 2^31 elements is addressed correctly. Neighbouring taps
-// differ in y, so they stride by Wl: a tap-major reordering is left for a
-// later speed pass.
+// width is not limited to 128 columns. Plane offsets are 64-bit (size_t).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dccl_columns.cuh"
 #include "dccl_common.cuh"
 
 namespace {
 
+using dccl::kAllTaps;
+using dccl::kColBlocksPerSM;
+using dccl::kColThreads;
+using dccl::kQB;
 using dccl::kTaps;
+using dccl::LevelOut;
 constexpr int kThreads = 256;
 constexpr int kMaxLevels = 4;
 
-// Outputs of one level: four (BQ, 81) f32 arrays.
-struct LevelOut {
-  float* ownA;
-  float* crossA;
-  float* ownB;
-  float* crossB;
-};
-
-// The tap body of one (query, tap) at one level, shared by the per-level
-// and the all-levels kernels.
 template <typename T>
-__device__ __forceinline__ void level_taps(
-    const T* __restrict__ volA, const T* __restrict__ volB, float2 ca,
-    float2 cb, const float2* __restrict__ gridA,
-    const float2* __restrict__ gridB, LevelOut out, long long t, int q, int k,
-    int Hl, int Wl, int Hg, int Wg, float scale) {
-  const size_t plane = static_cast<size_t>(Hl) * Wl;
-  const T* vA = volA + static_cast<size_t>(q) * plane;
-  const T* vB = volB + static_cast<size_t>(q) * plane;
-
-  // branch A: own window in volume A, cross taps through grid A into B
-  const float2 a = dccl::window_coord(ca, scale, k);
-  out.ownA[t] = dccl::sample_plane(vA, Hl, Wl, a.x, a.y);
-  const float2 pa = dccl::cross_coord(gridA, Hg, Wg, ca, scale, k);
-  out.crossA[t] = dccl::sample_plane(vB, Hl, Wl, pa.x, pa.y);
-
-  // branch B: own window in volume B, cross taps through grid B into A
-  const float2 b = dccl::window_coord(cb, scale, k);
-  out.ownB[t] = dccl::sample_plane(vB, Hl, Wl, b.x, b.y);
-  const float2 pb = dccl::cross_coord(gridB, Hg, Wg, cb, scale, k);
-  out.crossB[t] = dccl::sample_plane(vA, Hl, Wl, pb.x, pb.y);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kColThreads, kColBlocksPerSM)
     dccl_level_kernel(const T* __restrict__ volA, const T* __restrict__ volB,
                       const float2* __restrict__ cenA,
                       const float2* __restrict__ cenB,
                       const float2* __restrict__ gridA,
-                      const float2* __restrict__ gridB, LevelOut out, int BQ,
-                      int Hl, int Wl, int Hg, int Wg, float scale) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= static_cast<long long>(BQ) * kTaps) return;
-  const int q = static_cast<int>(t / kTaps);
-  const int k = static_cast<int>(t - static_cast<long long>(q) * kTaps);
-  level_taps(volA, volB, __ldg(cenA + q), __ldg(cenB + q), gridA, gridB, out,
-             t, q, k, Hl, Wl, Hg, Wg, scale);
+                      const float2* __restrict__ gridB, LevelOut out,
+                      long long ld, int BQ, int Hl, int Wl, int Hg, int Wg,
+                      float scale) {
+  dccl::level_columns<kAllTaps>(volA, volB, cenA, cenB, gridA, gridB, out, ld,
+                                BQ, Hl, Wl, Hg, Wg, scale);
 }
 
 // Level descriptors of the all-levels launch, passed by value.
@@ -119,23 +97,18 @@ struct AllLevels {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kColThreads, kColBlocksPerSM)
     dccl_all_levels_kernel(const AllLevels lv,
                            const float2* __restrict__ cenA,
                            const float2* __restrict__ cenB,
                            const float2* __restrict__ gridA,
-                           const float2* __restrict__ gridB, int BQ, int Hg,
-                           int Wg) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= static_cast<long long>(BQ) * kTaps) return;
+                           const float2* __restrict__ gridB, long long ld,
+                           int BQ, int Hg, int Wg) {
   const int l = blockIdx.y;
-  const int q = static_cast<int>(t / kTaps);
-  const int k = static_cast<int>(t - static_cast<long long>(q) * kTaps);
-  level_taps(static_cast<const T*>(lv.volA[l]),
-             static_cast<const T*>(lv.volB[l]), __ldg(cenA + q),
-             __ldg(cenB + q), gridA, gridB, lv.out[l], t, q, k, lv.Hl[l],
-             lv.Wl[l], Hg, Wg, lv.scale[l]);
+  dccl::level_columns<kAllTaps>(
+      static_cast<const T*>(lv.volA[l]), static_cast<const T*>(lv.volB[l]),
+      cenA, cenB, gridA, gridB, lv.out[l], ld, BQ, lv.Hl[l], lv.Wl[l], Hg, Wg,
+      lv.scale[l]);
 }
 
 template <typename T>
@@ -158,7 +131,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* vA = volA + static_cast<size_t>(q) * plane;
   const T* vB = volB + static_cast<size_t>(q) * plane;
 
-  // own windows as in level_taps; cross taps at the given coords, branch
+  // own windows one tap per thread; cross taps at the given coords, branch
   // A's in volume B and branch B's in volume A
   const float2 a = dccl::window_coord(__ldg(cenA + q), scale, k);
   out.ownA[t] = dccl::sample_plane(vA, Hl, Wl, a.x, a.y);
@@ -173,9 +146,16 @@ unsigned int blocks_for(int BQ) {
   return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
 }
 
-LevelOut level_out(void* ownA, void* crossA, void* ownB, void* crossB) {
-  return LevelOut{static_cast<float*>(ownA), static_cast<float*>(crossA),
-                  static_cast<float*>(ownB), static_cast<float*>(crossB)};
+unsigned int column_blocks(int BQ) {
+  return static_cast<unsigned int>((BQ + kQB - 1) / kQB);
+}
+
+LevelOut level_out(void* ownA, void* crossA, void* ownB, void* crossB,
+                   int col) {
+  return LevelOut{static_cast<float*>(ownA) + col,
+                  static_cast<float*>(crossA) + col,
+                  static_cast<float*>(ownB) + col,
+                  static_cast<float*>(crossB) + col};
 }
 
 }  // namespace
@@ -183,42 +163,45 @@ LevelOut level_out(void* ownA, void* crossA, void* ownB, void* crossB) {
 // Each entry launches on `stream` and returns cudaGetLastError() as an int.
 // vol_bf16 != 0 selects bf16 volumes (raw 16-bit words), else f32.
 
-// One level, cross tap coords from the grids.
+// One level, cross tap coords from the grids. ownA..crossB: arrays of BQ
+// rows of ld f32; the level's 81 taps go to columns col .. col + 80.
 extern "C" int dccl_level_lookup(const void* volA, const void* volB,
                                  int vol_bf16, const void* cenA,
                                  const void* cenB, const void* gridA,
                                  const void* gridB, void* ownA, void* crossA,
-                                 void* ownB, void* crossB, int BQ, int Hl,
-                                 int Wl, int Hg, int Wg, float scale,
-                                 void* stream) {
+                                 void* ownB, void* crossB, long long ld,
+                                 int col, int BQ, int Hl, int Wl, int Hg,
+                                 int Wg, float scale, void* stream) {
   if (BQ <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* cA = static_cast<const float2*>(cenA);
   const float2* cB = static_cast<const float2*>(cenB);
   const float2* gA = static_cast<const float2*>(gridA);
   const float2* gB = static_cast<const float2*>(gridB);
-  const LevelOut out = level_out(ownA, crossA, ownB, crossB);
+  const LevelOut out = level_out(ownA, crossA, ownB, crossB, col);
   if (vol_bf16) {
-    dccl_level_kernel<uint16_t><<<blocks_for(BQ), kThreads, 0, s>>>(
+    dccl_level_kernel<uint16_t><<<column_blocks(BQ), kColThreads, 0, s>>>(
         static_cast<const uint16_t*>(volA), static_cast<const uint16_t*>(volB),
-        cA, cB, gA, gB, out, BQ, Hl, Wl, Hg, Wg, scale);
+        cA, cB, gA, gB, out, ld, BQ, Hl, Wl, Hg, Wg, scale);
   } else {
-    dccl_level_kernel<float><<<blocks_for(BQ), kThreads, 0, s>>>(
+    dccl_level_kernel<float><<<column_blocks(BQ), kColThreads, 0, s>>>(
         static_cast<const float*>(volA), static_cast<const float*>(volB), cA,
-        cB, gA, gB, out, BQ, Hl, Wl, Hg, Wg, scale);
+        cB, gA, gB, out, ld, BQ, Hl, Wl, Hg, Wg, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // L levels in one launch. volA, volB: L pointers each; outs: 4L pointers
-// ordered (ownA, crossA, ownB, crossB) per level; Hl, Wl, scale: L each.
+// ordered (ownA, crossA, ownB, crossB) per level, each to BQ rows of ld f32
+// (level l's taps at its pointer's columns 0 .. 80); Hl, Wl, scale: L each.
 extern "C" int dccl_lookup_all_levels(int L, const void* const* volA,
                                       const void* const* volB, int vol_bf16,
                                       const void* cenA, const void* cenB,
                                       const void* gridA, const void* gridB,
-                                      void* const* outs, int BQ, const int* Hl,
-                                      const int* Wl, const float* scale,
-                                      int Hg, int Wg, void* stream) {
+                                      void* const* outs, long long ld, int BQ,
+                                      const int* Hl, const int* Wl,
+                                      const float* scale, int Hg, int Wg,
+                                      void* stream) {
   if (L < 1 || L > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
   if (BQ <= 0) return static_cast<int>(cudaGetLastError());
   AllLevels lv = {};
@@ -226,23 +209,23 @@ extern "C" int dccl_lookup_all_levels(int L, const void* const* volA,
     lv.volA[l] = volA[l];
     lv.volB[l] = volB[l];
     lv.out[l] = level_out(outs[4 * l], outs[4 * l + 1], outs[4 * l + 2],
-                          outs[4 * l + 3]);
+                          outs[4 * l + 3], 0);
     lv.Hl[l] = Hl[l];
     lv.Wl[l] = Wl[l];
     lv.scale[l] = scale[l];
   }
-  const dim3 grid(blocks_for(BQ), static_cast<unsigned int>(L));
+  const dim3 grid(column_blocks(BQ), static_cast<unsigned int>(L));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* cA = static_cast<const float2*>(cenA);
   const float2* cB = static_cast<const float2*>(cenB);
   const float2* gA = static_cast<const float2*>(gridA);
   const float2* gB = static_cast<const float2*>(gridB);
   if (vol_bf16) {
-    dccl_all_levels_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
-        lv, cA, cB, gA, gB, BQ, Hg, Wg);
+    dccl_all_levels_kernel<uint16_t><<<grid, kColThreads, 0, s>>>(
+        lv, cA, cB, gA, gB, ld, BQ, Hg, Wg);
   } else {
-    dccl_all_levels_kernel<float><<<grid, kThreads, 0, s>>>(lv, cA, cB, gA, gB,
-                                                             BQ, Hg, Wg);
+    dccl_all_levels_kernel<float><<<grid, kColThreads, 0, s>>>(
+        lv, cA, cB, gA, gB, ld, BQ, Hg, Wg);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -261,7 +244,7 @@ extern "C" int dccl_level_lookup_coords(
   const float* yA = static_cast<const float*>(cyA);
   const float* xB = static_cast<const float*>(cxB);
   const float* yB = static_cast<const float*>(cyB);
-  const LevelOut out = level_out(ownA, crossA, ownB, crossB);
+  const LevelOut out = level_out(ownA, crossA, ownB, crossB, 0);
   if (vol_bf16) {
     dccl_coords_lookup_kernel<uint16_t><<<blocks_for(BQ), kThreads, 0, s>>>(
         static_cast<const uint16_t*>(volA), static_cast<const uint16_t*>(volB),

@@ -14,10 +14,10 @@ Layouts are the JAX package's: feature maps (B, H, W, C), volumes
 
 Gradients reach the volumes only: the lookup coords are detached every
 iteration (``prior_flow_tpu/models/prior_raft.py:215,220``). The lookups'
-differentiable forms are ``DCCLLevelLookup`` (the custom VJP of
-``dccl_packed_lookup_grid``), ``DCCLLevelLookupCoords`` (of
-``dccl_packed_lookup_planes``) and ``DCCLAllLevelsLookup`` (of
-``dccl_packed_lookup_grid_all``); ``DCCLFused.record`` serves the taped
+differentiable forms are ``DCCLAllLevelsLookup`` (every level of the grid
+route, the custom VJPs of ``dccl_packed_lookup_grid`` and
+``dccl_packed_lookup_grid_all``) and ``DCCLLevelLookupCoords`` (of
+``dccl_packed_lookup_planes``); ``DCCLFused.record`` serves the taped
 backward, which scatters all iterations at once.
 """
 
@@ -34,12 +34,12 @@ from .kernels.dccl_lookup import (NTAP, RADIUS, dccl_level_lookup,
                                   dccl_level_lookup_coords,
                                   dccl_level_lookup_plain,
                                   dccl_lookup_all_levels, window_delta)
-from .kernels.dccl_scatter import dccl_level_scatter
+from .kernels.dccl_scatter import dccl_level_scatter, dccl_level_scatter_grid
 from .static_resample import resample_static
 
 __all__ = ["all_pairs_correlation", "avg_pool2", "build_pyramid",
            "build_pyramid_lean", "groupwise_corr", "DCCLFused",
-           "DCCLLevelLookup", "DCCLLevelLookupCoords", "DCCLAllLevelsLookup",
+           "DCCLLevelLookupCoords", "DCCLAllLevelsLookup",
            "window_delta", "dccl_level_lookup", "dccl_level_lookup_plain"]
 
 
@@ -114,58 +114,30 @@ def groupwise_corr(fea1: torch.Tensor, fea2: torch.Tensor, num_groups: int):
                                  C // num_groups).mean(dim=-1)
 
 
+def _rows(t):
+    """A (B, Q, 81) cotangent, or a level's column slice of (B, Q, L*81),
+    as the (1, B, Q, 81) rows the scatter reads at their row stride; copied
+    only when its layout has no single row stride."""
+    B, Q = t.shape[:2]
+    ld = t.stride(1)
+    if not (t.stride(2) == 1 and ld >= NTAP and t.stride(0) == Q * ld):
+        t = t.contiguous()
+    return t.unsqueeze(0)
+
+
 def _scatter_both(g_ownA, g_crossA, g_ownB, g_crossB, cen_A, cen_B, scale,
                   cxA, cyA, cxB, cyB, vol_shape, dtype):
-    """The lookup's transpose at one level: one scatter per volume with
-    S = 1. Volume A takes branch A's own taps and branch B's cross taps,
-    volume B the converse (``dccl_gather.py:882-887``)."""
+    """The transpose of the lookup at given coords at one level: one
+    scatter per volume with S = 1. Volume A takes branch A's own taps and
+    branch B's cross taps, volume B the converse
+    (``dccl_gather.py:882-887``)."""
     B, Q, Hl, Wl = vol_shape
-    one = lambda t: t.contiguous().reshape(1, B, Q, -1)
-    d_A = dccl_level_scatter(one(g_ownA), one(cen_A), scale, one(g_crossB),
+    one = lambda t: t.reshape(1, B, Q, -1)
+    d_A = dccl_level_scatter(_rows(g_ownA), one(cen_A), scale, _rows(g_crossB),
                              one(cxB), one(cyB), Hl, Wl, dtype)
-    d_B = dccl_level_scatter(one(g_ownB), one(cen_B), scale, one(g_crossA),
+    d_B = dccl_level_scatter(_rows(g_ownB), one(cen_B), scale, _rows(g_crossA),
                              one(cxA), one(cyA), Hl, Wl, dtype)
     return d_A, d_B
-
-
-def _grid_level_backward(grads, cen_A, cen_B, grid_A, grid_B, scale,
-                         vol_shape, dtype):
-    """Backward of one level of the grid route: each branch's cross tap
-    coords recomputed from the saved centres (``dccl_grid_coords``), then
-    the two scatters."""
-    BQ = vol_shape[0] * vol_shape[1]
-    cxA, cyA = dccl_grid_coords(cen_A.reshape(BQ, 2), grid_A, scale)
-    cxB, cyB = dccl_grid_coords(cen_B.reshape(BQ, 2), grid_B, scale)
-    return _scatter_both(*grads, cen_A, cen_B, scale, cxA, cyA, cxB, cyB,
-                         vol_shape, dtype)
-
-
-class DCCLLevelLookup(torch.autograd.Function):
-    """One level's both-branch lookup with its VJP (counterpart of
-    ``dccl_packed_lookup_grid``'s custom VJP,
-    ``prior_flow_tpu/ops/pallas/dccl_gather.py:841-891``).
-
-    Forward: ``dccl_level_lookup`` (the CUDA kernel on the card). Backward:
-    each branch's cross tap coords recomputed from the saved centres
-    (``dccl_grid_coords``), then one scatter per volume with S = 1. The
-    centres and grids get no gradient.
-    """
-
-    @staticmethod
-    def forward(ctx, vol_A, vol_B, cen_A, cen_B, grid_A, grid_B,
-                scale: float):
-        outs = dccl_level_lookup(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B,
-                                 scale)
-        ctx.save_for_backward(cen_A, cen_B, grid_A, grid_B)
-        ctx.scale = scale
-        ctx.vol = (vol_A.shape, vol_A.dtype)
-        return outs
-
-    @staticmethod
-    def backward(ctx, *grads):
-        d_A, d_B = _grid_level_backward(grads, *ctx.saved_tensors, ctx.scale,
-                                        *ctx.vol)
-        return d_A, d_B, None, None, None, None, None
 
 
 class DCCLLevelLookupCoords(torch.autograd.Function):
@@ -174,8 +146,9 @@ class DCCLLevelLookupCoords(torch.autograd.Function):
     ``dccl_gather.py:783-821``).
 
     Forward: ``dccl_level_lookup_coords`` (the CUDA kernel on the card).
-    Backward: one scatter per volume with S = 1 at the SAVED given coords,
-    nothing recomputed. The centres and coords get no gradient.
+    Backward: one given-coords scatter per volume with S = 1 at the SAVED
+    given coords, nothing recomputed. The centres and coords get no
+    gradient.
     """
 
     @staticmethod
@@ -197,33 +170,58 @@ class DCCLLevelLookupCoords(torch.autograd.Function):
 
 
 class DCCLAllLevelsLookup(torch.autograd.Function):
-    """Every level's both-branch lookup in one launch, with its VJP
-    (counterpart of ``dccl_packed_lookup_grid_all``' custom VJP,
-    ``dccl_gather.py:945-1003``).
+    """Every level of the grid route's both-branch lookup, with its VJP
+    (counterpart of the custom VJPs of ``dccl_packed_lookup_grid``,
+    ``dccl_gather.py:841-891``, and ``dccl_packed_lookup_grid_all``,
+    ``:945-1003``).
 
-    ``apply(cen_A, cen_B, grid_A, grid_B, scales, *vols)`` with ``vols`` =
-    (A_0, B_0, A_1, B_1, ...) returns the 4L outputs (own_A, cross_A,
-    own_B, cross_B) level after level. Forward: ``dccl_lookup_all_levels``
-    (one CUDA launch on the card). Backward: per level, the backward of
-    ``DCCLLevelLookup`` (``_packed_grid_all_bwd``, ``:984-999``).
+    ``apply(cen_A, cen_B, grid_A, grid_B, scales, fuse, *vols)`` with
+    ``vols`` = (A_0, B_0, A_1, B_1, ...) returns (own_A, cross_A, own_B,
+    cross_B), each (B, Q, L*81) f32, level l in columns 81 l .. 81 l + 80.
+    Forward: the kernels write straight into those four arrays, one
+    ``dccl_level_lookup`` launch per level, or one ``dccl_lookup_all_levels``
+    launch with ``fuse``. Backward: per level, on column views of the
+    cotangents, one grid-entry scatter per volume (``_packed_grid_all_bwd``,
+    ``:984-999``).
     """
 
     @staticmethod
-    def forward(ctx, cen_A, cen_B, grid_A, grid_B, scales, *vols):
-        outs = dccl_lookup_all_levels(vols[0::2], vols[1::2], cen_A, cen_B,
-                                      grid_A, grid_B, scales)
+    def forward(ctx, cen_A, cen_B, grid_A, grid_B, scales, fuse, *vols):
+        B, Q = cen_A.shape[:2]
+        L = len(scales)
+        out = torch.empty((4, B, Q, L * NTAP), dtype=torch.float32,
+                          device=cen_A.device).unbind(0)
+        if fuse:
+            dccl_lookup_all_levels(vols[0::2], vols[1::2], cen_A, cen_B,
+                                   grid_A, grid_B, scales, out=out)
+        else:
+            for lvl, s in enumerate(scales):
+                dccl_level_lookup(vols[2 * lvl], vols[2 * lvl + 1], cen_A,
+                                  cen_B, grid_A, grid_B, s, out=out,
+                                  col=lvl * NTAP)
         ctx.save_for_backward(cen_A, cen_B, grid_A, grid_B)
         ctx.scales = tuple(scales)
         ctx.vols = [(v.shape, v.dtype) for v in vols[0::2]]
-        return tuple(o for level in outs for o in level)
+        return tuple(out)
 
     @staticmethod
     def backward(ctx, *grads):
+        cen_A, cen_B, grid_A, grid_B = ctx.saved_tensors
+        B, Q = cen_A.shape[:2]
+        cA, cB = cen_A.reshape(1, B, Q, 2), cen_B.reshape(1, B, Q, 2)
         d = []
-        for lvl, (s, vol) in enumerate(zip(ctx.scales, ctx.vols)):
-            d += _grid_level_backward(grads[4 * lvl:4 * lvl + 4],
-                                      *ctx.saved_tensors, s, *vol)
-        return (None,) * 5 + tuple(d)
+        for lvl, (s, (shape, dtype)) in enumerate(zip(ctx.scales, ctx.vols)):
+            cols = slice(lvl * NTAP, (lvl + 1) * NTAP)
+            # volume A takes branch A's own taps and branch B's cross taps,
+            # the cross tap coords computed inside the scatter
+            g_ownA, g_crossA, g_ownB, g_crossB = (_rows(g[..., cols])
+                                                  for g in grads)
+            Hl, Wl = shape[2:]
+            d += [dccl_level_scatter_grid(g_ownA, cA, g_crossB, cB, grid_B, s,
+                                          Hl, Wl, dtype),
+                  dccl_level_scatter_grid(g_ownB, cB, g_crossA, cA, grid_A, s,
+                                          Hl, Wl, dtype)]
+        return (None,) * 6 + tuple(d)
 
 
 # the JAX package samples the cross tap coords inside the lookup kernel only
@@ -250,10 +248,11 @@ class DCCLFused:
     (``prior_flow_tpu/ops/corr.py:373``), by one of three routes, chosen as
     in the JAX package:
 
-    - the grid route (the default): one ``level_lookup`` per level, the
-      cross tap coords computed inside the kernel;
-    - the all-levels grid route (``fuse_levels``): one
-      ``DCCLAllLevelsLookup`` launch for every level;
+    - the grid route (the default): ``DCCLAllLevelsLookup``, one lookup
+      launch per level, the cross tap coords computed inside the kernel,
+      each level written straight into the four (B, Q, L*81) fields;
+    - the all-levels grid route (``fuse_levels``): the same Function with
+      one launch for every level;
     - the planes route (``grid_in_kernel=False``, or a 1/8 grid wider than
       128 columns, as at 1024x2048): both branches' cross tap coords for
       all levels first, one ``dccl_grid_coords`` launch per branch with
@@ -263,17 +262,17 @@ class DCCLFused:
 
     The three give the same bits: scaling a centre by a power of two is
     exact, so the planes route's coords are the ones the grid route's
-    kernel computes. ``level_lookup`` (the grid route only) is
-    ``DCCLLevelLookup.apply`` (the CUDA kernels for CUDA tensors, the plain
-    versions on the CPU, with the volumes' gradient) or
-    ``dccl_level_lookup_plain`` (the plain gathers on any device,
-    differentiated by autograd: the kernels' reference). ``fuse_levels=None``
-    reads ``PRIORFLOW_DCCL_FUSE_LEVELS``.
+    kernel computes. ``level_lookup`` replaces the grid route's Function
+    by a lookup called level by level, its levels concatenated: the
+    kernels' reference ``dccl_level_lookup_plain`` (the plain gathers on
+    any device, differentiated by autograd); ``fuse_levels`` takes
+    precedence over it. ``fuse_levels=None`` reads
+    ``PRIORFLOW_DCCL_FUSE_LEVELS``.
     """
 
     def __init__(self, num_levels: int = 4, radius: int = RADIUS,
-                 level_lookup=DCCLLevelLookup.apply,
-                 grid_in_kernel: bool = True, fuse_levels: bool = None):
+                 level_lookup=None, grid_in_kernel: bool = True,
+                 fuse_levels: bool = None):
         if radius != RADIUS:
             raise ValueError(f"the lookup is built for radius {RADIUS}")
         self.num_levels = num_levels
@@ -304,20 +303,21 @@ class DCCLFused:
         if self.planes_route(a2b_w2c_8):
             planes = (*cross_coords_all_levels(cqA, a2b_w2c_8, scales),
                       *cross_coords_all_levels(cqB, b2a_w2c_8, scales))
-            levels = [DCCLLevelLookupCoords.apply(
+            fields = _concat([DCCLLevelLookupCoords.apply(
                 pyr_A[i], pyr_B[i], cqA, cqB, scales[i],
                 *(p[i * B * Q:(i + 1) * B * Q].reshape(B, Q, NTAP)
-                  for p in planes)) for i in range(L)]
-        elif self.fuse_levels:
+                  for p in planes)) for i in range(L)])
+        elif self.fuse_levels or self.level_lookup is None:
             vols = [v for i in range(L) for v in (pyr_A[i], pyr_B[i])]
-            outs = DCCLAllLevelsLookup.apply(cqA, cqB, a2b_w2c_8, b2a_w2c_8,
-                                             tuple(scales), *vols)
-            levels = [outs[4 * i:4 * i + 4] for i in range(L)]
+            fields = DCCLAllLevelsLookup.apply(
+                cqA, cqB, a2b_w2c_8, b2a_w2c_8, tuple(scales),
+                self.fuse_levels, *vols)
         else:
-            levels = [self.level_lookup(pyr_A[i], pyr_B[i], cqA, cqB,
-                                        a2b_w2c_8, b2a_w2c_8, scales[i])
-                      for i in range(L)]
-        return self._finish(levels, B, h1, w1, a2b_8, b2a_8)
+            fields = _concat([self.level_lookup(pyr_A[i], pyr_B[i], cqA, cqB,
+                                                a2b_w2c_8, b2a_w2c_8,
+                                                scales[i])
+                              for i in range(L)])
+        return self._finish(fields, B, h1, w1, a2b_8, b2a_8)
 
     @torch.no_grad()
     def record(self, coords_A, coords_B, pyr_A: Sequence, pyr_B: Sequence,
@@ -341,15 +341,18 @@ class DCCLFused:
         return (own_A + cross_A, own_B + cross_B), tuple(cen)
 
     @staticmethod
-    def _finish(levels, B, h1, w1, a2b_8, b2a_8):
-        """Concatenate the levels and rotate each branch's cross field back
-        with ONE resample over the level-concatenated channels
-        (``prior_flow_tpu/ops/corr.py:572-587``; resampling is channelwise,
-        so rotate-then-concat equals concat-then-rotate)."""
-        def cat(j):
-            return torch.cat([lv[j].reshape(B, h1, w1, -1) for lv in levels],
-                             dim=-1)
+    def _finish(fields, B, h1, w1, a2b_8, b2a_8):
+        """Rotate each branch's cross field back with ONE resample over the
+        level-concatenated channels (``prior_flow_tpu/ops/corr.py:572-587``;
+        resampling is channelwise, so rotate-then-concat equals
+        concat-then-rotate). ``fields``: the four (B, Q, L*81) fields."""
+        own_A, cross_A, own_B, cross_B = (f.reshape(B, h1, w1, -1)
+                                          for f in fields)
+        return (own_A, resample_static(cross_A, b2a_8), own_B,
+                resample_static(cross_B, a2b_8))
 
-        cross_A = resample_static(cat(1), b2a_8)
-        cross_B = resample_static(cat(3), a2b_8)
-        return cat(0), cross_A, cat(2), cross_B
+
+def _concat(levels):
+    """Per-level (own_A, cross_A, own_B, cross_B) -> the four (B, Q, L*81)
+    fields."""
+    return [torch.cat([lv[j] for lv in levels], dim=-1) for j in range(4)]

@@ -7,11 +7,12 @@
 | ``csrc/dccl_lookup.cu`` | ``ops/pallas/dccl_gather.py::_dccl_grid_kernel_all`` | ``dccl_lookup.dccl_lookup_all_levels`` |
 | ``csrc/instance_norm.cu`` | ``ops/pallas/instance_norm.py::_sums_kernel`` | ``instance_norm.instance_norm_sums`` |
 | ``csrc/dccl_coords.cu`` | ``ops/pallas/dccl_gather.py::_coords_kernel`` | ``dccl_coords.dccl_grid_coords`` |
-| ``csrc/dccl_scatter.cu`` | the one-hot einsum backward of ``dccl_gather.py`` (``_scatter_own_cross``, ``_scatter_grads_*_multi``) | ``dccl_scatter.dccl_level_scatter`` |
+| ``csrc/dccl_scatter.cu`` (grid entry) | the one-hot einsum backward of ``dccl_gather.py`` (``_scatter_own_cross``, ``_scatter_grads_*_multi``) | ``dccl_scatter.dccl_level_scatter_grid`` |
+| ``csrc/dccl_scatter.cu`` (given coords) | the same, for the planes route | ``dccl_scatter.dccl_level_scatter`` |
 | ``csrc/microbench_anchor.cu`` | ``tools/microbench_vpu_anchor.py::_kernel`` | ``anchors.anchor_chain`` |
 | ``csrc/microbench_anchor.cu`` | ``tools/microbench_vpu_anchor.py::_copy_kernel`` | ``anchors.step_cost_copy`` |
 | ``csrc/dccl_stages.cu`` | ``tools/microbench_kernel_split.py::_own_only_kernel`` | ``dccl_stages.dccl_own_only`` |
-| ``csrc/gridwin_variants.cu`` (the pair kernel) | ``tools/microbench_kernel_split.py::_gridwin_only_kernel`` | ``dccl_stages.dccl_gridwin_only`` |
+| ``csrc/dccl_stages.cu`` | ``tools/microbench_kernel_split.py::_gridwin_only_kernel`` | ``dccl_stages.dccl_gridwin_only`` |
 | ``csrc/dccl_stages.cu`` | ``tools/microbench_kernel_split.py::_cross_only_kernel`` | ``dccl_stages.dccl_cross_only`` |
 | ``csrc/gridwin_variants.cu`` | ``tools/microbench_gridwin.py::_pair_kernel`` | ``gridwin_variants.gridwin_pair`` |
 | ``csrc/gridwin_variants.cu`` | ``tools/microbench_gridwin.py::_variant_kernel`` | ``gridwin_variants.gridwin_variant`` |
@@ -26,7 +27,7 @@ from .anchors import anchor_chain, step_cost_copy
 from .dccl_coords import dccl_grid_coords
 from .dccl_lookup import (dccl_level_lookup, dccl_level_lookup_coords,
                           dccl_lookup_all_levels)
-from .dccl_scatter import dccl_level_scatter
+from .dccl_scatter import dccl_level_scatter, dccl_level_scatter_grid
 from .dccl_stages import dccl_cross_only, dccl_gridwin_only, dccl_own_only
 from .gridwin_variants import gridwin_pair, gridwin_variant
 from .instance_norm import instance_norm_sums
@@ -35,6 +36,7 @@ WRAPPERS = {"dccl_level_lookup": dccl_level_lookup,
             "instance_norm_sums": instance_norm_sums,
             "dccl_grid_coords": dccl_grid_coords,
             "dccl_level_scatter": dccl_level_scatter,
+            "dccl_level_scatter_grid": dccl_level_scatter_grid,
             "dccl_level_lookup_coords": dccl_level_lookup_coords,
             "dccl_lookup_all_levels": dccl_lookup_all_levels,
             "anchor_chain": anchor_chain,

@@ -118,3 +118,43 @@ def check(status: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+class Entries:
+    """C entries of the kernel library, each bound once, with its argtypes
+    and an int restype, when the first of them is used.
+
+    ``signatures`` maps an entry's name to its ctypes argtypes; the last is
+    the stream. ``launch(name, device, *args)`` calls the entry on the
+    device's current stream and raises on a CUDA error. A kernel launches
+    on the calling thread's current device, so a tensor on another device
+    takes a device context; on the current one it takes none."""
+
+    def __init__(self, signatures: dict):
+        self._signatures = signatures
+        self._fns = None
+
+    def __getitem__(self, name: str):
+        if self._fns is None:
+            lib = load_library().lib
+            fns = {}
+            for entry, argtypes in self._signatures.items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[entry] = fn
+            self._fns = fns
+        return self._fns[name]
+
+    def launch(self, name: str, device, *args) -> None:
+        import torch
+        fn = self[name]
+        index = device.index
+        if index == torch._C._cuda_getDevice():
+            # the raw handle of torch.cuda.current_stream(device), without
+            # building a Stream object on every launch
+            status = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(device):
+                status = fn(*args, torch.cuda.current_stream().cuda_stream)
+        check(status, name)

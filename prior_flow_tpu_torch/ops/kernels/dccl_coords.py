@@ -5,10 +5,11 @@ Counterpart of ``prior_flow_tpu/ops/pallas/dccl_gather.py::
 dccl_grid_coords`` (kernel ``_coords_kernel``); kernel source
 ``prior_flow_tpu_torch/csrc/dccl_coords.cu``. The 1/8 world-to-camera
 rotation grid is sampled at the 81 level-scaled window coords around each
-centre: the stage of the lookup that places its cross taps. The backward of
-the lookup recomputes these coords from the centres instead of keeping
-them. The kernel shares its arithmetic with the lookup kernel
-(``csrc/dccl_common.cuh``), so on the card both give the same bits.
+centre: the stage of the lookup that places its cross taps. The planes
+route (``ops/corr.py::DCCLFused``) computes its cross tap coords here; the
+grid route's backward computes them inside the scatter instead. The kernel
+shares its arithmetic with the lookup and scatter kernels
+(``csrc/dccl_common.cuh``), so on the card all give the same bits.
 
 A tensor on the CPU goes through the plain version; a CUDA tensor launches
 the kernel or raises.
@@ -34,13 +35,10 @@ def dccl_grid_coords_plain(cen: torch.Tensor, grid: torch.Tensor,
     return cx.contiguous(), cy.contiguous()
 
 
-def _kernel():
-    fn = _build.load_library().lib.dccl_grid_coords
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, p]
-    fn.restype = ctypes.c_int
-    return fn
+ENTRIES = _build.Entries({"dccl_grid_coords": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_void_p]})
 
 
 def dccl_grid_coords(cen: torch.Tensor, grid: torch.Tensor, scale: float):
@@ -65,11 +63,9 @@ def dccl_grid_coords(cen: torch.Tensor, grid: torch.Tensor, scale: float):
     Hg, Wg, _ = grid.shape
     cx = torch.empty((N, NTAP), dtype=torch.float32, device=cen.device)
     cy = torch.empty((N, NTAP), dtype=torch.float32, device=cen.device)
-    with torch.cuda.device(cen.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _kernel()(cen.data_ptr(), grid.data_ptr(), cx.data_ptr(),
-                           cy.data_ptr(), N, Hg, Wg, float(scale), stream)
-    _build.check(status, "dccl_grid_coords")
+    ENTRIES.launch("dccl_grid_coords", cen.device, cen.data_ptr(),
+                   grid.data_ptr(), cx.data_ptr(), cy.data_ptr(), N, Hg, Wg,
+                   float(scale))
     dccl_grid_coords.launches += 1
     return cx, cy
 

@@ -17,10 +17,14 @@ dccl_gather.py`` kernels:
   at GIVEN coords (the other branch's volume sampled there).
 
 A tensor on the CPU goes through the plain version; a CUDA tensor launches
-the kernel or raises. The wrappers themselves are forward-only; their
-gradients are ``ops/corr.py::DCCLLevelLookup``, ``DCCLAllLevelsLookup`` and
-``DCCLLevelLookupCoords``, whose backwards run the coords and scatter
-kernels.
+the kernel or raises. Kernel 1 and the all-levels launch write into given
+arrays at a row stride and a column offset (``out``), so the grid route's
+levels land in the four (B, Q, L*81) fields without a copy. The entries are
+bound once (``ENTRIES``) and each wrapper checks its inputs in one pass:
+issued back to back, a launch costs the host less than the card. The
+wrappers themselves are forward-only; their gradients are
+``ops/corr.py::DCCLAllLevelsLookup`` and ``DCCLLevelLookupCoords``, whose
+backwards run the scatter kernel.
 """
 
 from __future__ import annotations
@@ -112,13 +116,19 @@ def dccl_lookup_all_levels_plain(vols_A, vols_B, cen_A, cen_B, grid_A,
                  for vA, vB, s in zip(vols_A, vols_B, scales))
 
 
-def _check_common(name, tensors, vol_A, vol_B, cen_A, cen_B):
-    dev = vol_A.device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: inputs on different devices")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the wrapper is forward-only; "
-                           f"differentiate through its ops.corr Function")
+def _check_level(name, vol_A, vol_B, cen_A, cen_B, more=()):
+    """One pass over the inputs: device, no autograd, contiguity; then the
+    volumes' dtype and shapes and the centres'."""
+    dev = vol_A.get_device()     # an int: cheaper to compare than devices
+    grad = torch.is_grad_enabled()
+    for t in (vol_A, vol_B, cen_A, cen_B, *more):
+        if t.get_device() != dev:
+            raise ValueError(f"{name}: inputs on different devices")
+        if grad and t.requires_grad:
+            raise RuntimeError(f"{name}: the wrapper is forward-only; "
+                               f"differentiate through its ops.corr Function")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
     if vol_A.dtype not in (torch.float32, torch.bfloat16) \
             or vol_B.dtype != vol_A.dtype:
         raise TypeError(f"volumes must both be float32 or bfloat16, got "
@@ -131,8 +141,6 @@ def _check_common(name, tensors, vol_A, vol_B, cen_A, cen_B):
         if c.shape != (B, Q, 2) or c.dtype != torch.float32:
             raise ValueError(f"centres must be ({B}, {Q}, 2) float32, got "
                              f"{tuple(c.shape)} {c.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: inputs must be contiguous")
 
 
 def _check_grids(grid_A, grid_B):
@@ -144,19 +152,16 @@ def _check_grids(grid_A, grid_B):
         raise TypeError("grids must be float32")
 
 
-def _kernel(name: str):
-    fn = getattr(_build.load_library().lib, name)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = {
-        "dccl_level_lookup": [p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                              f, p],
-        "dccl_lookup_all_levels": [i, p, p, i, p, p, p, p, p, i, p, p, p, i,
-                                   i, p],
-        "dccl_level_lookup_coords": [p, p, i, p, p, p, p, p, p, p, p, p, p, i,
-                                     i, i, f, p],
-    }[name]
-    fn.restype = i
-    return fn
+_p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
+ENTRIES = _build.Entries({
+    "dccl_level_lookup": [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p, _p, _ll, _i,
+                          _i, _i, _i, _i, _i, _f, _p],
+    "dccl_lookup_all_levels": [_i, _p, _p, _i, _p, _p, _p, _p, _p, _ll, _i,
+                               _p, _p, _p, _i, _i, _p],
+    "dccl_level_lookup_coords": [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p, _p,
+                                 _p, _p, _i, _i, _i, _f, _p],
+})
 
 
 def _device_or_plain(name, vol):
@@ -169,37 +174,61 @@ def _device_or_plain(name, vol):
     return False
 
 
-def _outputs(B, Q, device):
-    return [torch.empty((B, Q, NTAP), dtype=torch.float32, device=device)
-            for _ in range(4)]
+def _targets(out, B, Q, cols: int, device):
+    """The four output arrays and their row stride: new (B, Q, 81) arrays
+    when ``out`` is None, else ``out``, four (B, Q, C >= cols) f32 arrays of
+    one row layout (unit column stride, C' >= C elements from row to
+    row)."""
+    if out is None:   # one allocation for the four
+        return list(torch.empty((4, B, Q, NTAP), dtype=torch.float32,
+                                device=device).unbind(0)), NTAP
+    ld = out[0].stride(1)
+    for o in out:
+        if (o.device != device or o.dtype != torch.float32 or o.dim() != 3
+                or tuple(o.shape[:2]) != (B, Q) or o.shape[2] < cols
+                or o.stride(2) != 1 or o.stride(1) != ld
+                or o.stride(0) != Q * ld):
+            raise ValueError(f"out must be four ({B}, {Q}, >= {cols}) "
+                             f"float32 arrays of one row layout on {device}")
+    return list(out), ld
+
+
+def _into(out, col, results):
+    """Copies the plain version's results into columns col .. col + 80 of
+    ``out`` and returns those columns."""
+    views = tuple(o[..., col:col + NTAP] for o in out)
+    for v, r in zip(views, results):
+        v.copy_(r)
+    return views
 
 
 def dccl_level_lookup(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B,
-                      scale: float):
+                      scale: float, out=None, col: int = 0):
     """Both branches' own and cross taps for one pyramid level; same
-    arguments and results as ``dccl_level_lookup_plain``."""
+    arguments and results as ``dccl_level_lookup_plain``. With ``out``
+    (four (B, Q, C) f32 arrays, see ``_targets``) the taps go into columns
+    col .. col + 80 of each, on the card straight from the kernel, and the
+    results are those columns."""
     if _device_or_plain("dccl_level_lookup", vol_A):
-        return dccl_level_lookup_plain(vol_A, vol_B, cen_A, cen_B,
-                                       grid_A, grid_B, scale)
-    _check_common("dccl_level_lookup",
-                  (vol_A, vol_B, cen_A, cen_B, grid_A, grid_B),
-                  vol_A, vol_B, cen_A, cen_B)
+        res = dccl_level_lookup_plain(vol_A, vol_B, cen_A, cen_B, grid_A,
+                                      grid_B, scale)
+        return res if out is None else _into(out, col, res)
+    _check_level("dccl_level_lookup", vol_A, vol_B, cen_A, cen_B,
+                 (grid_A, grid_B))
     _check_grids(grid_A, grid_B)
     B, Q, Hl, Wl = vol_A.shape
     Hg, Wg, _ = grid_A.shape
-    outs = _outputs(B, Q, vol_A.device)
-    with torch.cuda.device(vol_A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _kernel("dccl_level_lookup")(
-            vol_A.data_ptr(), vol_B.data_ptr(),
-            int(vol_A.dtype == torch.bfloat16),
-            cen_A.data_ptr(), cen_B.data_ptr(),
-            grid_A.data_ptr(), grid_B.data_ptr(),
-            *(o.data_ptr() for o in outs),
-            B * Q, Hl, Wl, Hg, Wg, float(scale), stream)
-    _build.check(status, "dccl_level_lookup")
+    outs, ld = _targets(out, B, Q, col + NTAP, vol_A.device)
+    ENTRIES.launch("dccl_level_lookup", vol_A.device,
+                   vol_A.data_ptr(), vol_B.data_ptr(),
+                   int(vol_A.dtype == torch.bfloat16),
+                   cen_A.data_ptr(), cen_B.data_ptr(),
+                   grid_A.data_ptr(), grid_B.data_ptr(),
+                   *(o.data_ptr() for o in outs), ld, col,
+                   B * Q, Hl, Wl, Hg, Wg, float(scale))
     dccl_level_lookup.launches += 1
-    return tuple(outs)
+    return tuple(outs) if out is None else tuple(
+        o[..., col:col + NTAP] for o in outs)
 
 
 dccl_level_lookup.launches = 0
@@ -208,44 +237,54 @@ MAX_LEVELS = 4   # the level descriptors the all-levels launch takes
 
 
 def dccl_lookup_all_levels(vols_A, vols_B, cen_A, cen_B, grid_A, grid_B,
-                           scales):
+                           scales, out=None):
     """Every level's both-branch taps in one launch; same arguments and
     results as ``dccl_lookup_all_levels_plain``, bitwise equal to one
-    ``dccl_level_lookup`` per level on the card."""
+    ``dccl_level_lookup`` per level on the card. With ``out`` (four
+    (B, Q, C >= 81 L) f32 arrays) level l's taps go into columns
+    81 l .. 81 l + 80, and each level's results are those columns."""
     L = len(vols_A)
     if _device_or_plain("dccl_lookup_all_levels", vols_A[0]):
-        return dccl_lookup_all_levels_plain(vols_A, vols_B, cen_A, cen_B,
-                                            grid_A, grid_B, scales)
+        res = dccl_lookup_all_levels_plain(vols_A, vols_B, cen_A, cen_B,
+                                           grid_A, grid_B, scales)
+        return res if out is None else tuple(
+            _into(out, lvl * NTAP, r) for lvl, r in enumerate(res))
     if not 1 <= L <= MAX_LEVELS or len(vols_B) != L or len(scales) != L:
         raise ValueError(f"dccl_lookup_all_levels: 1 to {MAX_LEVELS} levels "
                          f"of volume pairs and scales, got {len(vols_A)}, "
                          f"{len(vols_B)} and {len(scales)}")
     for vA, vB in zip(vols_A, vols_B):
-        _check_common("dccl_lookup_all_levels",
-                      (vA, vB, cen_A, cen_B, grid_A, grid_B), vA, vB,
-                      cen_A, cen_B)
+        _check_level("dccl_lookup_all_levels", vA, vB, cen_A, cen_B)
         if vA.dtype != vols_A[0].dtype:
             raise TypeError("dccl_lookup_all_levels: levels of mixed dtypes")
     _check_grids(grid_A, grid_B)
+    if grid_A.device != cen_A.device or grid_B.device != cen_A.device \
+            or not (grid_A.is_contiguous() and grid_B.is_contiguous()):
+        raise ValueError("dccl_lookup_all_levels: grids must be contiguous, "
+                         "on the centres' device")
     B, Q = cen_A.shape[:2]
     Hg, Wg, _ = grid_A.shape
-    outs = [_outputs(B, Q, cen_A.device) for _ in range(L)]
+    dev = cen_A.device
+    if out is None:
+        levels = [_targets(None, B, Q, NTAP, dev)[0] for _ in range(L)]
+        ld = NTAP
+    else:
+        arrays, ld = _targets(out, B, Q, L * NTAP, dev)
+        levels = [[o[..., lvl * NTAP:(lvl + 1) * NTAP] for o in arrays]
+                  for lvl in range(L)]
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
-    with torch.cuda.device(cen_A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _kernel("dccl_lookup_all_levels")(
-            L, ptrs(vols_A), ptrs(vols_B),
-            int(vols_A[0].dtype == torch.bfloat16),
-            cen_A.data_ptr(), cen_B.data_ptr(),
-            grid_A.data_ptr(), grid_B.data_ptr(),
-            ptrs([o for lv in outs for o in lv]), B * Q,
-            (ctypes.c_int * L)(*(v.shape[2] for v in vols_A)),
-            (ctypes.c_int * L)(*(v.shape[3] for v in vols_A)),
-            (ctypes.c_float * L)(*(float(s) for s in scales)),
-            Hg, Wg, stream)
-    _build.check(status, "dccl_lookup_all_levels")
+    ENTRIES.launch("dccl_lookup_all_levels", dev,
+                   L, ptrs(vols_A), ptrs(vols_B),
+                   int(vols_A[0].dtype == torch.bfloat16),
+                   cen_A.data_ptr(), cen_B.data_ptr(),
+                   grid_A.data_ptr(), grid_B.data_ptr(),
+                   ptrs([o for lv in levels for o in lv]), ld, B * Q,
+                   (ctypes.c_int * L)(*(v.shape[2] for v in vols_A)),
+                   (ctypes.c_int * L)(*(v.shape[3] for v in vols_A)),
+                   (ctypes.c_float * L)(*(float(s) for s in scales)),
+                   Hg, Wg)
     dccl_lookup_all_levels.launches += 1
-    return tuple(tuple(lv) for lv in outs)
+    return tuple(tuple(lv) for lv in levels)
 
 
 dccl_lookup_all_levels.launches = 0
@@ -260,25 +299,21 @@ def dccl_level_lookup_coords(vol_A, vol_B, cen_A, cen_B, scale: float,
         return dccl_level_lookup_coords_plain(vol_A, vol_B, cen_A, cen_B,
                                               scale, cxA, cyA, cxB, cyB)
     coords = (cxA, cyA, cxB, cyB)
-    _check_common("dccl_level_lookup_coords",
-                  (vol_A, vol_B, cen_A, cen_B) + coords,
-                  vol_A, vol_B, cen_A, cen_B)
+    _check_level("dccl_level_lookup_coords", vol_A, vol_B, cen_A, cen_B,
+                 coords)
     B, Q, Hl, Wl = vol_A.shape
     for c in coords:
         if c.shape != (B, Q, NTAP) or c.dtype != torch.float32:
             raise ValueError(f"cross coords must be ({B}, {Q}, {NTAP}) "
                              f"float32, got {tuple(c.shape)} {c.dtype}")
-    outs = _outputs(B, Q, vol_A.device)
-    with torch.cuda.device(vol_A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _kernel("dccl_level_lookup_coords")(
-            vol_A.data_ptr(), vol_B.data_ptr(),
-            int(vol_A.dtype == torch.bfloat16),
-            cen_A.data_ptr(), cen_B.data_ptr(),
-            *(c.data_ptr() for c in coords),
-            *(o.data_ptr() for o in outs),
-            B * Q, Hl, Wl, float(scale), stream)
-    _build.check(status, "dccl_level_lookup_coords")
+    outs, _ = _targets(None, B, Q, NTAP, vol_A.device)
+    ENTRIES.launch("dccl_level_lookup_coords", vol_A.device,
+                   vol_A.data_ptr(), vol_B.data_ptr(),
+                   int(vol_A.dtype == torch.bfloat16),
+                   cen_A.data_ptr(), cen_B.data_ptr(),
+                   *(c.data_ptr() for c in coords),
+                   *(o.data_ptr() for o in outs),
+                   B * Q, Hl, Wl, float(scale))
     dccl_level_lookup_coords.launches += 1
     return tuple(outs)
 

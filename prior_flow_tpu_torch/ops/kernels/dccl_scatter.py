@@ -1,19 +1,27 @@
 """DCCL volume scatter: the transpose of the level lookup for one volume,
-summed over S stacked iterations. The CUDA kernel's wrapper and its plain
-PyTorch version.
+summed over S stacked iterations. The CUDA kernel's two entries' wrappers
+and their plain PyTorch versions.
 
 Counterpart of the one-hot einsum backward of
 ``prior_flow_tpu/ops/pallas/dccl_gather.py``: ``_scatter_own_cross`` (S = 1,
 the lookup's VJP) and ``_scatter_grads_window_multi`` +
 ``_scatter_grads_multi`` (S = iters, the taped backward). Kernel source
-``prior_flow_tpu_torch/csrc/dccl_scatter.cu``: f32 atomics into a zeroed
-f32 buffer, cast once to the volume's dtype.
+``prior_flow_tpu_torch/csrc/dccl_scatter.cu``: one block per query plane,
+summed in shared memory and written once in the volume's dtype.
 
-Every corner rule is the exact transpose of the port's own sampler, so the
-result equals ``torch.autograd`` of ``dccl_level_lookup_plain``. One rule
-differs from the JAX backward: an x that wraps to exactly W contributes
-zero here (the port's forward samples zero there), where ``_one_hot_pair``
-clips it to column W-1 (ROADMAP Queue 3).
+- ``dccl_level_scatter_grid``: the cross taps' coords are the other
+  branch's grid window (``grid_window_coords``), computed in the kernel;
+  the backward of the grid route and of the taped step.
+- ``dccl_level_scatter``: the cross taps at given coords; the backward of
+  the planes route.
+
+The cotangents may be a level's column slice of (S, B, Q, L*81) arrays:
+the kernel reads them at their row stride. Every corner rule is the exact
+transpose of the port's own sampler, so the result equals
+``torch.autograd`` of ``dccl_level_lookup_plain``. One rule differs from the
+JAX backward: an x that wraps to exactly W contributes zero here (the
+port's forward samples zero there), where ``_one_hot_pair`` clips it to
+column W-1 (ROADMAP Queue 3).
 
 A tensor on the CPU goes through the plain version; a CUDA tensor launches
 the kernel or raises.
@@ -26,7 +34,8 @@ import ctypes
 import torch
 
 from . import _build
-from .dccl_lookup import NTAP, RADIUS, window_delta
+from .dccl_lookup import (NTAP, RADIUS, _device_or_plain, grid_window_coords,
+                          window_delta)
 
 
 def _corners(x, y, H: int, W: int):
@@ -73,60 +82,124 @@ def dccl_level_scatter_plain(g_own, cen, scale: float, g_cross, cx, cy,
     return out.reshape(B, Q, Hl, Wl).to(dtype)
 
 
-def _kernel():
-    fn = _build.load_library().lib.dccl_level_scatter
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
-    fn.restype = ctypes.c_int
-    return fn
+def dccl_level_scatter_grid_plain(g_own, cen, g_cross, cen_other, grid,
+                                  scale: float, Hl: int, Wl: int,
+                                  dtype=torch.float32):
+    """The grid entry's plain version: the other branch's cross tap coords
+    (``grid_window_coords`` of ``grid`` at ``cen_other``), then
+    ``dccl_level_scatter_plain``. cen_other: (S, B, Q, 2) f32; grid:
+    (Hg, Wg, 2) f32; the rest as ``dccl_level_scatter_plain``."""
+    cx, cy = grid_window_coords(cen_other, grid, scale)
+    return dccl_level_scatter_plain(g_own, cen, scale, g_cross, cx, cy, Hl,
+                                    Wl, dtype)
 
 
-def _check_inputs(g_own, cen, g_cross, cx, cy, dtype):
-    tensors = (g_own, cen, g_cross, cx, cy)
-    if any(t.device != g_own.device for t in tensors):
-        raise ValueError("dccl_level_scatter: inputs on different devices")
+_p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
+ENTRIES = _build.Entries({
+    "dccl_level_scatter_grid": [_p, _ll, _p, _p, _ll, _p, _p, _i, _i, _p, _i,
+                                _i, _ll, _i, _i, _f, _p],
+    "dccl_level_scatter": [_p, _ll, _p, _p, _ll, _p, _p, _p, _i, _i, _ll, _i,
+                           _i, _f, _p],
+})
+
+
+def _row_stride(name, t, shape) -> int:
+    """The row stride of an (S, B, Q, 81) f32 array read as S*B*Q rows: a
+    level's column slice of (S, B, Q, C) arrays, or a contiguous array."""
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {tuple(shape)} float32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    S, B, Q, _ = shape
+    ld = t.stride(2)
+    if t.stride(3) != 1 or t.stride(1) != Q * ld or t.stride(0) != B * Q * ld \
+            or ld < NTAP:
+        raise ValueError(f"{name}: rows must have unit column stride and one "
+                         f"row stride, got strides {t.stride()}")
+    return ld
+
+
+def _check_inputs(name, g_own, g_cross, centres, others, dtype):
+    """Devices, shapes and layouts in one pass; returns the cotangents' row
+    strides."""
+    dev = g_own.device
     if g_own.dim() != 4 or g_own.shape[-1] != NTAP:
         raise ValueError(f"tap cotangents must be (S, B, Q, {NTAP}), got "
                          f"{tuple(g_own.shape)}")
-    for t in (g_cross, cx, cy):
-        if t.shape != g_own.shape:
-            raise ValueError(f"g_cross, cx and cy must match g_own "
-                             f"{tuple(g_own.shape)}, got {tuple(t.shape)}")
-    if cen.shape != g_own.shape[:3] + (2,):
-        raise ValueError(f"centres must be {tuple(g_own.shape[:3]) + (2,)}, "
-                         f"got {tuple(cen.shape)}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("dccl_level_scatter: inputs must be float32")
+    cen_shape = tuple(g_own.shape[:3]) + (2,)
+    for t in (g_cross, *centres, *others):
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs on different devices")
+    for t in centres:
+        if tuple(t.shape) != cen_shape or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: centres must be contiguous {cen_shape} "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"output dtype must be float32 or bfloat16, got "
                         f"{dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("dccl_level_scatter: inputs must be contiguous")
+    return (_row_stride(name, g_own, g_own.shape),
+            _row_stride(name, g_cross, g_own.shape))
+
+
+def dccl_level_scatter_grid(g_own, cen, g_cross, cen_other, grid,
+                            scale: float, Hl: int, Wl: int,
+                            dtype=torch.float32):
+    """One volume's cotangent at one level, summed over S iterations, the
+    cross taps' coords computed from ``grid`` at ``cen_other``; same
+    arguments and result as ``dccl_level_scatter_grid_plain``."""
+    dev = g_own.device
+    if _device_or_plain("dccl_level_scatter_grid", g_own):
+        return dccl_level_scatter_grid_plain(g_own, cen, g_cross, cen_other,
+                                             grid, scale, Hl, Wl, dtype)
+    ld_own, ld_cross = _check_inputs("dccl_level_scatter_grid", g_own,
+                                     g_cross, (cen, cen_other), (grid,),
+                                     dtype)
+    if grid.dim() != 3 or grid.shape[2] != 2 or grid.dtype != torch.float32 \
+            or not grid.is_contiguous():
+        raise ValueError(f"grid must be contiguous (Hg, Wg, 2) float32, got "
+                         f"{tuple(grid.shape)} {grid.dtype}")
+    S, B, Q, _ = g_own.shape
+    dv = torch.empty((B, Q, Hl, Wl), dtype=dtype, device=dev)
+    ENTRIES.launch("dccl_level_scatter_grid", dev,
+                   g_own.data_ptr(), ld_own, cen.data_ptr(),
+                   g_cross.data_ptr(), ld_cross, cen_other.data_ptr(),
+                   grid.data_ptr(), grid.shape[0], grid.shape[1],
+                   dv.data_ptr(), int(dtype == torch.bfloat16), S, B * Q, Hl,
+                   Wl, float(scale))
+    dccl_level_scatter_grid.launches += 1
+    return dv
+
+
+dccl_level_scatter_grid.launches = 0
 
 
 def dccl_level_scatter(g_own, cen, scale: float, g_cross, cx, cy,
                        Hl: int, Wl: int, dtype=torch.float32):
-    """One volume's cotangent at one level, summed over S iterations; same
-    arguments and result as ``dccl_level_scatter_plain``."""
+    """One volume's cotangent at one level, summed over S iterations, the
+    cross taps at given coords (contiguous); same arguments and result as
+    ``dccl_level_scatter_plain``."""
     dev = g_own.device
-    if dev.type == "cpu":
+    if _device_or_plain("dccl_level_scatter", g_own):
         return dccl_level_scatter_plain(g_own, cen, scale, g_cross, cx, cy,
                                         Hl, Wl, dtype)
-    if dev.type != "cuda":
-        raise RuntimeError(f"dccl_level_scatter: no kernel for device {dev}")
-    _check_inputs(g_own, cen, g_cross, cx, cy, dtype)
+    ld_own, ld_cross = _check_inputs("dccl_level_scatter", g_own, g_cross,
+                                     (cen,), (cx, cy), dtype)
+    for c in (cx, cy):
+        if c.shape != g_own.shape or c.dtype != torch.float32 \
+                or not c.is_contiguous():
+            raise ValueError(f"cx and cy must be contiguous "
+                             f"{tuple(g_own.shape)} float32, got "
+                             f"{tuple(c.shape)} {c.dtype}")
     S, B, Q, _ = g_own.shape
-    dv = torch.zeros((B, Q, Hl, Wl), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _kernel()(g_own.data_ptr(), g_cross.data_ptr(),
-                           cen.data_ptr(), cx.data_ptr(), cy.data_ptr(),
-                           dv.data_ptr(), S, B * Q, Hl, Wl, float(scale),
-                           stream)
-    _build.check(status, "dccl_level_scatter")
+    dv = torch.empty((B, Q, Hl, Wl), dtype=dtype, device=dev)
+    ENTRIES.launch("dccl_level_scatter", dev,
+                   g_own.data_ptr(), ld_own, cen.data_ptr(),
+                   g_cross.data_ptr(), ld_cross, cx.data_ptr(), cy.data_ptr(),
+                   dv.data_ptr(), int(dtype == torch.bfloat16), S, B * Q, Hl,
+                   Wl, float(scale))
     dccl_level_scatter.launches += 1
-    return dv if dtype == torch.float32 else dv.to(dtype)
+    return dv
 
 
 dccl_level_scatter.launches = 0

@@ -5,16 +5,14 @@ Counterparts of the JAX package's ``tools/microbench_kernel_split.py``
 kernels ``_own_only_kernel``, ``_gridwin_only_kernel`` and
 ``_cross_only_kernel`` (via ``_variant_call``). Each stage is the part of
 ``dccl_lookup.dccl_level_lookup`` (kernel 1) that it names, both branches,
-one level:
+one level, run by kernel 1's column body with the other stages compiled
+out (``csrc/dccl_stages.cu``):
 
-- ``dccl_own_only``: the own 9x9 window taps, (own_A, own_B)
-  (``csrc/dccl_stages.cu``);
+- ``dccl_own_only``: the own 9x9 window taps, (own_A, own_B);
 - ``dccl_gridwin_only``: the cross tap coords, (cAx, cAy, cBx, cBy), the
-  rotation grids sampled at the level-scaled windows: the pair kernel of
-  ``csrc/gridwin_variants.cu`` (``gridwin_variants.gridwin_pair``'s),
-  launched and counted here;
+  rotation grids sampled at the level-scaled windows;
 - ``dccl_cross_only``: the grid window and the cross taps in the other
-  branch's volume, (cross_A, cross_B) (``csrc/dccl_stages.cu``).
+  branch's volume, (cross_A, cross_B).
 
 They take kernel 1's arguments and give its bits: own and cross its own and
 cross outputs, the grid window the coords kernel's coords. A tensor on the
@@ -29,12 +27,12 @@ import ctypes
 import torch
 
 from . import _build
-from .dccl_lookup import (NTAP, RADIUS, _check_common, _check_grids,
+from .dccl_lookup import (NTAP, RADIUS, _check_grids, _check_level,
                           _device_or_plain, grid_window_coords,
                           sample_volume_level, window_delta)
-from .gridwin_variants import launch_pair
 
-STAGES = {"own": 0, "cross": 1}
+# the entry's stage number and output count of each stage
+STAGES = {"own": (0, 2), "cross": (1, 2), "gridwin": (2, 4)}
 
 
 def dccl_own_only_plain(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B,
@@ -71,12 +69,10 @@ PLAIN = {"own": dccl_own_only_plain, "gridwin": dccl_gridwin_only_plain,
          "cross": dccl_cross_only_plain}
 
 
-def _kernel():
-    fn = _build.load_library().lib.dccl_stage
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [i, p, p, i, p, p, p, p, p, p, i, i, i, i, i, f, p]
-    fn.restype = i
-    return fn
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ENTRIES = _build.Entries({"dccl_stage": [_i, _p, _p, _i, _p, _p, _p, _p, _p,
+                                         _p, _p, _p, _i, _i, _i, _i, _i, _f,
+                                         _p]})
 
 
 def _stage(stage: str, wrapper, vol_A, vol_B, cen_A, cen_B, grid_A, grid_B,
@@ -84,27 +80,19 @@ def _stage(stage: str, wrapper, vol_A, vol_B, cen_A, cen_B, grid_A, grid_B,
     name = wrapper.__name__
     if _device_or_plain(name, vol_A):
         return PLAIN[stage](vol_A, vol_B, cen_A, cen_B, grid_A, grid_B, scale)
-    _check_common(name, (vol_A, vol_B, cen_A, cen_B, grid_A, grid_B),
-                  vol_A, vol_B, cen_A, cen_B)
+    _check_level(name, vol_A, vol_B, cen_A, cen_B, (grid_A, grid_B))
     _check_grids(grid_A, grid_B)
     B, Q, Hl, Wl = vol_A.shape
-    if stage == "gridwin":
-        outs = launch_pair(name, cen_A.reshape(B * Q, 2),
-                           cen_B.reshape(B * Q, 2), grid_A, grid_B, scale)
-        wrapper.launches += 1
-        return tuple(o.view(B, Q, NTAP) for o in outs)
     Hg, Wg, _ = grid_A.shape
-    outs = [torch.empty((B, Q, NTAP), dtype=torch.float32,
-                        device=vol_A.device) for _ in range(2)]
-    with torch.cuda.device(vol_A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _kernel()(STAGES[stage], vol_A.data_ptr(), vol_B.data_ptr(),
-                           int(vol_A.dtype == torch.bfloat16),
-                           cen_A.data_ptr(), cen_B.data_ptr(),
-                           grid_A.data_ptr(), grid_B.data_ptr(),
-                           *(o.data_ptr() for o in outs), B * Q, Hl, Wl, Hg,
-                           Wg, float(scale), stream)
-    _build.check(status, name)
+    number, n_out = STAGES[stage]
+    outs = torch.empty((n_out, B, Q, NTAP), dtype=torch.float32,
+                       device=vol_A.device).unbind(0)
+    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - n_out)
+    ENTRIES.launch("dccl_stage", vol_A.device, number, vol_A.data_ptr(),
+                   vol_B.data_ptr(), int(vol_A.dtype == torch.bfloat16),
+                   cen_A.data_ptr(), cen_B.data_ptr(), grid_A.data_ptr(),
+                   grid_B.data_ptr(), *ptrs, B * Q, Hl, Wl, Hg, Wg,
+                   float(scale))
     wrapper.launches += 1
     return tuple(outs)
 
@@ -118,8 +106,8 @@ def dccl_own_only(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B, scale: float):
 
 def dccl_gridwin_only(vol_A, vol_B, cen_A, cen_B, grid_A, grid_B,
                       scale: float):
-    """Kernel 1's grid-window stage alone, by the pair kernel; arguments
-    as ``dccl_level_lookup``, results as ``dccl_gridwin_only_plain``."""
+    """Kernel 1's grid-window stage alone; arguments as
+    ``dccl_level_lookup``, results as ``dccl_gridwin_only_plain``."""
     return _stage("gridwin", dccl_gridwin_only, vol_A, vol_B, cen_A, cen_B,
                   grid_A, grid_B, scale)
 

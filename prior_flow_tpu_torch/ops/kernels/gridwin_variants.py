@@ -77,7 +77,7 @@ def _kernel(name: str):
     return fn
 
 
-def _launch(name, lead, cen_A, cen_B, grid_A, grid_B, scale, entry=None):
+def _launch(name, lead, cen_A, cen_B, grid_A, grid_B, scale):
     _check(name, cen_A, cen_B, grid_A, grid_B)
     N = cen_A.shape[0]
     Hg, Wg, _ = grid_A.shape
@@ -85,11 +85,10 @@ def _launch(name, lead, cen_A, cen_B, grid_A, grid_B, scale, entry=None):
             for _ in range(4)]
     with torch.cuda.device(cen_A.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = _kernel(entry or name)(*lead, cen_A.data_ptr(),
-                                        cen_B.data_ptr(),
-                                        grid_A.data_ptr(), grid_B.data_ptr(),
-                                        *(o.data_ptr() for o in outs), N, Hg,
-                                        Wg, float(scale), stream)
+        status = _kernel(name)(*lead, cen_A.data_ptr(), cen_B.data_ptr(),
+                               grid_A.data_ptr(), grid_B.data_ptr(),
+                               *(o.data_ptr() for o in outs), N, Hg, Wg,
+                               float(scale), stream)
     _build.check(status, name)
     return tuple(outs)
 
@@ -122,19 +121,12 @@ def gridwin_variant(cen, grid_A, grid_B, scale: float,
 gridwin_variant.launches = 0
 
 
-def launch_pair(name: str, cen_A, cen_B, grid_A, grid_B, scale: float):
-    """One launch of the pair kernel on CUDA tensors, checked and reported
-    under ``name``; counts no launch (the caller's wrapper does)."""
-    return _launch(name, (), cen_A, cen_B, grid_A, grid_B, scale,
-                   entry="gridwin_pair")
-
-
 def gridwin_pair(cen_A, cen_B, grid_A, grid_B, scale: float):
     """Both branches' cross tap coords in one launch; same arguments and
     results as ``gridwin_pair_plain``."""
     if _device_or_plain("gridwin_pair", cen_A):
         return gridwin_pair_plain(cen_A, cen_B, grid_A, grid_B, scale)
-    outs = launch_pair("gridwin_pair", cen_A, cen_B, grid_A, grid_B, scale)
+    outs = _launch("gridwin_pair", (), cen_A, cen_B, grid_A, grid_B, scale)
     gridwin_pair.launches += 1
     return outs
 

@@ -13,7 +13,8 @@ level launch:
 
 Per level this tool runs kernel 1 (``grid_full``), the lookup at given
 coords at random in-range coords (``planes``) and each stage alone
-(``dccl_stages``), at 512x1024, batch 1 (Q = 8192), f32 and bf16 volumes:
+(``dccl_stages``: kernel 1's column body with the other stages compiled
+out), at 512x1024, batch 1 (Q = 8192), f32 and bf16 volumes:
 two different random normal volumes, centres on the 1/8 identity grid plus
 a random fraction. It first gates the stages: own and cross bitwise equal
 to kernel 1's own and cross outputs, the grid window bitwise equal to two

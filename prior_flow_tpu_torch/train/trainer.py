@@ -6,7 +6,7 @@
   and the AdamW step (``trainer.py:197-268``).
 - ``grad_mode='standard'``: ``loss.backward()`` through the training
   forward; every iteration's lookup backward scatters into the pyramid
-  (``ops/corr.py::DCCLLevelLookup``).
+  (``ops/corr.py::DCCLAllLevelsLookup``).
 - ``grad_mode='taped'``: ``taped_value_and_grad``, one forward whose
   lookups are primal-only, then ONE stacked scatter per level and volume
   over all iterations (``trainer.py:68-194``). The lookup is linear in the
@@ -29,8 +29,7 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 
 from ..models import build_model
-from ..ops.kernels.dccl_coords import dccl_grid_coords
-from ..ops.kernels.dccl_scatter import dccl_level_scatter
+from ..ops.kernels.dccl_scatter import dccl_level_scatter_grid
 from ..ops.static_resample import resample_static_transpose
 from ..ops.warp import flo_a2b
 from .loss import uniform_sequence_loss
@@ -61,9 +60,11 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
     from the fmap leaves, with graph; (c) the GRU loop with record lookups
     on the detached pyramids, each iteration's summed field a leaf, and
     ``backward`` of the loss; (d) the stacked field cotangents, the
-    transposed back-rotation for their cross part, then per level and branch
-    ONE coords launch and per level and volume ONE scatter with S = iters
-    (``dccl_gather.py::_rebind_bwd``); (e) backward through the pyramid
+    transposed back-rotation for their cross part, then per level and
+    volume ONE grid-entry scatter with S = iters, which reads the level's
+    columns of the stacked cotangents in place and computes the other
+    branch's cross tap coords itself (``dccl_gather.py::_rebind_bwd``); (e)
+    backward through the pyramid
     build, then through the encoder with the leaves' gradients.
     """
     B, H, W, _ = image1.shape
@@ -100,17 +101,14 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
         for lvl, (vA, vB) in enumerate(zip(pyr_A, pyr_B)):
             s = 1.0 / 2.0 ** lvl
             sl = slice(lvl * 81, (lvl + 1) * 81)
-            cxA, cyA = (c.reshape(S, B, Q, 81) for c in dccl_grid_coords(
-                cen_A.reshape(-1, 2), g.a2b_w2c_8, s))
-            cxB, cyB = (c.reshape(S, B, Q, 81) for c in dccl_grid_coords(
-                cen_B.reshape(-1, 2), g.b2a_w2c_8, s))
             Hl, Wl = vA.shape[2:]
-            part = lambda t: t[..., sl].contiguous()
             d_pyr.append((
-                dccl_level_scatter(part(gA_own), cen_A, s, part(gB_cross),
-                                   cxB, cyB, Hl, Wl, vA.dtype),
-                dccl_level_scatter(part(gB_own), cen_B, s, part(gA_cross),
-                                   cxA, cyA, Hl, Wl, vB.dtype)))
+                dccl_level_scatter_grid(gA_own[..., sl], cen_A,
+                                        gB_cross[..., sl], cen_B, g.b2a_w2c_8,
+                                        s, Hl, Wl, vA.dtype),
+                dccl_level_scatter_grid(gB_own[..., sl], cen_B,
+                                        gA_cross[..., sl], cen_A, g.a2b_w2c_8,
+                                        s, Hl, Wl, vB.dtype)))
 
     torch.autograd.backward([*pyr_A, *pyr_B],                     # (e)
                             [d[0] for d in d_pyr] + [d[1] for d in d_pyr])

@@ -224,7 +224,7 @@ def test_train_step_on_card_matches_cpu(dev, grad_mode):
     assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
     per = 16 if grad_mode == "standard" else 8
     want = _counts(dccl_level_lookup=8, instance_norm_sums=30,
-                   dccl_grid_coords=per, dccl_level_scatter=per)
+                   dccl_level_scatter_grid=per)
     assert counts == want, counts
     total = torch.sqrt(sum((t ** 2).sum() for t in g_cpu.values()))
     for n, ref in g_cpu.items():
@@ -322,9 +322,10 @@ def test_all_levels_kernel_is_bitwise_per_level(dev, dtype, B):
 @pytest.mark.parametrize("fn", ["coords", "all_levels"])
 def test_new_functions_gradient_on_card_matches_plain_autograd(dev, fn):
     """The volumes' gradients through ``DCCLLevelLookupCoords`` and
-    ``DCCLAllLevelsLookup`` (kernels forward and backward) against autograd
-    of the plain versions on the card: f32, 1e-5 of max|plain| (the
-    scatter's atomics reorder the sums)."""
+    ``DCCLAllLevelsLookup`` with one launch for all levels (kernels forward
+    and backward, the coords computed inside the grid-entry scatters)
+    against autograd of the plain versions on the card: f32, 1e-5 of
+    max|plain| (the scatter's shared-memory atomics reorder the sums)."""
     vols = [_level_inputs(dev, 2, 16, 32, lvl, torch.float32, seed=lvl)
             for lvl in range(4)]
     cA, cB, gA, gB = vols[0][2:]
@@ -344,8 +345,11 @@ def test_new_functions_gradient_on_card_matches_plain_autograd(dev, fn):
                 vA[lvl], vB[lvl], cA, cB, scales[lvl], *given[lvl])]
         elif function:
             outs = corr.DCCLAllLevelsLookup.apply(
-                cA, cB, gA, gB, scales,
+                cA, cB, gA, gB, scales, True,
                 *(v for pair in zip(vA, vB) for v in pair))
+            torch.autograd.backward(outs, [torch.cat(cts[j::4], -1)
+                                           for j in range(4)])
+            return [v.grad for v in vA + vB]
         else:
             outs = [o for lv in dccl_lookup.dccl_lookup_all_levels_plain(
                 vA, vB, cA, cB, gA, gB, scales) for o in lv]
@@ -361,10 +365,132 @@ def test_new_functions_gradient_on_card_matches_plain_autograd(dev, fn):
         assert counts["dccl_level_scatter"] == 8
     else:
         assert counts["dccl_lookup_all_levels"] == 1
-        assert counts["dccl_grid_coords"] == 8
-        assert counts["dccl_level_scatter"] == 8
+        assert counts["dccl_grid_coords"] == 0
+        assert counts["dccl_level_scatter_grid"] == 8
     for a, b in zip(got, ref):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item() + 1e-6
+
+
+# -- the redesigned kernel 1 and the shared-memory scatter -------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 4])
+def test_kernel_1_is_bitwise_row_3_at_the_coords_kernels_coords(dev, dtype,
+                                                                  B):
+    """Kernel 1's column body against row 3 (the lookup at given coords,
+    which keeps the one-thread-per-tap body) fed the coords kernel's
+    coords, at every level of a 128x256 input (64x128 planes at level 0,
+    a 512x1024 forward's): bitwise, so the column body gives the old bits.
+    Also written into columns of wider arrays: the same bits."""
+    for lvl in range(4):
+        vA, vB, cA, cB, gA, gB = _level_inputs(dev, B, 16, 32, lvl, dtype,
+                                               seed=lvl)
+        s = 1.0 / 2 ** lvl
+        with torch.no_grad():
+            given = [c.reshape(*cA.shape[:2], 81) for cen, grid in
+                     ((cA, gA), (cB, gB))
+                     for c in dccl_coords.dccl_grid_coords(
+                         cen.reshape(-1, 2), grid, s)]
+            got = dccl_lookup.dccl_level_lookup(vA, vB, cA, cB, gA, gB, s)
+            ref = dccl_lookup.dccl_level_lookup_coords(vA, vB, cA, cB, s,
+                                                       *given)
+            out = [torch.zeros(*cA.shape[:2], 3 * 81, device=dev)
+                   for _ in range(4)]
+            cols = dccl_lookup.dccl_level_lookup(vA, vB, cA, cB, gA, gB, s,
+                                                 out=out, col=162)
+            torch.cuda.synchronize()
+        for o, r, c in zip(got, ref, cols):
+            assert torch.equal(o, r) and torch.equal(c, r)
+        assert all(bool((o[..., :162] == 0).all()) for o in out)
+
+
+def _scatter_case(dev, S, B, Q, Hl, Wl, seed):
+    g = torch.Generator().manual_seed(seed)
+    g_own = torch.randn(S, B, Q, 81, generator=g)
+    g_cross = torch.randn(S, B, Q, 81, generator=g)
+    cen, other = (torch.stack(
+        [torch.rand(S, B, Q, generator=g) * (2 * Wl + 8) - 4,
+         torch.rand(S, B, Q, generator=g) * (2 * Hl + 8) - 4], -1)
+        for _ in range(2))
+    other[0, 0, :3] = torch.tensor([[-1e-8, 1.0], [Wl - 1, 0.0],
+                                    [Wl - 0.5, Hl - 1]])
+    return [t.to(dev).contiguous() for t in (g_own, cen, g_cross, other)]
+
+
+def _close_to_plain(got, ref, dtype):
+    """Shared-memory atomics sum in another order: f32 to 1e-5 of the
+    largest value; a bf16 value may round one step apart."""
+    assert got.dtype == ref.dtype == dtype
+    got, ref = got.float(), ref.float()
+    tol = 1e-5 * ref.abs().max() + 1e-6
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ref.abs()
+    assert bool(((got - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 3])
+def test_scatter_grid_entry_matches_plain_and_the_given_coords_entry(
+        dev, dtype, S):
+    """The grid entry against its plain version, and against the
+    given-coords entry fed the coords kernel's coords, from a level slice
+    of wider cotangents."""
+    Hl, Wl, scale = 16, 32, 0.5
+    g_own, cen, g_cross, other = _scatter_case(dev, S, 2, 64, Hl, Wl, S)
+    grid = rotation_grids(128, 256).to_device(dev).b2a_w2c_8
+    wide = torch.zeros(2, S, 2, 64, 3 * 81, device=dev)
+    wide[0, ..., 81:162], wide[1, ..., 81:162] = g_own, g_cross
+    n0 = dccl_scatter.dccl_level_scatter_grid.launches
+    got = dccl_scatter.dccl_level_scatter_grid(
+        wide[0, ..., 81:162], cen, wide[1, ..., 81:162], other, grid, scale,
+        Hl, Wl, dtype)
+    torch.cuda.synchronize()
+    assert dccl_scatter.dccl_level_scatter_grid.launches == n0 + 1
+    ref = dccl_scatter.dccl_level_scatter_grid_plain(
+        g_own, cen, g_cross, other, grid, scale, Hl, Wl, dtype)
+    _close_to_plain(got, ref, dtype)
+    cx, cy = (c.reshape(g_own.shape) for c in dccl_coords.dccl_grid_coords(
+        other.reshape(-1, 2), grid, scale))
+    given = dccl_scatter.dccl_level_scatter(g_own, cen, scale, g_cross, cx,
+                                            cy, Hl, Wl, dtype)
+    _close_to_plain(got, given, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_plane_above_the_shared_memory_budget(dev, dtype):
+    """A 128x256 f32 plane (128 KB, level 0 of a 1024x2048 input) is
+    summed in row bands; both entries against their plain versions."""
+    Hl, Wl, scale = 128, 256, 1.0
+    g_own, cen, g_cross, other = _scatter_case(dev, 2, 1, 48, Hl, Wl, 7)
+    grid = rotation_grids(1024, 2048).to_device(dev).a2b_w2c_8
+    got = dccl_scatter.dccl_level_scatter_grid(g_own, cen, g_cross, other,
+                                               grid, scale, Hl, Wl, dtype)
+    ref = dccl_scatter.dccl_level_scatter_grid_plain(
+        g_own, cen, g_cross, other, grid, scale, Hl, Wl, dtype)
+    _close_to_plain(got, ref, dtype)
+    cx = other[..., :1].expand(g_own.shape) + torch.arange(
+        81, device=dev) * 3.0 - 120.0
+    cy = other[..., 1:].expand(g_own.shape) * 0.5 + torch.arange(
+        81, device=dev) * 1.5
+    cx, cy = cx.contiguous(), cy.contiguous()
+    got = dccl_scatter.dccl_level_scatter(g_own, cen, scale, g_cross, cx, cy,
+                                          Hl, Wl, dtype)
+    ref = dccl_scatter.dccl_level_scatter_plain(g_own, cen, scale, g_cross, cx,
+                                                cy, Hl, Wl, dtype)
+    _close_to_plain(got, ref, dtype)
+
+
+def test_scatter_refuses_bad_inputs(dev):
+    g_own, cen, g_cross, other = _scatter_case(dev, 1, 1, 8, 4, 8, 1)
+    grid = rotation_grids(32, 64).to_device(dev).a2b_w2c_8
+    entry = dccl_scatter.dccl_level_scatter_grid
+    with pytest.raises(ValueError):   # a column stride of 2
+        entry(torch.zeros(1, 1, 8, 162, device=dev)[..., ::2], cen, g_cross,
+              other, grid, 1.0, 4, 8)
+    with pytest.raises(ValueError):
+        entry(g_own, cen[..., :1], g_cross, other, grid, 1.0, 4, 8)
+    with pytest.raises(TypeError):
+        entry(g_own, cen, g_cross, other, grid, 1.0, 4, 8, torch.float16)
 
 
 # -- the measurement tools' kernels ------------------------------------------------

@@ -442,12 +442,12 @@ def test_scatter_zero_where_x_wraps_to_width():
 
 
 def test_dccl_fused_gradient_matches_autograd_of_plain(rng):
-    """DCCLFused's kernel path (its autograd Function, whose backward runs
-    the coords and scatter wrappers: their plain versions on the CPU)
-    gives the volumes the same gradient as autograd of the plain gathers.
-    With bf16 pyramids the Function accumulates in f32 and rounds once, so
-    it is held to the f32 gradient of the same (bf16-valued) volumes within
-    half a bf16 step."""
+    """DCCLFused's default route (``DCCLAllLevelsLookup``, whose backward
+    runs the grid-entry scatter wrapper: its plain version on the CPU)
+    gives the volumes the same gradient as autograd of the plain gathers
+    injected through ``level_lookup``. With bf16 pyramids the Function
+    accumulates in f32 and rounds once, so it is held to the f32 gradient
+    of the same (bf16-valued) volumes within half a bf16 step."""
     pyr_A, pyr_B, cA, cB = _dccl_inputs(rng)
     g = rotation_grids(64, 128).to_device("cpu")
     cts = [T(rng.normal(size=(2, 8, 16, 324)).astype(np.float32))
@@ -456,19 +456,17 @@ def test_dccl_fused_gradient_matches_autograd_of_plain(rng):
     def grads(lookup, dtype):
         vA = [p.detach().to(dtype).clone().requires_grad_() for p in pyr_A]
         vB = [p.detach().to(dtype).clone().requires_grad_() for p in pyr_B]
-        outs = corr.DCCLFused(4, 4, level_lookup=lookup)(
+        outs = corr.DCCLFused(4, 4, level_lookup=lookup, fuse_levels=False)(
             T(cA), T(cB), vA, vB, g.a2b_w2c_8, g.b2a_w2c_8, g.a2b_8, g.b2a_8)
         torch.autograd.backward(outs, cts)
         return [v.grad for v in vA + vB]
 
-    for a, b in zip(grads(corr.DCCLLevelLookup.apply,
-                          torch.float32),
+    for a, b in zip(grads(None, torch.float32),
                     grads(corr.dccl_level_lookup_plain, torch.float32)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-5)
     pyr_A = [p.to(torch.bfloat16).float() for p in pyr_A]
     pyr_B = [p.to(torch.bfloat16).float() for p in pyr_B]
-    for a, b in zip(grads(corr.DCCLLevelLookup.apply,
-                          torch.bfloat16),
+    for a, b in zip(grads(None, torch.bfloat16),
                     grads(corr.dccl_level_lookup_plain, torch.float32)):
         assert a.dtype == torch.bfloat16
         np.testing.assert_allclose(a.float().numpy(), b.numpy(),
@@ -631,8 +629,8 @@ def test_dccl_routes_are_bitwise_the_grid_route(rng, route):
 @pytest.mark.parametrize("fn", ["coords", "all_levels"])
 def test_new_lookup_functions_gradient_matches_autograd_of_plain(rng, fn):
     """``DCCLLevelLookupCoords`` (backward: scatters at the saved given
-    coords) and ``DCCLAllLevelsLookup`` (backward: per level, coords
-    recomputed, then scatters) give the volumes the gradient autograd
+    coords) and ``DCCLAllLevelsLookup`` with all levels in one launch
+    (backward: per level, scatters that recompute the coords) give the volumes the gradient autograd
     takes through their plain versions, f32 to 1e-5; bf16 volumes within
     half a bf16 step of the f32 gradient of the same values."""
     pyr_A, pyr_B, cA, cB = _dccl_inputs(rng)
@@ -655,9 +653,14 @@ def test_new_lookup_functions_gradient_matches_autograd_of_plain(rng, fn):
                 given[2 * lvl][..., 0], given[2 * lvl][..., 1],
                 given[2 * lvl + 1][..., 0], given[2 * lvl + 1][..., 1])]
         elif function:
+            # the four (B, Q, 4*81) fields; their cotangents are the
+            # per-level ones concatenated
             outs = corr.DCCLAllLevelsLookup.apply(
-                cqA, cqB, g.a2b_w2c_8, g.b2a_w2c_8, scales,
+                cqA, cqB, g.a2b_w2c_8, g.b2a_w2c_8, scales, True,
                 *(v for pair in zip(vA, vB) for v in pair))
+            torch.autograd.backward(outs, [torch.cat(cts[j::4], -1)
+                                           for j in range(4)])
+            return [v.grad for v in vA + vB]
         else:
             outs = [o for lv in dccl_lookup.dccl_lookup_all_levels_plain(
                 vA, vB, cqA, cqB, g.a2b_w2c_8, g.b2a_w2c_8, scales)
@@ -673,6 +676,140 @@ def test_new_lookup_functions_gradient_matches_autograd_of_plain(rng, fn):
         assert a.dtype == torch.bfloat16
         np.testing.assert_allclose(a.float().numpy(), b.numpy(),
                                    rtol=2.0 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_all_levels_function_is_per_level_plain_then_cat(rng, fuse):
+    """The grid route's Function (``DCCLAllLevelsLookup``, one launch per
+    level, or one for all with ``fuse``) writes each level into its columns
+    of four (B, Q, 4*81) fields: bitwise the per-level plain lookups
+    followed by ``torch.cat``, f32 and bf16 volumes; its gradients equal
+    autograd of ``dccl_level_lookup_plain`` (f32, 1e-5)."""
+    pyr_A, pyr_B, cA, cB = _dccl_inputs(rng)
+    g = rotation_grids(64, 128).to_device("cpu")
+    cqA, cqB = T(cA).reshape(2, 128, 2), T(cB).reshape(2, 128, 2)
+    scales = tuple(1.0 / 2 ** i for i in range(4))
+    gA, gB = g.a2b_w2c_8, g.b2a_w2c_8
+    for dtype in (torch.float32, torch.bfloat16):
+        vA = [p.to(dtype) for p in pyr_A]
+        vB = [p.to(dtype) for p in pyr_B]
+        got = corr.DCCLAllLevelsLookup.apply(
+            cqA, cqB, gA, gB, scales, fuse,
+            *(v for pair in zip(vA, vB) for v in pair))
+        ref = [dccl_lookup.dccl_level_lookup_plain(vA[i], vB[i], cqA, cqB, gA,
+                                                   gB, scales[i])
+               for i in range(4)]
+        for j, t in enumerate(got):
+            assert t.shape == (2, 128, 4 * 81)
+            assert torch.equal(t, torch.cat([r[j] for r in ref], -1))
+    cts = [T(rng.normal(size=(2, 128, 4 * 81)).astype(np.float32))
+           for _ in range(4)]
+
+    def grads(function):
+        vA = [p.detach().clone().requires_grad_() for p in pyr_A]
+        vB = [p.detach().clone().requires_grad_() for p in pyr_B]
+        if function:
+            outs = corr.DCCLAllLevelsLookup.apply(
+                cqA, cqB, gA, gB, scales, fuse,
+                *(v for pair in zip(vA, vB) for v in pair))
+        else:
+            outs = [torch.cat(f, -1) for f in zip(*(
+                dccl_lookup.dccl_level_lookup_plain(vA[i], vB[i], cqA, cqB,
+                                                    gA, gB, scales[i])
+                for i in range(4)))]
+        torch.autograd.backward(outs, cts)
+        return [v.grad for v in vA + vB]
+
+    for a, b in zip(grads(True), grads(False)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_level_lookup_writes_into_given_columns(rng):
+    """``dccl_level_lookup(..., out=, col=)`` fills columns col .. col + 80
+    of the four arrays, returns those columns and leaves the rest; the
+    card's target check takes a level slice's layout and refuses others."""
+    pyr_A, pyr_B, cA, cB = _dccl_inputs(rng)
+    g = rotation_grids(64, 128).to_device("cpu")
+    cqA, cqB = T(cA).reshape(2, 128, 2), T(cB).reshape(2, 128, 2)
+    args = (pyr_A[1], pyr_B[1], cqA, cqB, g.a2b_w2c_8, g.b2a_w2c_8, 0.5)
+    out = [torch.full((2, 128, 3 * 81), 7.0) for _ in range(4)]
+    views = dccl_lookup.dccl_level_lookup(*args, out=out, col=81)
+    for o, v, r in zip(out, views, dccl_lookup.dccl_level_lookup_plain(*args)):
+        assert torch.equal(v, r) and torch.equal(o[..., 81:162], r)
+        assert bool((o[..., :81] == 7.0).all() and (o[..., 162:] == 7.0).all())
+    arrays, ld = dccl_lookup._targets(out, 2, 128, 162, torch.device("cpu"))
+    assert ld == 3 * 81 and arrays == out
+    with pytest.raises(ValueError):
+        dccl_lookup._targets([o.transpose(0, 1) for o in out], 2, 128, 162,
+                             torch.device("cpu"))
+    with pytest.raises(ValueError):
+        dccl_lookup._targets(out, 2, 128, 4 * 81, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_level_scatter_grid_plain_is_coords_then_scatter(rng, S):
+    """The grid entry's plain version is bitwise ``grid_window_coords``
+    followed by ``dccl_level_scatter_plain``, and matches the JAX
+    backward's one-hot einsums (``_scatter_own_cross`` at S = 1, the
+    stacked ``_scatter_grads_*_multi`` at S = 3) fed those coords, f32 to
+    1e-5."""
+    from prior_flow_tpu.ops.pallas import dccl_gather as jdg
+    B, Q, Hl, Wl, scale = 2, 6, 8, 16, 0.5
+    g_own, cen, g_cross, _, _ = _scatter_inputs(rng, S, B, Q, Hl, Wl)
+    other = _centres(rng, S * B * Q, 8, 16).reshape(S, B, Q, 2)
+    grid = rotation_grids(64, 128).to_device("cpu").b2a_w2c_8
+    got = dccl_scatter.dccl_level_scatter_grid(T(g_own), T(cen), T(g_cross),
+                                               T(other), grid, scale, Hl, Wl)
+    cx, cy = dccl_lookup.grid_window_coords(T(other), grid, scale)
+    ref = dccl_scatter.dccl_level_scatter_plain(T(g_own), T(cen), scale,
+                                                T(g_cross), cx, cy, Hl, Wl)
+    assert got.shape == (B, Q, Hl, Wl) and torch.equal(got, ref)
+    j = jnp.asarray
+    cx, cy = cx.numpy(), cy.numpy()
+    if S == 1:
+        jref = jdg._scatter_own_cross(j(g_own[0]), j(cen[0]), scale,
+                                      j(g_cross[0]), j(cx[0]), j(cy[0]), Hl,
+                                      Wl, jnp.float32)
+    else:
+        jref = (jdg._scatter_grads_window_multi(j(g_own), j(cen), scale, Hl,
+                                                Wl, jnp.float32)
+                + jdg._scatter_grads_multi(j(g_cross), j(cx), j(cy), Hl, Wl,
+                                           jnp.float32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_scatter_reads_a_level_slice_in_place(rng):
+    """A level's column slice of (S, B, Q, 4*81) cotangents gives the bits
+    of its contiguous copy through both entries; the card's layout check
+    reads its row stride and refuses a layout without one."""
+    S, B, Q, Hl, Wl, scale = 2, 2, 5, 4, 8, 0.5
+    g_own, cen, g_cross, cx, cy = (T(a) for a in _scatter_inputs(
+        rng, S, B, Q, Hl, Wl, away_from_edge=False))
+    wide = [T(rng.normal(size=(S, B, Q, 4 * 81)).astype(np.float32))
+            for _ in range(2)]
+    for t, w in zip((g_own, g_cross), wide):
+        w[..., 162:243] = t
+    sl = [w[..., 162:243] for w in wide]
+    grid = rotation_grids(32, 64).to_device("cpu").a2b_w2c_8
+    other = cen.flip(0).contiguous()
+    assert torch.equal(
+        dccl_scatter.dccl_level_scatter_grid(sl[0], cen, sl[1], other, grid,
+                                             scale, Hl, Wl),
+        dccl_scatter.dccl_level_scatter_grid(g_own, cen, g_cross, other, grid,
+                                             scale, Hl, Wl))
+    assert torch.equal(
+        dccl_scatter.dccl_level_scatter(sl[0], cen, scale, sl[1], cx, cy, Hl,
+                                        Wl),
+        dccl_scatter.dccl_level_scatter(g_own, cen, scale, g_cross, cx, cy,
+                                        Hl, Wl))
+    assert dccl_scatter._row_stride("t", sl[0], g_own.shape) == 4 * 81
+    assert dccl_scatter._row_stride("t", g_own, g_own.shape) == 81
+    with pytest.raises(ValueError):
+        dccl_scatter._row_stride("t", g_own.transpose(1, 2), g_own.shape)
+    assert corr._rows(sl[0][0]).data_ptr() == sl[0][0].data_ptr()
+    assert corr._rows(g_own[0].transpose(0, 1).contiguous().transpose(0, 1)
+                      ).is_contiguous()
 
 
 def test_dccl_route_rules(monkeypatch):
