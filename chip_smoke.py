@@ -17,12 +17,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    random weights, fp32 then mixed precision: output shape, finiteness,
    launch counts per forward (48 lookups, 15 norms), median ms/pair;
 5. the same weights on the card and on the CPU at 128x256, 4 iterations;
+   then, at torch's default flags (TF32 on for cuDNN convolutions),
+   build_model() (error reported) and build_model(precision="highest")
+   (gated) against the same CPU forward;
 6. the cross-tap-coords kernel where the main paths launch it, the planes
-   route of the 1024x2048 forward (per branch and iteration one launch of
-   N = 4 levels x 32768 pre-scaled centres, both grids): bitwise against
-   its plain version, ms per forward (24 launches); and the lookup
-   kernel's cross taps, at batch 4, bitwise equal to the plain sampler of
-   the other volume at the coords kernel's coords;
+   route of the 1024x2048 forward (per iteration one launch for both
+   branches and N = 4 levels x 32768 centres): bitwise against its plain
+   version, ms per forward (12 launches) issued back to back and queued;
+   the same call at the 512x1024 level shapes, batch 1 and 4, bitwise, the
+   one-branch entry bitwise equal to it, and the lookup kernel's cross
+   taps bitwise equal to the plain sampler of the other volume at these
+   coords;
 7. the volume scatter's two entries (grid, given coords) against their
    plain versions and against each other at the training level shapes
    (B = 4), S = 1 and 12, f32 and bf16 output; per taped and standard
@@ -37,20 +42,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step's loss and gradients;
 10. one step on the card and on the CPU at 128x256, batch 1, 2 iterations,
    f32, both grad modes, same weights; and a standard step with the planes
-   route forced on the card (the scatter's given-coords entry);
+   route forced on the card (one coords launch per iteration, the
+   scatter's given-coords entry);
 11. the lookup at given cross coords against its plain version and against
    the grid lookup (kernel 1), bitwise, at the four level shapes of a
    1024x2048 forward (B x Q = 32768), f32 and bf16, with the coords from
    the coords kernel (the planes route); one bf16 level-0 launch at batch
    3 (more than 2^31 volume elements) checked on its first and last batch
-   element;
+   element; per iteration the ms of row 3, of kernel 1 at these shapes and
+   of the coords launch, issued back to back and queued;
 12. the all-levels lookup against four per-level launches, bitwise, at
    512x1024, batch 1 and 4, f32 and bf16;
 13. the chunked pyramid build against the dense one at 512x1024 and
    1024x2048, f32 and bf16 (bitwise expected; else gated at 2^-20 of
    max|level| in f32 and one bf16 step), ms and peak GB of each;
 14. the 1024x2048 test-mode forward, batch 1, 12 iterations, fp32 then bf16
-   (48 lookups at given coords, 24 coords launches, no kernel 1, 15 norms
+   (48 lookups at given coords, 12 coords launches, no kernel 1, 15 norms
    per forward; median ms/pair over 5 runs; peak GB); the 128x256 forward
    with the chunked build and the planes route forced on the card against
    the CPU's default routes; the 512x1024 fp32 forward with
@@ -70,15 +77,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    launches, each beside its plain version; per level the ms of kernel 1,
    of row 3 at random coords and of each stage beside its bytes bound;
 17. the grid-window variants (``tools/microbench_gridwin.py``) at Q = 8192,
-   64x128 grids: every semantic variant and the pair bitwise equal to the
-   coords kernel; ms of each variant, diagnostic and the pair, the plain
+   64x128 grids: every semantic variant and the pair (the coords kernel's
+   both-branch entry) bitwise equal to two one-branch coords launches; ms
+   of each variant, diagnostic, the pair and the two launches, the plain
    version and F.grid_sample.
 The launches of phases 15-17 are the tools' measurement runs (path
 "tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
 
-TF32 is off for matmuls and cuDNN convolutions in every phase, so "fp32"
-is full f32 and the card-vs-CPU comparisons are like for like.
+TF32 is off for matmuls and cuDNN convolutions in every phase but the
+precision check of phase 5, which runs at torch's defaults and puts the
+setting back, so "fp32" is full f32 and the card-vs-CPU comparisons are
+like for like.
 ``--profile`` adds a torch.profiler kernel breakdown of one forward per
 precision (512x1024 and 1024x2048) and of one training step per grad
 mode. Imports nothing of JAX or of the JAX package.
@@ -125,10 +135,17 @@ LOOKUP_OPS_PER_TAP = 242
 TRAIN_B, TRAIN_STEPS = 4, 5
 TRAIN_LR, TRAIN_NUM_STEPS = 1e-4, 60000
 LEVELS = 4
-# f32 operations per (centre, tap) of the coords kernel (window 4 + grid
-# sample 47) and per (s, query, tap) of the scatter's given-coords entry
-# (window 4 + two corner sets 2 x 23 + eight weighted shared-memory adds 16)
-COORDS_OPS_PER_TAP = 51
+# f32 operations per (centre, tap) of the coords kernel, counted from its
+# column body: the tap's y 1, its y half of the corners 9 (floor, fraction,
+# two rows, four bounds, the row-reuse test), the weights 6, the blend of two channels 14, and
+# the column's shared x half (window 2, wrap 4, floor, fraction, two
+# bounds each for two columns) 12 over its 9 taps; and per (s, query, tap)
+# of the scatter's given-coords entry (window 4 + two corner sets 2 x 23 +
+# eight weighted shared-memory adds 16)
+COORDS_OPS_PER_TAP = 31
+# the same per tap for the grid-window variants, one thread per tap
+# (window 4 + grid sample 47)
+TAP_COORDS_OPS_PER_TAP = 51
 SCATTER_OPS_PER_TAP = 66
 # the scatter's grid entry adds its cross taps' grid sample (47)
 SCATTER_GRID_OPS_PER_TAP = SCATTER_OPS_PER_TAP + 47
@@ -150,7 +167,7 @@ CARD_CPU_GRAD_RTOL = 1e-3
 ZERO_GRAD_FLOOR = 1e-2
 # the port's CUDA kernels by function name, for the profiles
 PORT_KERNELS = ("dccl_level_kernel", "dccl_all_levels_kernel",
-                "dccl_coords_lookup_kernel", "dccl_coords_kernel",
+                "dccl_coords_lookup_kernel", "dccl_cross_coords_kernel",
                 "dccl_scatter_kernel", "row_sums_kernel")
 
 
@@ -303,8 +320,7 @@ def phase_lookup(dev, grids, peaks):
                 # the column body against row 3's one-thread-per-tap body
                 # at the coords kernel's coords: the same bits
                 row3 = dccl_level_lookup_coords(
-                    vA, vB, cA, cB, s, *given_coords(cA, gA, s),
-                    *given_coords(cB, gB, s))
+                    vA, vB, cA, cB, s, *given_coords(cA, cB, gA, gB, s))
                 if not all(torch.equal(a, b) for a, b in zip(got, row3)):
                     fail(f"dccl lookup {tag} level {lvl}: kernel 1 not "
                          f"bitwise equal to row 3 at the coords kernel's "
@@ -537,6 +553,45 @@ def profile_forward(model, i1, i2, tag: str):
               f"{e.key[:90]}")
 
 
+# -- phase 5: precision ----------------------------------------------------------
+
+def phase_precision(dev, ref, c1, c2):
+    """build_model() at torch's default backend flags (TF32 on for cuDNN
+    convolutions, off for matmuls) and build_model(precision="highest")
+    under the same flags, each on the card against the CPU's 128x256
+    forward ``ref``: the default's error is reported, the highest one's
+    gated at CARD_CPU_TOL x flow scale, and the forward must leave the
+    flags as it found them. The script's TF32-off setting is put back
+    after."""
+    import torch
+    from prior_flow_tpu_torch import build_model
+    scale = ref.abs().max().item()
+    ratios = {}
+    torch.backends.cudnn.allow_tf32 = True      # torch's default
+    try:
+        for precision in (None, "highest"):
+            out = build_model(seed=0, precision=precision)(
+                c1.to(dev), c2.to(dev), iters=4).cpu()
+            if not (torch.backends.cudnn.allow_tf32
+                    and not torch.backends.cuda.matmul.allow_tf32):
+                fail(f"precision={precision!r}: the forward left torch's "
+                     f"TF32 flags changed")
+            if not torch.isfinite(out).all():
+                fail(f"precision={precision!r}: non-finite output")
+            err = (out - ref).abs().max().item()
+            ratios[str(precision)] = err / scale
+            print(f"  build_model(precision={precision!r}) at torch's default "
+                  f"flags (TF32 on for convolutions): max abs err {err:.3e} "
+                  f"against the CPU, ratio {err / scale:.3e} (gate "
+                  f"{CARD_CPU_TOL}{'' if precision else ', reported only'})",
+                  flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    if ratios["highest"] > CARD_CPU_TOL:
+        fail("precision='highest' on the card and the CPU disagree")
+    return ratios
+
+
 # -- phase 6: cross tap coords --------------------------------------------------
 
 def train_centres(dev, N: int, seed: int, size=None):
@@ -556,90 +611,111 @@ def train_centres(dev, N: int, seed: int, size=None):
 
 def phase_coords(dev, grids, grids2, peaks):
     """The coords kernel where the main paths launch it: the planes route
-    of the 1024x2048 forward, one launch per branch and iteration for all
-    four levels (``ops/corr.py::cross_coords_all_levels``: the centres
-    pre-scaled per level and stacked, scale 1), bitwise against its plain
-    version on the same stacked centres; ms per forward (24 launches)
-    beside its bound. Then kernel 1's cross taps at the training batch,
-    bitwise the plain sampler at the coords kernel's coords."""
+    of the 1024x2048 forward, one launch per iteration for both branches
+    and all four levels (``dccl_cross_coords`` from ``DCCLFused``, the
+    level scale applied inside), bitwise against its plain version; ms per
+    forward (12 launches) issued back to back and queued, beside its bound,
+    the plain version and F.grid_sample. Then the same call at the 512x1024
+    level shapes, batch 1 and the training batch: bitwise its plain
+    version, kernel 1's cross taps bitwise the plain sampler of the other
+    volume at these coords, and the one-branch entry bitwise these
+    coords."""
     import torch
     import torch.nn.functional as F
-    from prior_flow_tpu_torch.ops.corr import cross_coords_all_levels
     from prior_flow_tpu_torch.ops.kernels.dccl_coords import (
-        dccl_grid_coords, dccl_grid_coords_plain)
+        dccl_cross_coords, dccl_cross_coords_plain, dccl_grid_coords)
     from prior_flow_tpu_torch.ops.kernels.dccl_lookup import (
         NTAP, dccl_level_lookup, sample_volume_level, window_delta)
 
+    def bitwise(got, ref, what):
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+            fail(f"coords {what}: not bitwise equal (max abs err {err})")
+
+    scales = [1.0 / 2 ** lvl for lvl in range(LEVELS)]
     Hg, Wg = H2 // 8, W2 // 8
     Q = Hg * Wg
-    scales = [1.0 / 2 ** lvl for lvl in range(LEVELS)]
+    gA, gB = grids2.a2b_w2c_8, grids2.b2a_w2c_8
+    cA, cB = (train_centres(dev, Q, seed, (H2, W2)).reshape(1, Q, 2)
+              for seed in (7, 8))
+    call = lambda: dccl_cross_coords(cA, cB, gA, gB, scales)
+    with torch.no_grad():
+        bitwise(call(), dccl_cross_coords_plain(cA, cB, gA, gB, scales),
+                f"{H2}x{W2}, both branches, {LEVELS} levels, against the "
+                f"plain version")
+        # per forward: one launch per iteration
+        ms = ITERS * cuda_ms(call, 20)
+        q_ms = ITERS * queued_ms(call, 20)
+        plain_ms = ITERS * cuda_ms(lambda: dccl_cross_coords_plain(
+            cA, cB, gA, gB, scales), 2, warmup=1)
+        # library: F.grid_sample of each grid at its window coords, wrapped
+        # and normalised beforehand
+        libs = []
+        for cen, grid in ((cA, gA), (cB, gB)):
+            win = (torch.cat([cen.reshape(-1, 2) * sc for sc in scales])
+                   .unsqueeze(1) + window_delta(4, dev))
+            libs.append((grid.permute(2, 0, 1).unsqueeze(0).contiguous(),
+                         normalised(win, Hg, Wg).reshape(1, -1, NTAP, 2)))
+            del win
+        library = lambda: [F.grid_sample(img, gn, mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True)
+                           for img, gn in libs]
+        lib_ms = ITERS * cuda_ms(library, 20)
+        lib_q_ms = ITERS * queued_ms(library, 20)
+        del libs
     N = LEVELS * Q
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
-               err=0.0)
-    for branch, grid in (("A", grids2.a2b_w2c_8), ("B", grids2.b2a_w2c_8)):
-        cen = train_centres(dev, Q, 7 if branch == "A" else 8,
-                            (H2, W2)).reshape(1, Q, 2)
-        with torch.no_grad():
-            stacked = torch.cat([cen.reshape(-1, 2) * s for s in scales])
-            cx, cy = cross_coords_all_levels(cen, grid, scales)
-            rx, ry = dccl_grid_coords_plain(stacked, grid, 1.0)
-            torch.cuda.synchronize()
-            if not (torch.equal(cx, rx) and torch.equal(cy, ry)):
-                err = max((cx - rx).abs().max().item(),
-                          (cy - ry).abs().max().item())
-                fail(f"coords {branch} {H2}x{W2}: not bitwise equal to the "
-                     f"plain version (max abs err {err})")
-            # per forward: one launch per iteration and branch
-            ms = ITERS * cuda_ms(lambda: dccl_grid_coords(stacked, grid, 1.0),
-                                 20)
-            plain_ms = ITERS * cuda_ms(
-                lambda: dccl_grid_coords_plain(stacked, grid, 1.0), 3,
-                warmup=1)
-            # library: F.grid_sample of the grid at the window coords,
-            # wrapped and normalised beforehand
-            win = stacked.unsqueeze(1) + window_delta(4, dev)
-            gn = normalised(win, Hg, Wg).reshape(1, N, NTAP, 2)
-            img = grid.permute(2, 0, 1).unsqueeze(0).contiguous()
-            lib_ms = ITERS * cuda_ms(lambda: F.grid_sample(
-                img, gn, mode="bilinear", padding_mode="zeros",
-                align_corners=True), 20)
-            del win, gn, cx, cy, rx, ry
-        nbytes = ITERS * (N * 8 + 2 * N * NTAP * 4 + grid.numel() * 4)
-        ops = ITERS * N * NTAP * COORDS_OPS_PER_TAP
-        b_ms, _ = bound(nbytes, ops, peaks)
-        print(f"  coords {branch} {H2}x{W2} (N = {LEVELS} levels x {Q}): "
-              f"bitwise equal; per forward ({ITERS} launches): kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  grid_sample "
-              f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms", flush=True)
-        for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                     ("library_ms", lib_ms), ("bytes", nbytes),
-                     ("ops", ops)):
-            tot[k] += v
-    tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"], peaks)
-    print(f"  coords one {H2}x{W2} forward ({2 * ITERS} launches): kernel "
-          f"{tot['ms']:.4f} ms plain {tot['plain_ms']:.4f} ms bound "
-          f"{tot['bound_ms']:.4f} ms", flush=True)
+    nbytes = ITERS * (2 * Q * 8 + 2 * gA.numel() * 4 + 4 * N * NTAP * 4)
+    ops = ITERS * 2 * N * NTAP * COORDS_OPS_PER_TAP
+    tot = dict(ms=ms, queued_ms=q_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_queued_ms=lib_q_ms, bytes=nbytes, ops=ops, err=0.0)
+    tot["bound_ms"], tot["bound_by"] = bound(nbytes, ops, peaks)
+    print(f"  coords {H2}x{W2}, both branches, {LEVELS} levels x {Q} "
+          f"centres: bitwise equal; per forward ({ITERS} launches): kernel "
+          f"{ms:.4f} ms, queued {q_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"2 F.grid_sample {lib_ms:.4f} ms, queued {lib_q_ms:.4f} ms; bound "
+          f"{tot['bound_ms']:.4f} ms ({tot['bound_by']})", flush=True)
+    verdict = ("no slower than" if ms <= lib_ms else "slower than")
+    print(f"  the coords kernel issued back to back is {verdict} its "
+          f"F.grid_sample ({ms:.4f} against {lib_ms:.4f} ms per forward)",
+          flush=True)
 
-    # the lookup kernel's cross taps are the plain sampler of the other
-    # volume at the coords kernel's coords, bit for bit, at the training
-    # batch
-    for lvl in range(LEVELS):
-        vA, vB, cA, cB, gA, gB = lookup_inputs(lvl, torch.float32, dev, grids,
-                                               TRAIN_B)
-        s = 1.0 / 2 ** lvl
+    # the 512x1024 level shapes, batch 1 and the training batch
+    Q1 = (H // 8) * (W // 8)
+    g1A, g1B = grids.a2b_w2c_8, grids.b2a_w2c_8
+    for b in (1, TRAIN_B):
+        cA, cB = (train_centres(dev, b * Q1, seed + b).reshape(b, Q1, 2)
+                  for seed in (9, 19))
+        g = torch.Generator(device=dev).manual_seed(500 + b)
         with torch.no_grad():
-            _, cross_A, _, cross_B = dccl_level_lookup(vA, vB, cA, cB, gA, gB,
-                                                       s)
-            for cross, cen, grid, other in ((cross_A, cA, gA, vB),
-                                            (cross_B, cB, gB, vA)):
-                cx, cy = dccl_grid_coords(cen.reshape(-1, 2), grid, s)
-                at = torch.stack([cx, cy], -1).reshape(*cen.shape[:2], NTAP, 2)
-                if not torch.equal(cross, sample_volume_level(other, at)):
-                    fail(f"lookup level {lvl}: cross taps differ from the "
-                         f"plain sampler at the coords kernel's coords")
-        del vA, vB, cross_A, cross_B
-    print(f"  lookup cross taps == plain sampler at the coords kernel's "
-          f"coords, batch {TRAIN_B}, all levels, both branches: bitwise",
+            planes = dccl_cross_coords(cA, cB, g1A, g1B, scales)
+            bitwise(planes, dccl_cross_coords_plain(cA, cB, g1A, g1B, scales),
+                    f"{H}x{W} batch {b} against the plain version")
+            for lvl, sc in enumerate(scales):
+                rows = slice(lvl * b * Q1, (lvl + 1) * b * Q1)
+                level = [p[rows] for p in planes]
+                bitwise(dccl_grid_coords(cA.reshape(-1, 2), g1A, sc)
+                        + dccl_grid_coords(cB.reshape(-1, 2), g1B, sc),
+                        level, f"{H}x{W} batch {b} level {lvl}: the one-branch "
+                        f"entry against the both-branch one")
+                Hl, Wl = (H // 8) >> lvl, (W // 8) >> lvl
+                vA, vB = (torch.randn(b, Q1, Hl, Wl, generator=g, device=dev)
+                          for _ in range(2))
+                _, cross_A, _, cross_B = dccl_level_lookup(vA, vB, cA, cB, g1A,
+                                                           g1B, sc)
+                for cross, other, x, y in ((cross_A, vB, *level[:2]),
+                                           (cross_B, vA, *level[2:])):
+                    at = torch.stack([x, y], -1).reshape(b, Q1, NTAP, 2)
+                    if not torch.equal(cross, sample_volume_level(other, at)):
+                        fail(f"lookup {H}x{W} batch {b} level {lvl}: cross "
+                             f"taps differ from the plain sampler at the "
+                             f"coords kernel's coords")
+                del vA, vB, cross_A, cross_B
+        del planes
+        torch.cuda.empty_cache()
+    print(f"  coords {H}x{W}, batch 1 and {TRAIN_B}, both branches, all "
+          f"levels: bitwise equal to the plain version and to the one-branch "
+          f"entry; kernel 1's cross taps == plain sampler at these coords",
           flush=True)
     return tot
 
@@ -806,7 +882,7 @@ def phase_sums_backward(dev, peaks):
         instance_norm_sums, instance_norm_sums_plain)
 
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
-               err=0.0)
+               err=0.0, queued_ms=0.0)
     for shape in [(4 * TRAIN_B,) + s[1:] for s in FNET_SHAPES]:
         g = torch.Generator(device=dev).manual_seed(sum(shape) + 1)
         xf = torch.randn(shape, generator=g, device=dev) * 3 + 1.5
@@ -843,6 +919,8 @@ def phase_sums_backward(dev, peaks):
                 del ad, bd, terms
             ms = (cuda_ms(lambda: instance_norm_sums(x, x), 20)
                   + cuda_ms(lambda: instance_norm_sums(xhat, dy), 20))
+            q_ms = (queued_ms(lambda: instance_norm_sums(x, x), 20)
+                    + queued_ms(lambda: instance_norm_sums(xhat, dy), 20))
             plain_ms = (cuda_ms(lambda: instance_norm_sums_plain(x, x), 10)
                         + cuda_ms(lambda: instance_norm_sums_plain(xhat, dy),
                                   10))
@@ -853,17 +931,17 @@ def phase_sums_backward(dev, peaks):
                   + 2 * shape[0] * shape[1] * 8)
         ops = SUMS_OPS_PER_ELEM * (x.numel() + xhat.numel())
         b_ms, _ = bound(nbytes, ops, peaks)
-        print(f"  sums {shape}: forward + backward kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  var_mean + vecdot {lib_ms:.4f} ms  bound "
-              f"{b_ms:.4f} ms", flush=True)
+        print(f"  sums {shape}: forward + backward kernel {ms:.4f} ms "
+              f"(queued {q_ms:.4f})  plain {plain_ms:.4f} ms  var_mean + "
+              f"vecdot {lib_ms:.4f} ms  bound {b_ms:.4f} ms", flush=True)
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                     ("bytes", nbytes), ("ops", ops)):
+                     ("bytes", nbytes), ("ops", ops), ("queued_ms", q_ms)):
             tot[k] += NORMS_PER_SHAPE * v
         del xf, x, xhat, dy, fx, fy
     tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"], peaks)
     print(f"  sums one train step (30 launches): kernel {tot['ms']:.4f} ms "
-          f"plain {tot['plain_ms']:.4f} ms bound {tot['bound_ms']:.4f} ms",
-          flush=True)
+          f"(queued {tot['queued_ms']:.4f}) plain {tot['plain_ms']:.4f} ms "
+          f"bound {tot['bound_ms']:.4f} ms", flush=True)
     return tot
 
 
@@ -1035,7 +1113,7 @@ def phase_train_card_vs_cpu(dev):
             planes_counts = counts
             want = forward_counts(instance_norm_sums=30,
                                   dccl_level_lookup_coords=2 * LEVELS,
-                                  dccl_grid_coords=2 * 2,
+                                  dccl_cross_coords=2,
                                   dccl_level_scatter=2 * 2 * LEVELS)
             if counts != want:
                 fail(f"train planes route: launch counts {counts}, expected "
@@ -1061,23 +1139,26 @@ def phase_train_card_vs_cpu(dev):
 
 # -- phase 11: the lookup at given cross coords, 1024x2048 ----------------------
 
-def given_coords(cen, grid, scale):
-    """The planes route's cross tap coords at one level (the coords kernel
-    at the pre-scaled centres), as (B, Q, 81) planes."""
-    from prior_flow_tpu_torch.ops.corr import cross_coords_all_levels
-    B, Q, _ = cen.shape
+def given_coords(cA, cB, gA, gB, scale):
+    """The planes route's cross tap coords of both branches at one level
+    (the coords kernel's both-branch entry), as four (B, Q, 81) planes."""
+    from prior_flow_tpu_torch.ops.kernels.dccl_coords import (
+        dccl_cross_coords)
+    B, Q, _ = cA.shape
     return [c.reshape(B, Q, 81)
-            for c in cross_coords_all_levels(cen, grid, [scale])]
+            for c in dccl_cross_coords(cA, cB, gA, gB, [scale])]
 
 
 def phase_lookup_coords(dev, grids2, peaks):
     """Row 3 against its plain version and against kernel 1, bitwise, at the
     four level shapes of a 1024x2048 forward (B x Q = 32768), f32 and bf16;
     one bf16 level-0 launch at batch 3 (more than 2^31 volume elements).
-    Times per iteration (4 levels): row 3, kernel 1, the planes route's two
-    coords launches, the plain version and 4 F.grid_sample per level."""
+    Times per iteration (4 levels), issued back to back and queued: row 3,
+    kernel 1 (the grid route at these shapes) and the planes route's coords
+    launch; and the plain version and 4 F.grid_sample per level."""
     import torch
-    from prior_flow_tpu_torch.ops.corr import cross_coords_all_levels
+    from prior_flow_tpu_torch.ops.kernels.dccl_coords import (
+        dccl_cross_coords)
     from prior_flow_tpu_torch.ops.kernels.dccl_lookup import (
         NTAP, dccl_level_lookup, dccl_level_lookup_coords,
         dccl_level_lookup_coords_plain)
@@ -1087,12 +1168,13 @@ def phase_lookup_coords(dev, grids2, peaks):
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
-                   err=0.0, grid_route_ms=0.0)
+                   err=0.0, grid_route_ms=0.0, queued_ms=0.0,
+                   grid_route_queued_ms=0.0)
         for lvl, s in enumerate(scales):
             vA, vB, cA, cB, gA, gB = lookup_inputs(lvl, dtype, dev, grids2,
                                                    size=(H2, W2))
             with torch.no_grad():
-                given = given_coords(cA, gA, s) + given_coords(cB, gB, s)
+                given = given_coords(cA, cB, gA, gB, s)
                 args = (vA, vB, cA, cB, s, *given)
                 got = dccl_level_lookup_coords(*args)
                 ref = dccl_level_lookup_coords_plain(*args)
@@ -1106,9 +1188,11 @@ def phase_lookup_coords(dev, grids2, peaks):
                         fail(f"lookup at given coords {tag} level {lvl} "
                              f"1024x2048: not bitwise equal to {name} (max "
                              f"abs err {err})")
-                ms = cuda_ms(lambda: dccl_level_lookup_coords(*args), 20)
-                k1_ms = cuda_ms(lambda: dccl_level_lookup(vA, vB, cA, cB, gA,
-                                                          gB, s), 20)
+                row3_call = lambda: dccl_level_lookup_coords(*args)
+                k1_call = lambda: dccl_level_lookup(vA, vB, cA, cB, gA, gB, s)
+                ms, q_ms = cuda_ms(row3_call, 20), queued_ms(row3_call, 20)
+                k1_ms, k1_q_ms = (cuda_ms(k1_call, 20),
+                                  queued_ms(k1_call, 20))
                 plain_ms = cuda_ms(lambda: dccl_level_lookup_coords_plain(
                     *args), 3, warmup=1)
                 coords = lookup_sample_coords(cA, cB, gA, gB, s)
@@ -1122,28 +1206,37 @@ def phase_lookup_coords(dev, grids2, peaks):
                           and library is not None else 0.0)
             print(f"  lookup at given coords {tag} level {lvl} "
                   f"({BQ}x{vA.shape[2]}x{vA.shape[3]}): bitwise equal to "
-                  f"plain and to kernel 1; kernel {ms:.4f} ms  kernel 1 "
-                  f"{k1_ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+                  f"plain and to kernel 1; kernel {ms:.4f} ms (queued "
+                  f"{q_ms:.4f})  kernel 1 {k1_ms:.4f} ms (queued "
+                  f"{k1_q_ms:.4f})  plain {plain_ms:.4f} ms  library "
                   f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({sectors} sectors, "
                   f"{nbytes / 1e6:.2f} MB)", flush=True)
             for k, v in (("ms", ms), ("grid_route_ms", k1_ms),
+                         ("queued_ms", q_ms),
+                         ("grid_route_queued_ms", k1_q_ms),
                          ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bytes", nbytes), ("ops", ops)):
                 tot[k] += v
             del vA, vB, args, got, ref, k1, coords, library
             torch.cuda.empty_cache()
-        # the planes route's coords: one launch per branch, all levels
-        cen = lookup_inputs(0, torch.float32, dev, grids2, size=(H2, W2))[2]
+        # the planes route's coords: one launch, both branches, all levels
+        cA, cB = lookup_inputs(0, torch.float32, dev, grids2,
+                               size=(H2, W2))[2:4]
+        call = lambda: dccl_cross_coords(
+            cA, cB, grids2.a2b_w2c_8, grids2.b2a_w2c_8, scales)
         with torch.no_grad():
-            tot["coords_ms"] = 2 * cuda_ms(lambda: cross_coords_all_levels(
-                cen, grids2.a2b_w2c_8, scales), 20)
+            tot["coords_ms"] = cuda_ms(call, 20)
+            tot["coords_queued_ms"] = queued_ms(call, 20)
         tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"],
                                                  peaks)
         rows[tag] = tot
         print(f"  {tag} one 1024x2048 iteration: planes route {tot['ms']:.4f} "
-              f"(4 lookups) + {tot['coords_ms']:.4f} (2 coords launches) = "
-              f"{tot['ms'] + tot['coords_ms']:.4f} ms; grid route (kernel 1, "
-              f"4 launches) {tot['grid_route_ms']:.4f} ms; bound "
+              f"(4 lookups) + {tot['coords_ms']:.4f} (1 coords launch) = "
+              f"{tot['ms'] + tot['coords_ms']:.4f} ms, queued "
+              f"{tot['queued_ms']:.4f} + {tot['coords_queued_ms']:.4f} = "
+              f"{tot['queued_ms'] + tot['coords_queued_ms']:.4f} ms; grid "
+              f"route (kernel 1, 4 launches) {tot['grid_route_ms']:.4f} ms, "
+              f"queued {tot['grid_route_queued_ms']:.4f} ms; bound "
               f"{tot['bound_ms']:.4f} ms", flush=True)
 
     # 64-bit offsets: a bf16 level-0 batch of 3 x 32768 queries has
@@ -1151,7 +1244,7 @@ def phase_lookup_coords(dev, grids2, peaks):
     vA, vB, cA, cB, gA, gB = lookup_inputs(0, torch.bfloat16, dev, grids2,
                                            BIG_B, size=(H2, W2))
     with torch.no_grad():
-        given = given_coords(cA, gA, 1.0) + given_coords(cB, gB, 1.0)
+        given = given_coords(cA, cB, gA, gB, 1.0)
         got = dccl_level_lookup_coords(vA, vB, cA, cB, 1.0, *given)
         torch.cuda.synchronize()
         for b in (0, BIG_B - 1):
@@ -1297,7 +1390,7 @@ def phase_pyramid_lean(dev):
 
 def phase_forward_hr(dev, ref_128, flow32, c1, c2, i1, i2):
     """The 1024x2048 test-mode forward (fp32, bf16) through build_model:
-    48 lookups at given coords, 24 coords launches, no kernel 1; then the
+    48 lookups at given coords, 12 coords launches, no kernel 1; then the
     128x256 forward with the chunked build and the planes route forced on
     the card against the CPU's default routes; then the 512x1024 fp32
     forward with all levels in one launch (PRIORFLOW_DCCL_FUSE_LEVELS=1)
@@ -1310,7 +1403,7 @@ def phase_forward_hr(dev, ref_128, flow32, c1, c2, i1, i2):
                                                   reset_launch_counts)
     out = {}
     want = forward_counts(dccl_level_lookup_coords=LEVELS * ITERS,
-                          dccl_grid_coords=2 * ITERS)
+                          dccl_cross_coords=ITERS)
     h1, h2 = (t.to(dev) for t in images(2, H2, W2))
     for mixed in (False, True):
         tag = "bf16" if mixed else "fp32"
@@ -1331,7 +1424,7 @@ def phase_forward_hr(dev, ref_128, flow32, c1, c2, i1, i2):
     finally:
         prior_raft.LEAN_BUILD_QUERIES = lean_at
     forced = forward_counts(dccl_level_lookup_coords=4 * LEVELS,
-                            dccl_grid_coords=2 * 4)
+                            dccl_cross_coords=4)
     if counts != forced:
         fail(f"forced planes + lean forward: launch counts {counts}, "
              f"expected {forced}")
@@ -1535,8 +1628,9 @@ def phase_stage_split(dev, peaks):
 
 def phase_gridwin(dev, peaks):
     """The gridwin tool's run at its shapes (gates, then measurement),
-    the plain versions and F.grid_sample. Returns the variant and pair rows
-    and the tool run's launch counts."""
+    the plain versions and F.grid_sample. Returns the variant and pair
+    rows, the row of two one-branch coords launches, and the tool run's
+    launch counts."""
     import torch
     import torch.nn.functional as F
     from prior_flow_tpu_torch.ops.kernels.dccl_lookup import (NTAP,
@@ -1572,15 +1666,18 @@ def phase_gridwin(dev, peaks):
             for img, g in zip(imgs, libs)], 50)
     out_bytes = 4 * N * NTAP * 4
     grid_bytes = 2 * gA.numel() * 4
-    ops = 2 * N * NTAP * COORDS_OPS_PER_TAP
     variant = dict(ms=rec["direct_ms"], plain_ms=plain_ms, library_ms=lib_ms,
                    err=0.0)
     variant["bound_ms"], variant["bound_by"] = bound(
-        N * 8 + out_bytes + grid_bytes, ops, peaks)
+        N * 8 + out_bytes + grid_bytes, 2 * N * NTAP * TAP_COORDS_OPS_PER_TAP,
+        peaks)
     pair = dict(ms=rec["pair_ms"], plain_ms=pair_plain_ms,
                 library_ms=pair_lib_ms, err=0.0)
     pair["bound_ms"], pair["bound_by"] = bound(
-        2 * N * 8 + out_bytes + grid_bytes, ops, peaks)
+        2 * N * 8 + out_bytes + grid_bytes, 2 * N * NTAP * COORDS_OPS_PER_TAP,
+        peaks)
+    # the same work as two one-branch launches of the coords kernel
+    one_branch = dict(pair, ms=rec["coords_kernel_x2_ms"])
     print(f"  gridwin Q={N}, grids {Hg}x{Wg}: direct and smem_grid variants "
           f"and the pair bitwise equal to the coords kernel; ms: "
           + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in rec.items())
@@ -1589,7 +1686,7 @@ def phase_gridwin(dev, peaks):
           f"{variant['bound_ms']:.4f} (pair {pair['bound_ms']:.4f}, "
           f"{variant['bound_by']})", flush=True)
     variant["per"] = {k: round(v, 4) for k, v in rec.items()}
-    return variant, pair, launches
+    return variant, pair, one_branch, launches
 
 
 def main(argv=None) -> None:
@@ -1658,6 +1755,8 @@ def main(argv=None) -> None:
           f"ratio {err / scale:.3e} (gate {CARD_CPU_TOL})", flush=True)
     if not (torch.isfinite(out).all() and err <= CARD_CPU_TOL * scale):
         fail("card and CPU forwards disagree")
+    precision = phase_precision(dev, ref, c1, c2)
+    print(json.dumps({"card_vs_cpu_ratio_at_torch_defaults": precision}))
 
     grids2 = rotation_grids(H2, W2).to_device(dev)
     print(f"phase 6 cross-tap-coords kernel vs plain, {H2}x{W2} planes route",
@@ -1715,7 +1814,7 @@ def main(argv=None) -> None:
     print(f"phase 16 DCCL stage split, {H}x{W}, batch 1", flush=True)
     stages, tool_split = phase_stage_split(dev, peaks)
     print("phase 17 grid-window variants", flush=True)
-    variant, pair, tool_gridwin = phase_gridwin(dev, peaks)
+    variant, pair, one_branch, tool_gridwin = phase_gridwin(dev, peaks)
     tool = {k: tool_anchor[k] + tool_split[k] + tool_gridwin[k]
             for k in tool_anchor}
 
@@ -1772,18 +1871,30 @@ def main(argv=None) -> None:
         row("instance_norm_sums", "instance_norm.cu",
             "prior_flow_tpu/ops/pallas/instance_norm.py:52", sums_train,
             "ms/plain/bound/library: one batch-4 train step's 30 sums, 15 "
-            "forward (x, x) bf16 and 15 backward (xhat, dy) f32 at B = 16; "
+            "forward (x, x) bf16 and 15 backward (xhat, dy) f32 at B = 16, "
+            "issued back to back; queued (the card's own time): "
+            f"{sums_train['queued_ms']:.4f} ms; "
             "library_ms = torch.var_mean(x) + torch.linalg.vecdot(xhat, dy) "
             "(leaves out sum(dy))", max(sums_train["err"], sums["f32"]["err"],
                                         sums["bf16"]["err"])),
-        row("dccl_grid_coords", "dccl_coords.cu",
+        row("dccl_cross_coords", "dccl_coords.cu",
             "prior_flow_tpu/ops/pallas/dccl_gather.py:1033", coords,
-            "ms/plain/bound/library: one 1024x2048 forward's 24 launches on "
-            "the planes route (12 iterations x 2 branches, each N = 4 levels "
-            "x 32768 centres pre-scaled and stacked, scale 1); the training "
-            "steps launch it no more; library_ms = F.grid_sample of the grid "
-            "at precomputed normalised window coords (leaves out the window "
-            "and the wrap)", coords["err"], path="forward_1024x2048"),
+            "ms/plain/bound/library: one 1024x2048 forward's 12 launches on "
+            "the planes route (one per iteration: both branches, 4 levels x "
+            "32768 centres, the level scale applied inside), issued back to "
+            f"back; queued (the card's own time): {coords['queued_ms']:.4f} "
+            f"ms, library {coords['library_queued_ms']:.4f} ms; library_ms "
+            "= 2 F.grid_sample per iteration, each grid at its precomputed "
+            "normalised window coords (leaves out the window and the wrap)",
+            coords["err"], path="forward_1024x2048"),
+        row("dccl_grid_coords", "dccl_coords.cu",
+            "prior_flow_tpu/ops/pallas/dccl_gather.py:1033", one_branch,
+            "ms/plain/bound/library: the coords kernel's one-branch "
+            "one-level entry, two launches (branch A, branch B) at the "
+            "gridwin tool's shapes (Q = 8192, 64x128 grids, scale 1), "
+            "queued; the main paths launch the both-branch entry instead; "
+            "plain_ms, library_ms and bound_ms those of gridwin_pair, the "
+            "same work", one_branch["err"], path="tool"),
         row("dccl_level_scatter_grid", "dccl_scatter.cu",
             "prior_flow_tpu/ops/pallas/dccl_gather.py:715 (_scatter_own_cross; "
             "stacked: :1108, :1152)", scatter["grid"],
@@ -1810,9 +1921,14 @@ def main(argv=None) -> None:
             "ms/plain/bound/library: one GRU iteration of the 1024x2048 "
             "forward, 4 level launches at given coords, f32 volumes, batch 1 "
             "(B x Q = 32768); library_ms = 4 F.grid_sample per level at the "
-            "given coords; the route's 2 coords launches per iteration: "
-            f"{lookup_coords['f32']['coords_ms']:.4f} ms; kernel 1 at the "
-            f"same shapes: {lookup_coords['f32']['grid_route_ms']:.4f} ms",
+            "given coords; issued back to back; queued (the card's own "
+            f"time): {lookup_coords['f32']['queued_ms']:.4f} ms; the route's "
+            "coords launch per iteration: "
+            f"{lookup_coords['f32']['coords_ms']:.4f} ms, queued "
+            f"{lookup_coords['f32']['coords_queued_ms']:.4f} ms; kernel 1 at "
+            f"the same shapes: {lookup_coords['f32']['grid_route_ms']:.4f} "
+            f"ms, queued {lookup_coords['f32']['grid_route_queued_ms']:.4f} "
+            "ms", 
             max(lookup_coords["f32"]["err"], lookup_coords["bf16"]["err"]),
             path="forward_1024x2048"),
         row("dccl_lookup_all_levels", "dccl_lookup.cu",
@@ -1863,10 +1979,11 @@ def main(argv=None) -> None:
             "library_ms null: the second sampling reads the first's output, "
             "no single call computes both",
             stages["cross_only"]["err"], path="tool"),
-        row("gridwin_pair", "gridwin_variants.cu",
+        row("gridwin_pair", "dccl_coords.cu",
             "tools/microbench_gridwin.py:358", pair,
             "ms/plain/bound/library: both branches' coords at their own "
-            "centres (B reversed), Q = 8192, 64x128 grids, scale 1; "
+            "centres (B reversed), Q = 8192, 64x128 grids, scale 1, one "
+            "launch of the coords kernel's both-branch entry, queued; "
             "library_ms = 2 F.grid_sample of the grids at precomputed "
             "normalised window coords", pair["err"], path="tool"),
         row("gridwin_variant", "gridwin_variants.cu",

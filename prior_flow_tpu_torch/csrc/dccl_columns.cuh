@@ -5,7 +5,8 @@
 // dccl_lookup.cu runs it whole (kernels 1 and 4, kAllTaps); dccl_stages.cu
 // runs it with stages left out (the own taps, the grid window, or the grid
 // window and the cross taps), so that the stages' times split kernel 1's
-// own. A stage left out is not computed at all; the stages that run do
+// own; dccl_coords.cu runs the grid window's column_taps in a block of its
+// own, which stores whole rows. A stage left out is not computed at all; the stages that run do
 // kernel 1's arithmetic in its order, so they give its bits.
 
 #pragma once

@@ -1,12 +1,12 @@
 // Variants of the DCCL grid-window stage: the cross tap coords of both
-// rotation grids, (cAx, cAy)[n,k] = sample(gridA, cenA[n]*scale + (i-4, j-4))
-// and (cBx, cBy)[n,k] from gridB at cenB[n], tap k = i*9 + j.
+// rotation grids at one centre set, (cAx, cAy)[n,k] = sample(gridA,
+// cen[n]*scale + (i-4, j-4)) and (cBx, cBy)[n,k] from gridB, tap
+// k = i*9 + j.
 //
 // gridwin_variant replaces tools/microbench_gridwin.py::_variant_kernel
-// (launched by variant_call): one centre set through both grids. Variants:
+// (launched by variant_call). Variants:
 //   0 direct:    one thread per (centre, tap), dccl::cross_coord on both
-//                grids: the coords kernel (dccl_coords.cu) fused over two
-//                grids;
+//                grids, the grid read through the read-only cache;
 //   1 smem_grid: both (Hg, Wg, 2) grids staged in shared memory (128 KB for
 //                the 64x128 grids of a 512x1024 input), persistent blocks
 //                that loop over the taps, so the staging is paid once per
@@ -18,15 +18,12 @@
 //                summed without reading the grid.
 // The semantic variants (0, 1) call dccl_common.cuh in the coords kernel's
 // order under its --fmad=false build, so they give its bits; the
-// diagnostics compute no coords.
+// diagnostics compute no coords. Both branches at their own centres
+// (tools/microbench_gridwin.py::_pair_kernel) are the coords kernel's
+// both-branch entry (dccl_coords.cu), whose column body the variants are
+// timed against.
 //
-// gridwin_pair replaces _pair_kernel (launched by pair_call): both branches,
-// each at its own centres, in one launch (the direct kernel with two centre
-// sets). Launched by dccl_stages.dccl_gridwin_only, it also replaces
-// tools/microbench_kernel_split.py::_gridwin_only_kernel, kernel 1's grid
-// window alone.
-//
-// Bound on the card: bytes. A launch reads N or 2N centres and the two grids
+// Bound on the card: bytes. A launch reads N centres and the two grids
 // and writes 4 x N x 81 f32; about 100 f32 operations per tap.
 //
 // Design: the TPU variants (hoisted blends, masked dots, stacked planes,
@@ -243,20 +240,5 @@ extern "C" int gridwin_variant(int variant, const void* cenA, const void* cenB,
     gridwin_diag_kernel<kArith><<<blocks_for(N), kThreads, 0, s>>>(
         cA, cB, gA, gB, out, N, Hg, Wg, scale);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Both branches at their own centres: branch A's coords from gridA at cenA,
-// branch B's from gridB at cenB.
-extern "C" int gridwin_pair(const void* cenA, const void* cenB,
-                            const void* gridA, const void* gridB, void* ax,
-                            void* ay, void* bx, void* by, long long N, int Hg,
-                            int Wg, float scale, void* stream) {
-  if (N <= 0) return static_cast<int>(cudaGetLastError());
-  gridwin_direct_kernel<<<blocks_for(N), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(cenA), static_cast<const float2*>(cenB),
-      static_cast<const float2*>(gridA), static_cast<const float2*>(gridB),
-      out_of(ax, ay, bx, by), N, Hg, Wg, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..checkpoint.convert import init_weights
-from .prior_raft import PriOrRAFT, upsample_flow_convex
+from .prior_raft import PriOrRAFT, precision_scope, upsample_flow_convex
 
 
 def resolve_device(device=None) -> torch.device:
@@ -25,7 +25,8 @@ def build_model(device=None, seed: int = 0, state_dict=None,
 
     Weights come from ``state_dict`` (reference layout, loaded strictly)
     or, without one, from ``checkpoint.init_weights(seed)``. ``kwargs`` go
-    to ``PriOrRAFT`` (e.g. ``mixed_precision=True``).
+    to ``PriOrRAFT`` (e.g. ``mixed_precision=True``, ``precision="highest"``
+    for full f32 convolutions and matmuls).
     """
     dev = resolve_device(device)
     model = PriOrRAFT(**kwargs)
@@ -36,5 +37,5 @@ def build_model(device=None, seed: int = 0, state_dict=None,
     return model.to(dev).eval()
 
 
-__all__ = ["PriOrRAFT", "build_model", "resolve_device",
+__all__ = ["PriOrRAFT", "build_model", "precision_scope", "resolve_device",
            "upsample_flow_convex"]

@@ -19,10 +19,18 @@ JAX package makes. Above ``LEAN_BUILD_QUERIES`` 1/8 queries (as at
 the 1/8 grid is wider than 128 columns, so ``DCCLFused`` takes its planes
 route. ``DCCLOnTheFly``, the two-scan ``deferred_vol_grad`` path,
 rematerialisation and dropout in training are not ported.
+
+Precision (``prior_raft.py:142-144``): ``precision=None`` runs under
+torch's backend flags as the caller left them (torch's default lets cuDNN
+convolutions use TF32); ``"highest"`` runs the forward, and a training
+step (``train/trainer.py``), with TF32 off for cuDNN convolutions and for
+matmuls, as JAX's ``jax.default_matmul_precision('highest')`` does, then
+puts the caller's flags back.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -36,6 +44,38 @@ from ..ops.corr import (DCCLFused, all_pairs_correlation, build_pyramid,
                         build_pyramid_lean, groupwise_corr)
 from ..ops.samplers import cycle_bilinear_sample
 from ..ops.warp import flo_rotate, img_rotate
+
+
+# the values of PriOrRAFT's ``precision``
+PRECISIONS = (None, "highest")
+
+
+def check_precision(precision) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+
+
+@contextlib.contextmanager
+def precision_scope(precision: Optional[str]):
+    """Runs its block at ``precision`` (one of ``PRECISIONS``): None leaves
+    torch's backend flags alone; "highest" sets TF32 off for matmuls and
+    cuDNN convolutions and restores the caller's settings on the way out.
+    The flags are read and set through torch's ``fp32_precision`` API,
+    whose saved values restore either API's settings exactly."""
+    check_precision(precision)
+    if precision is None:
+        yield
+        return
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn.conv)
+    saved = [f.fp32_precision for f in flags]
+    try:
+        for f in flags:
+            f.fp32_precision = "ieee"
+        yield
+    finally:
+        for f, v in zip(flags, saved):
+            f.fp32_precision = v
 
 
 # above this many 1/8 queries (H*W/64) the pyramids are built in query
@@ -86,8 +126,11 @@ class PriOrRAFT(nn.Module):
 
     def __init__(self, hidden_dim: int = 128, context_dim: int = 128,
                  corr_levels: int = 4, corr_radius: int = 4,
-                 dropout: float = 0.0, mixed_precision: bool = False):
+                 dropout: float = 0.0, mixed_precision: bool = False,
+                 precision: Optional[str] = None):
         super().__init__()
+        check_precision(precision)
+        self.precision = precision
         self.hidden_dim = hidden_dim
         self.corr_levels = corr_levels
         self.mixed_precision = mixed_precision
@@ -207,12 +250,12 @@ class PriOrRAFT(nn.Module):
                 test_mode: bool = True):
         if iters < 1:
             raise ValueError("iters must be at least 1")
-        if test_mode:
-            with torch.no_grad():
-                return self._forward(image1, image2, iters, init_flow, False)
-        if self.dropout > 0:
+        if not test_mode and self.dropout > 0:
             raise NotImplementedError("dropout in training is not ported")
-        return self._forward(image1, image2, iters, init_flow, True)
+        grad = torch.no_grad() if test_mode else contextlib.nullcontext()
+        with precision_scope(self.precision), grad:
+            return self._forward(image1, image2, iters, init_flow,
+                                 not test_mode)
 
     def _forward(self, image1, image2, iters, init_flow, train: bool):
         B, H, W, _ = image1.shape

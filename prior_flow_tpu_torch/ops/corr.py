@@ -29,7 +29,7 @@ from typing import Sequence
 
 import torch
 
-from .kernels.dccl_coords import dccl_grid_coords
+from .kernels.dccl_coords import dccl_cross_coords
 from .kernels.dccl_lookup import (NTAP, RADIUS, dccl_level_lookup,
                                   dccl_level_lookup_coords,
                                   dccl_level_lookup_plain,
@@ -231,18 +231,6 @@ class DCCLAllLevelsLookup(torch.autograd.Function):
 GRID_IN_KERNEL_MAX_WIDTH = 128
 
 
-def cross_coords_all_levels(cen, grid, scales):
-    """One branch's cross tap coords at every level in one
-    ``dccl_grid_coords`` launch: the centres (B, Q, 2), pre-scaled per level
-    and stacked on the query axis, at scale 1.0. Returns (cx, cy), each
-    (L*B*Q, 81) f32, level after level. Scaling by a power of two is exact,
-    so these are the coords the grid route's kernel computes; they stand in
-    for the JAX package's ``sample_image_window_planes`` einsums
-    (``ops/corr.py:452-461``), the same function up to f32 rounding."""
-    flat = cen.reshape(-1, 2)
-    return dccl_grid_coords(torch.cat([flat * s for s in scales]), grid, 1.0)
-
-
 class DCCLFused:
     """Both branches' DCCL over all pyramid levels
     (``prior_flow_tpu/ops/corr.py:373``), by one of three routes, chosen as
@@ -255,10 +243,12 @@ class DCCLFused:
       one launch for every level;
     - the planes route (``grid_in_kernel=False``, or a 1/8 grid wider than
       128 columns, as at 1024x2048): both branches' cross tap coords for
-      all levels first, one ``dccl_grid_coords`` launch per branch with
-      the level-scaled centres stacked on the query axis, then one
-      ``DCCLLevelLookupCoords`` per level (``ops/corr.py:445-464,
-      503-507``). ``fuse_levels`` has no effect here.
+      all levels first, in one ``dccl_cross_coords`` launch (the level
+      scale applied inside), then one ``DCCLLevelLookupCoords`` per level
+      (``ops/corr.py:445-464, 503-507``). The coords stand in for the JAX
+      package's ``sample_image_window_planes`` einsums (``:452-461``),
+      the same function up to f32 rounding. ``fuse_levels`` has no effect
+      here.
 
     The three give the same bits: scaling a centre by a power of two is
     exact, so the planes route's coords are the ones the grid route's
@@ -301,8 +291,8 @@ class DCCLFused:
         cqB = coords_B.reshape(B, Q, 2).float().contiguous()
         scales = [1.0 / 2.0 ** i for i in range(L)]
         if self.planes_route(a2b_w2c_8):
-            planes = (*cross_coords_all_levels(cqA, a2b_w2c_8, scales),
-                      *cross_coords_all_levels(cqB, b2a_w2c_8, scales))
+            planes = dccl_cross_coords(cqA, cqB, a2b_w2c_8, b2a_w2c_8,
+                                       scales)
             fields = _concat([DCCLLevelLookupCoords.apply(
                 pyr_A[i], pyr_B[i], cqA, cqB, scales[i],
                 *(p[i * B * Q:(i + 1) * B * Q].reshape(B, Q, NTAP)

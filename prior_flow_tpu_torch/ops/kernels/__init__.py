@@ -6,7 +6,8 @@
 | ``csrc/dccl_lookup.cu`` | ``ops/pallas/dccl_gather.py::_dccl_kernel`` | ``dccl_lookup.dccl_level_lookup_coords`` |
 | ``csrc/dccl_lookup.cu`` | ``ops/pallas/dccl_gather.py::_dccl_grid_kernel_all`` | ``dccl_lookup.dccl_lookup_all_levels`` |
 | ``csrc/instance_norm.cu`` | ``ops/pallas/instance_norm.py::_sums_kernel`` | ``instance_norm.instance_norm_sums`` |
-| ``csrc/dccl_coords.cu`` | ``ops/pallas/dccl_gather.py::_coords_kernel`` | ``dccl_coords.dccl_grid_coords`` |
+| ``csrc/dccl_coords.cu`` (both branches, all levels) | ``ops/pallas/dccl_gather.py::_coords_kernel`` | ``dccl_coords.dccl_cross_coords`` |
+| ``csrc/dccl_coords.cu`` (one branch, one level) | the same | ``dccl_coords.dccl_grid_coords`` |
 | ``csrc/dccl_scatter.cu`` (grid entry) | the one-hot einsum backward of ``dccl_gather.py`` (``_scatter_own_cross``, ``_scatter_grads_*_multi``) | ``dccl_scatter.dccl_level_scatter_grid`` |
 | ``csrc/dccl_scatter.cu`` (given coords) | the same, for the planes route | ``dccl_scatter.dccl_level_scatter`` |
 | ``csrc/microbench_anchor.cu`` | ``tools/microbench_vpu_anchor.py::_kernel`` | ``anchors.anchor_chain`` |
@@ -14,7 +15,7 @@
 | ``csrc/dccl_stages.cu`` | ``tools/microbench_kernel_split.py::_own_only_kernel`` | ``dccl_stages.dccl_own_only`` |
 | ``csrc/dccl_stages.cu`` | ``tools/microbench_kernel_split.py::_gridwin_only_kernel`` | ``dccl_stages.dccl_gridwin_only`` |
 | ``csrc/dccl_stages.cu`` | ``tools/microbench_kernel_split.py::_cross_only_kernel`` | ``dccl_stages.dccl_cross_only`` |
-| ``csrc/gridwin_variants.cu`` | ``tools/microbench_gridwin.py::_pair_kernel`` | ``gridwin_variants.gridwin_pair`` |
+| ``csrc/dccl_coords.cu`` (both branches, one level) | ``tools/microbench_gridwin.py::_pair_kernel`` | ``gridwin_variants.gridwin_pair`` |
 | ``csrc/gridwin_variants.cu`` | ``tools/microbench_gridwin.py::_variant_kernel`` | ``gridwin_variants.gridwin_variant`` |
 
 ``csrc/dccl_common.cuh`` holds the sampler and window arithmetic the DCCL
@@ -24,7 +25,7 @@ Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from .anchors import anchor_chain, step_cost_copy
-from .dccl_coords import dccl_grid_coords
+from .dccl_coords import dccl_cross_coords, dccl_grid_coords
 from .dccl_lookup import (dccl_level_lookup, dccl_level_lookup_coords,
                           dccl_lookup_all_levels)
 from .dccl_scatter import dccl_level_scatter, dccl_level_scatter_grid
@@ -34,6 +35,7 @@ from .instance_norm import instance_norm_sums
 
 WRAPPERS = {"dccl_level_lookup": dccl_level_lookup,
             "instance_norm_sums": instance_norm_sums,
+            "dccl_cross_coords": dccl_cross_coords,
             "dccl_grid_coords": dccl_grid_coords,
             "dccl_level_scatter": dccl_level_scatter,
             "dccl_level_scatter_grid": dccl_level_scatter_grid,

@@ -2,7 +2,8 @@
 their plain PyTorch version.
 
 Counterparts of the JAX package's ``tools/microbench_gridwin.py`` kernels;
-kernel source ``prior_flow_tpu_torch/csrc/gridwin_variants.cu``:
+kernel sources ``prior_flow_tpu_torch/csrc/gridwin_variants.cu`` and, for
+the pair, ``csrc/dccl_coords.cu``:
 
 - ``gridwin_variant`` (``_variant_kernel``, via ``variant_call``): the
   cross tap coords of two rotation grids at one centre set, by one of
@@ -13,7 +14,8 @@ kernel source ``prior_flow_tpu_torch/csrc/gridwin_variants.cu``:
   values summed unweighted) and ``arith`` (the corner arithmetic alone, no
   grid read), whose outputs are not coords;
 - ``gridwin_pair`` (``_pair_kernel``, via ``pair_call``): both branches'
-  coords, each at its own centres, in one launch.
+  coords, each at its own centres, in one launch of the coords kernel's
+  both-branch entry at one level (kernel 1's grid-window column body).
 
 A tensor on the CPU goes through the plain version (the diagnostics have
 none and raise there); a CUDA tensor launches the kernel or raises.
@@ -26,6 +28,7 @@ import ctypes
 import torch
 
 from . import _build
+from .dccl_coords import check_inputs, launch_cross_coords
 from .dccl_lookup import NTAP, _device_or_plain, grid_window_coords
 
 VARIANTS = {"direct": 0, "smem_grid": 1}
@@ -50,47 +53,10 @@ def gridwin_variant_plain(cen, grid_A, grid_B, scale: float):
     return gridwin_pair_plain(cen, cen, grid_A, grid_B, scale)
 
 
-def _check(name, cen_A, cen_B, grid_A, grid_B):
-    tensors = (cen_A, cen_B, grid_A, grid_B)
-    if any(t.device != cen_A.device for t in tensors):
-        raise ValueError(f"{name}: inputs on different devices")
-    for c in (cen_A, cen_B):
-        if c.dim() != 2 or c.shape[1] != 2 or c.dtype != torch.float32 \
-                or c.shape != cen_A.shape:
-            raise ValueError(f"{name}: centres must be (N, 2) float32 of one "
-                             f"shape, got {tuple(c.shape)} {c.dtype}")
-    for g in (grid_A, grid_B):
-        if g.dim() != 3 or g.shape[2] != 2 or g.dtype != torch.float32 \
-                or g.shape != grid_A.shape:
-            raise ValueError(f"{name}: grids must be (Hg, Wg, 2) float32 of "
-                             f"one shape, got {tuple(g.shape)} {g.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: inputs must be contiguous")
-
-
-def _kernel(name: str):
-    fn = getattr(_build.load_library().lib, name)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    rest = [p, p, p, p, p, p, p, p, ctypes.c_longlong, i, i, ctypes.c_float, p]
-    fn.argtypes = ([i] + rest) if name == "gridwin_variant" else rest
-    fn.restype = i
-    return fn
-
-
-def _launch(name, lead, cen_A, cen_B, grid_A, grid_B, scale):
-    _check(name, cen_A, cen_B, grid_A, grid_B)
-    N = cen_A.shape[0]
-    Hg, Wg, _ = grid_A.shape
-    outs = [torch.empty((N, NTAP), dtype=torch.float32, device=cen_A.device)
-            for _ in range(4)]
-    with torch.cuda.device(cen_A.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _kernel(name)(*lead, cen_A.data_ptr(), cen_B.data_ptr(),
-                               grid_A.data_ptr(), grid_B.data_ptr(),
-                               *(o.data_ptr() for o in outs), N, Hg, Wg,
-                               float(scale), stream)
-    _build.check(status, name)
-    return tuple(outs)
+_p = ctypes.c_void_p
+ENTRIES = _build.Entries({"gridwin_variant": [
+    ctypes.c_int, _p, _p, _p, _p, _p, _p, _p, _p, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, _p]})
 
 
 def gridwin_variant(cen, grid_A, grid_B, scale: float,
@@ -112,8 +78,14 @@ def gridwin_variant(cen, grid_A, grid_B, scale: float,
         raise ValueError(f"gridwin_variant: two {tuple(grid_A.shape)} grids "
                          f"take {2 * grid_A.numel() * 4} bytes, more than the "
                          f"{SMEM_BYTES} of one block's shared memory")
-    outs = _launch("gridwin_variant", (code,), cen, cen, grid_A, grid_B,
-                   scale)
+    check_inputs("gridwin_variant", (cen,), (grid_A, grid_B))
+    N = cen.numel() // 2
+    Hg, Wg, _ = grid_A.shape
+    outs = torch.empty((4, N, NTAP), dtype=torch.float32,
+                       device=cen.device).unbind(0)
+    ENTRIES.launch("gridwin_variant", cen.device, code, cen.data_ptr(),
+                   cen.data_ptr(), grid_A.data_ptr(), grid_B.data_ptr(),
+                   *(o.data_ptr() for o in outs), N, Hg, Wg, float(scale))
     gridwin_variant.launches += 1
     return outs
 
@@ -126,7 +98,8 @@ def gridwin_pair(cen_A, cen_B, grid_A, grid_B, scale: float):
     results as ``gridwin_pair_plain``."""
     if _device_or_plain("gridwin_pair", cen_A):
         return gridwin_pair_plain(cen_A, cen_B, grid_A, grid_B, scale)
-    outs = _launch("gridwin_pair", (), cen_A, cen_B, grid_A, grid_B, scale)
+    outs = launch_cross_coords("gridwin_pair", cen_A, cen_B, grid_A, grid_B,
+                               [scale])
     gridwin_pair.launches += 1
     return outs
 

@@ -7,8 +7,9 @@ the same at every pyramid level; this tool times where its grid reads come
 from: ``direct`` (the read-only cache) and ``smem_grid`` (both grids staged
 in shared memory), the two ungated diagnostics ``reads`` (grid reads alone)
 and ``arith`` (corner arithmetic alone), and ``gridwin_pair`` (both
-branches at their own centres), beside two launches of the coords kernel
-(``dccl_grid_coords``), the stage as the model's backward runs it.
+branches at their own centres: the coords kernel's both-branch entry, kernel
+1's grid-window column body), beside two one-branch launches of the coords
+kernel (``dccl_grid_coords``).
 
 At Q = 8192 centres (the 1/8 identity grid of a 512x1024 input plus N(0, 5)
 noise; the pair's B centres are the A centres reversed), scale 1.0, the

@@ -28,7 +28,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
-from ..models import build_model
+from ..models import build_model, precision_scope
 from ..ops.kernels.dccl_scatter import dccl_level_scatter_grid
 from ..ops.static_resample import resample_static_transpose
 from ..ops.warp import flo_a2b
@@ -126,7 +126,8 @@ def make_train_step(model, optimizer, schedule: Callable[[int], float],
     ``optimizer`` in place. batch = (image1, image2, flow_gt, valid),
     channels-last f32 on the model's device. Update k runs at
     ``schedule(k)``. Metrics are 0-dim tensors, ``train/loss`` and
-    ``train/grad_norm`` (before the clip) among them."""
+    ``train/grad_norm`` (before the clip) among them. The forward and the
+    backward run at ``model.precision`` (``trainer.py:125-126``)."""
     if grad_mode not in ("standard", "taped"):
         raise ValueError(f"unknown grad_mode {grad_mode!r}")
     params = [p for p in model.parameters() if p.requires_grad]
@@ -141,17 +142,18 @@ def make_train_step(model, optimizer, schedule: Callable[[int], float],
             valid_B = ((flow_gt_B[..., 0].abs() < 1000)
                        & (flow_gt_B[..., 1].abs() < 1000)).float()
         optimizer.zero_grad(set_to_none=True)
-        if grad_mode == "taped":
-            loss, metrics = taped_value_and_grad(
-                model, image1, image2, flow_gt, valid, flow_gt_B, valid_B,
-                iters, gamma)
-        else:
-            preds_A, preds_B = model(image1, image2, iters=iters,
-                                     test_mode=False)
-            loss, metrics = dual_loss(preds_A, preds_B, flow_gt, valid,
-                                      flow_gt_B, valid_B, gamma)
-            loss.backward()
-            loss = loss.detach()
+        with precision_scope(model.precision):
+            if grad_mode == "taped":
+                loss, metrics = taped_value_and_grad(
+                    model, image1, image2, flow_gt, valid, flow_gt_B,
+                    valid_B, iters, gamma)
+            else:
+                preds_A, preds_B = model(image1, image2, iters=iters,
+                                         test_mode=False)
+                loss, metrics = dual_loss(preds_A, preds_B, flow_gt, valid,
+                                          flow_gt_B, valid_B, gamma)
+                loss.backward()
+                loss = loss.detach()
         for p in params:           # optax updates every parameter
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

@@ -153,6 +153,104 @@ def test_coords_kernel_is_bitwise_plain_and_the_lookups_own(dev, lvl):
         assert torch.equal(cross_A, dccl_lookup.sample_volume_level(vB, at))
 
 
+def _centres(dev, B, Q, h, w, seed):
+    """(B, Q, 2) unscaled centres of an (8h, 8w) input over the image and a
+    margin, with the seam, a hair below 0 and the pole rows."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand(2, B, Q, generator=g)
+    c = torch.stack([u[0] * (w + 4) - 2, u[1] * (h + 4) - 2], -1)
+    c[0, :6] = torch.tensor([[w - 1, 0.0], [w - 0.5, h - 1], [-1e-8, 5.0],
+                             [-0.5, -0.5], [w - 1e-3, h - 0.5],
+                             [0.0, h - 1.0]])
+    return c.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("size,B,Q", [
+    pytest.param((512, 1024), 1, 8192, id="512x1024"),
+    pytest.param((1024, 2048), 1, 32768, id="1024x2048"),
+    pytest.param((512, 1024), 3, 2731, id="odd-tail")])
+def test_cross_coords_kernel_is_bitwise_plain(dev, size, B, Q):
+    """The both-branch all-levels entry (the planes route's call: four
+    levels, both branches, one launch) bitwise against its plain version at
+    the level shapes of a 512x1024 and a 1024x2048 input, and at an odd
+    B x Q (8193: a partial last block, and level rows that start off a
+    16-byte boundary)."""
+    h, w = size[0] // 8, size[1] // 8
+    cens = [_centres(dev, B, Q, h, w, seed) for seed in (1, 2)]
+    grids = rotation_grids(*size).to_device(dev)
+    gA, gB = grids.a2b_w2c_8, grids.b2a_w2c_8
+    scales = [1.0 / 2 ** lvl for lvl in range(4)]
+    with torch.no_grad():
+        n0 = dccl_coords.dccl_cross_coords.launches
+        got = dccl_coords.dccl_cross_coords(*cens, gA, gB, scales)
+        torch.cuda.synchronize()
+        assert dccl_coords.dccl_cross_coords.launches == n0 + 1
+        ref = dccl_coords.dccl_cross_coords_plain(*cens, gA, gB, scales)
+    for o, r in zip(got, ref):
+        assert o.shape == (4 * B * Q, 81) and torch.equal(o, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_1_cross_taps_at_the_cross_coords(dev, dtype):
+    """At every level of a 512x1024 input (Q = 8192), kernel 1's cross taps
+    are bitwise the plain sampler of the other volume at the both-branch
+    entry's coords, in both branches."""
+    h, w, Q = 64, 128, 8192
+    cA, cB = (_centres(dev, 1, Q, h, w, seed) for seed in (3, 4))
+    grids = rotation_grids(8 * h, 8 * w).to_device(dev)
+    gA, gB = grids.a2b_w2c_8, grids.b2a_w2c_8
+    scales = [1.0 / 2 ** lvl for lvl in range(4)]
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        planes = dccl_coords.dccl_cross_coords(cA, cB, gA, gB, scales)
+        for lvl, s in enumerate(scales):
+            vA, vB = (torch.randn(1, Q, h >> lvl, w >> lvl, generator=g)
+                      .to(dtype).to(dev) for _ in range(2))
+            xA, yA, xB, yB = (p[lvl * Q:(lvl + 1) * Q] for p in planes)
+            _, cross_A, _, cross_B = dccl_lookup.dccl_level_lookup(
+                vA, vB, cA, cB, gA, gB, s)
+            for cross, other, x, y in ((cross_A, vB, xA, yA),
+                                       (cross_B, vA, xB, yB)):
+                at = torch.stack([x, y], -1).reshape(1, Q, 81, 2)
+                assert torch.equal(cross,
+                                   dccl_lookup.sample_volume_level(other, at))
+
+
+def test_grid_coords_kernel_is_bitwise_plain_at_the_training_batch(dev):
+    """The one-branch one-level entry at the training batch (B = 4 at
+    512x1024, 32768 centres), every level, both grids: bitwise its plain
+    version."""
+    cen = _centres(dev, 4, 8192, 64, 128, 6).reshape(-1, 2)
+    grids = rotation_grids(512, 1024).to_device(dev)
+    with torch.no_grad():
+        for grid in (grids.a2b_w2c_8, grids.b2a_w2c_8):
+            for lvl in range(4):
+                s = 1.0 / 2 ** lvl
+                got = dccl_coords.dccl_grid_coords(cen, grid, s)
+                ref = dccl_coords.dccl_grid_coords_plain(cen, grid, s)
+                assert all(torch.equal(o, r) for o, r in zip(got, ref))
+
+
+def test_precision_highest_forward_on_card_matches_cpu(dev):
+    """``build_model(precision="highest")`` under torch's default flags
+    (TF32 on for cuDNN convolutions) against the CPU at the forward gate of
+    chip_smoke.py (128x256, 4 iterations, 1e-3 x flow scale); the caller's
+    flags are back after the call."""
+    g = torch.Generator().manual_seed(11)
+    i1, i2 = (torch.rand(1, 128, 256, 3, generator=g) * 255 for _ in range(2))
+    ref = build_model("cpu", seed=5)(i1, i2, iters=4)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card = build_model(dev, seed=5, precision="highest")
+        out = card(i1.to(dev), i2.to(dev), iters=4).cpu()
+        assert torch.backends.cudnn.allow_tf32 is True
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-3 * ref.abs().max().item(), err
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [1, 3])
 def test_scatter_kernel_matches_plain(dev, dtype, S):
@@ -271,8 +369,8 @@ def test_lookup_coords_kernel_is_bitwise_plain(dev, dtype, lvl):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_planes_route_is_bitwise_kernel_1(dev, dtype):
     """On a 128x256 grid (a 1024x2048 input), the planes route (one coords
-    launch per branch for all levels, then the lookup at given coords)
-    gives kernel 1's bits, level by level."""
+    launch for both branches and all levels, then the lookup at given
+    coords) gives kernel 1's bits, level by level."""
     g = torch.Generator().manual_seed(2)
     Q, h, w = 2048, 128, 256           # a sample of the 32768 queries
     vols = [[torch.randn(1, Q, h >> lvl, w >> lvl, generator=g).to(dtype)
@@ -284,8 +382,7 @@ def test_planes_route_is_bitwise_kernel_1(dev, dtype):
     gA, gB = grids.a2b_w2c_8, grids.b2a_w2c_8
     scales = [1.0 / 2 ** lvl for lvl in range(4)]
     with torch.no_grad():
-        planes = (*corr.cross_coords_all_levels(cA, gA, scales),
-                  *corr.cross_coords_all_levels(cB, gB, scales))
+        planes = dccl_coords.dccl_cross_coords(cA, cB, gA, gB, scales)
         BQ = cA.shape[0] * cA.shape[1]
         for lvl, (vA, vB, *_) in enumerate(vols):
             given = [p[lvl * BQ:(lvl + 1) * BQ].reshape(*cA.shape[:2], 81)
@@ -365,7 +462,7 @@ def test_new_functions_gradient_on_card_matches_plain_autograd(dev, fn):
         assert counts["dccl_level_scatter"] == 8
     else:
         assert counts["dccl_lookup_all_levels"] == 1
-        assert counts["dccl_grid_coords"] == 0
+        assert counts["dccl_grid_coords"] == counts["dccl_cross_coords"] == 0
         assert counts["dccl_level_scatter_grid"] == 8
     for a, b in zip(got, ref):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item() + 1e-6

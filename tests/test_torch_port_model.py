@@ -84,17 +84,24 @@ def _force_route(monkeypatch, tm, route):
     return calls
 
 
-@pytest.mark.parametrize("route,with_init", [
-    pytest.param("default", False, id="False"),
-    pytest.param("default", True, id="True"),
-    pytest.param("planes_lean", False, id="planes_lean-False"),
-    pytest.param("planes_lean", True, id="planes_lean-True"),
-    pytest.param("fused_levels", False, id="fused_levels-False"),
-    pytest.param("fused_levels", True, id="fused_levels-True")])
-def test_forward_matches_jax(models, monkeypatch, route, with_init):
-    """64x128, 4 iterations, f32 against PriOrRAFT(precision='highest'),
+_ROUTES = [("default", False, "False"), ("default", True, "True"),
+           ("planes_lean", False, "planes_lean-False"),
+           ("planes_lean", True, "planes_lean-True"),
+           ("fused_levels", False, "fused_levels-False"),
+           ("fused_levels", True, "fused_levels-True")]
+
+
+@pytest.mark.parametrize("precision,route,with_init", [
+    pytest.param(p, r, i, id=name if p else f"None-{name}")
+    for p in ("highest", None) for r, i, name in _ROUTES])
+def test_forward_matches_jax(models, monkeypatch, precision, route,
+                             with_init):
+    """64x128, 4 iterations, f32 against the JAX PriOrRAFT built with the
+    same ``precision`` (None: the backend default; 'highest': full f32),
     through each of the port's routes (JAX takes its default one)."""
     jm, variables, tm = models
+    jm = jm.clone(precision=precision)
+    monkeypatch.setattr(tm, "precision", precision)
     lean_calls = _force_route(monkeypatch, tm, route)
     init = None
     if with_init:
@@ -102,6 +109,58 @@ def test_forward_matches_jax(models, monkeypatch, route, with_init):
             np.float32)
     _compare(jm, variables, tm, 64, 128, 4, init)
     assert len(lean_calls) == (2 if route == "planes_lean" else 0)
+
+
+def test_precision_restores_the_callers_tf32_flags(monkeypatch):
+    """``precision='highest'`` turns TF32 off for matmuls and cuDNN
+    convolutions inside the forward and around a training step's forward
+    and backward, and puts back the flags the caller had set, through
+    either of torch's APIs; None touches nothing; any other value
+    raises."""
+    from prior_flow_tpu_torch.train import make_optimizer, make_train_step
+    from prior_flow_tpu_torch.train import trainer
+    mm, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    seen = []
+
+    def flags(*_):
+        seen.append((mm.fp32_precision, conv.fp32_precision))
+        return torch.zeros(1), torch.zeros(1)
+
+    tm = PriOrRAFT(precision="highest")
+    monkeypatch.setattr(tm, "_forward", flags)
+    monkeypatch.setattr(trainer, "dual_loss", lambda *a: (
+        flags()[0].sum().requires_grad_(), {}))
+    step = make_train_step(tm, *make_optimizer(tm.parameters(), 1e-4, 10),
+                           iters=1)
+    img = torch.zeros(1, 64, 128, 3)
+    batch = (img, img, torch.zeros(1, 64, 128, 2), torch.ones(1, 64, 128))
+    saved = (mm.fp32_precision, conv.fp32_precision)
+    try:
+        for legacy in (True, False):     # torch.backends.*.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = legacy
+            torch.backends.cudnn.allow_tf32 = legacy
+            tm(img, img, iters=1)
+            step(batch, 0)
+            assert seen == [("ieee", "ieee")] * 3     # forward, step, loss
+            seen.clear()
+            assert torch.backends.cuda.matmul.allow_tf32 is legacy
+            assert torch.backends.cudnn.allow_tf32 is legacy
+        mm.fp32_precision, conv.fp32_precision = "tf32", "tf32"
+        with prior_raft.precision_scope("highest"):
+            assert (mm.fp32_precision, conv.fp32_precision) == ("ieee",
+                                                                "ieee")
+        assert (mm.fp32_precision, conv.fp32_precision) == ("tf32", "tf32")
+        with prior_raft.precision_scope(None):
+            assert (mm.fp32_precision, conv.fp32_precision) == ("tf32",
+                                                                "tf32")
+    finally:
+        mm.fp32_precision, conv.fp32_precision = saved
+    for bad in ("high", "float32", "fastest"):
+        with pytest.raises(ValueError):
+            PriOrRAFT(precision=bad)
+        with pytest.raises(ValueError):
+            with prior_raft.precision_scope(bad):
+                pass
 
 
 def test_lean_build_routing(monkeypatch):

@@ -290,22 +290,36 @@ def _centres(rng, N, h, w):
 
 
 def _coords_vs_pallas(rng, H, W, N, atol=1e-5):
+    """Both coords entries' plain versions at every level against the Pallas
+    coords kernel in interpret mode: the one-branch ``dccl_grid_coords``
+    and, level by level, the both-branch all-levels ``dccl_cross_coords``
+    (branch B at other centres); the wrappers launch nothing on the CPU."""
     from prior_flow_tpu.ops.pallas.dccl_gather import (dccl_grid_coords,
                                                        pack_grid_planes)
     g = jgrids.rotation_grids(H, W)
-    cen = _centres(rng, N, H // 8, W // 8)
-    for grid in (g.a2b_w2c_8, g.b2a_w2c_8):
-        for lvl in range(4):
-            s = 1.0 / 2 ** lvl
+    cens = (_centres(rng, N, H // 8, W // 8), _centres(rng, N, H // 8, W // 8))
+    grids = (g.a2b_w2c_8, g.b2a_w2c_8)
+    scales = [1.0 / 2 ** lvl for lvl in range(4)]
+    n0 = dccl_coords.dccl_cross_coords.launches
+    planes = dccl_coords.dccl_cross_coords(
+        *(T(c).reshape(1, N, 2) for c in cens), *(T(g) for g in grids),
+        scales)
+    assert dccl_coords.dccl_cross_coords.launches == n0
+    assert all(p.shape == (4 * N, 81) for p in planes)
+    for br, (cen, grid) in enumerate(zip(cens, grids)):
+        for lvl, s in enumerate(scales):
             rx, ry = dccl_grid_coords(jnp.asarray(cen),
                                       pack_grid_planes(jnp.asarray(grid)),
                                       grid.shape[1], s, interpret=True)
             cx, cy = dccl_coords.dccl_grid_coords_plain(T(cen), T(grid), s)
+            rows = slice(lvl * N, (lvl + 1) * N)
             assert cx.shape == cy.shape == (N, 81)
-            np.testing.assert_allclose(cx.numpy(), np.asarray(rx)[:, :81],
-                                       atol=atol, rtol=0)
-            np.testing.assert_allclose(cy.numpy(), np.asarray(ry)[:, :81],
-                                       atol=atol, rtol=0)
+            for got, ref in ((cx, rx), (cy, ry),
+                             (planes[2 * br][rows], rx),
+                             (planes[2 * br + 1][rows], ry)):
+                np.testing.assert_allclose(got.numpy(),
+                                           np.asarray(ref)[:, :81],
+                                           atol=atol, rtol=0)
 
 
 def test_grid_coords_plain_matches_pallas_interpret(rng):
@@ -324,6 +338,28 @@ def test_grid_coords_plain_matches_pallas_interpret_full_grid(rng):
     128), which the grid's slope turns into up to 2 x 1.5e-5 x 32 = 9.8e-4
     px: this grid is held to 1e-3 px (measured: 4.4e-4)."""
     _coords_vs_pallas(rng, 512, 1024, 512, atol=1e-3)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_cross_coords_plain_is_the_stacked_per_level_coords(rng, batch):
+    """The both-branch all-levels coords (the planes route's call) are
+    bitwise the per-level ``dccl_grid_coords_plain`` of each branch,
+    stacked level after level, on the 128x256 grids of a 1024x2048 input
+    with the seam, a hair below 0 and the pole rows among the centres."""
+    h, w, Q = 128, 256, 40
+    g = rotation_grids(8 * h, 8 * w).to_device("cpu")
+    grids = (g.a2b_w2c_8, g.b2a_w2c_8)
+    cens = [T(_centres(rng, batch * Q, h, w)).reshape(batch, Q, 2)
+            for _ in range(2)]
+    cens[1][0, 6:9] = torch.tensor([[-1e-8, 5.0], [w - 1e-3, 0.0],
+                                    [0.5, h - 1.0]])
+    scales = [1.0 / 2 ** lvl for lvl in range(4)]
+    planes = dccl_coords.dccl_cross_coords_plain(*cens, *grids, scales)
+    for br, (cen, grid) in enumerate(zip(cens, grids)):
+        for j in (0, 1):
+            want = torch.cat([dccl_coords.dccl_grid_coords_plain(
+                cen.reshape(-1, 2), grid, s)[j] for s in scales])
+            assert torch.equal(planes[2 * br + j], want)
 
 
 def test_grid_coords_plain_is_the_lookups_cross_coords(rng):
@@ -536,9 +572,11 @@ def test_planes_coords_match_jax_window_planes(rng, size):
     scales = [1.0 / 2 ** i for i in range(4)]
     g = rotation_grids(H, W).to_device("cpu")
     delta = corr.window_delta(4).numpy()
-    for grid in (g.a2b_w2c_8, g.b2a_w2c_8):
-        cx, cy = corr.cross_coords_all_levels(T(cen).reshape(1, N, 2), grid,
-                                              scales)
+    c = T(cen).reshape(1, N, 2)
+    planes = dccl_coords.dccl_cross_coords(c, c, g.a2b_w2c_8, g.b2a_w2c_8,
+                                           scales)
+    for grid, cx, cy in ((g.a2b_w2c_8, *planes[:2]),
+                         (g.b2a_w2c_8, *planes[2:])):
         assert cx.shape == cy.shape == (4 * N, 81)
         gn = grid.numpy()
         for lvl, s in enumerate(scales):

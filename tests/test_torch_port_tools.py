@@ -24,7 +24,7 @@ from prior_flow_tpu_torch.ops.kernels import (anchors, dccl_lookup,
                                               dccl_stages, gridwin_variants,
                                               launch_counts,
                                               reset_launch_counts)
-from prior_flow_tpu_torch.tools import (microbench_gridwin,
+from prior_flow_tpu_torch.tools import (coords_occupancy, microbench_gridwin,
                                         microbench_kernel_split,
                                         microbench_vpu_anchor)
 from test_torch_port_ops import _centres
@@ -309,9 +309,26 @@ def test_cold_ms_rotates_inputs_and_outputs_past_the_cache(monkeypatch):
     assert torch.equal(outs[0], outs[reps])
 
 
+def test_coords_occupancy_variants_change_only_blocks_per_sm():
+    """Each variant of the coords kernel's source differs from the source
+    in the kBlocksPerSM constant alone, and the source's own count is one
+    of the counts the tool times."""
+    src = (coords_occupancy._build.CSRC_DIR / "dccl_coords.cu").read_text()
+    lines = src.splitlines()
+    own = [b for b in coords_occupancy.BLOCKS
+           if coords_occupancy.variant_source(b) == src]
+    assert len(own) == 1
+    for b in coords_occupancy.BLOCKS:
+        diff = [(a, v) for a, v in zip(
+            lines, coords_occupancy.variant_source(b).splitlines()) if a != v]
+        assert diff == ([] if b == own[0] else
+                        [(f"constexpr int kBlocksPerSM = {own[0]};",
+                          f"constexpr int kBlocksPerSM = {b};")])
+
+
 @pytest.mark.parametrize("tool", [microbench_vpu_anchor,
                                   microbench_kernel_split,
-                                  microbench_gridwin])
+                                  microbench_gridwin, coords_occupancy])
 def test_tools_refuse_to_run_without_the_card(tool):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card; the tools run there")
