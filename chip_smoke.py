@@ -64,12 +64,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    PRIORFLOW_DCCL_FUSE_LEVELS=1 (12 all-levels launches, no kernel 1) within
    1e-5 x flow scale of phase 4's flow;
 15. the primitive-rate anchors (``tools/microbench_vpu_anchor.py``) at the
-   tool's size (128 x (512, 128) f32, K = 256): the six (kind, ilp) chains
-   bitwise against their plain versions, the SASS step instructions per
-   element (K less at most one per chain, or the chain was folded), the
-   card's ms and T elem-ops/s beside the operations bound from the SM count
-   and the max SM clock; the copy kernel bitwise 2x, its per-block slope
-   from 512 to 4096 blocks, and one empty launch;
+   tool's size (128 x (512, 128) f32, K = 256): the gather's read schedule
+   built once by the plan kernel and held bitwise against its plain
+   version, the six (kind, ilp) chains (the gathers on that plan) bitwise
+   against their plain versions, the SASS step instructions per element (K
+   less at most one per chain, or the chain was folded), the card's ms and
+   T elem-ops/s beside the operations bound from the SM count and the max
+   SM clock (each gather's bytes bound counts its plan); the plan kernel's
+   ms on its own and the shared-memory wavefronts per row-step modelled
+   from idx (old layout, plan); the copy kernel bitwise 2x, its per-block
+   slope from 512 to 4096 blocks, and one empty launch;
 16. the DCCL stage split (``tools/microbench_kernel_split.py``) at 512x1024,
    batch 1, four levels, f32 and bf16, each stage kernel 1's column body
    with the other stages compiled out: own-only and cross-only bitwise equal
@@ -77,10 +81,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    launches, each beside its plain version; per level the ms of kernel 1,
    of row 3 at random coords and of each stage beside its bytes bound;
 17. the grid-window variants (``tools/microbench_gridwin.py``) at Q = 8192,
-   64x128 grids: every semantic variant and the pair (the coords kernel's
-   both-branch entry) bitwise equal to two one-branch coords launches; ms
-   of each variant, diagnostic, the pair and the two launches, the plain
-   version and F.grid_sample.
+   64x128 grids, each on kernel 1's grid-window column body: both semantic
+   variants (direct, the coords kernel's both-branch entry; smem_grid, the
+   grids in shared memory) and the pair bitwise equal to two one-branch
+   coords launches, the reads and arith diagnostics bitwise their plain
+   versions; ms of each variant, diagnostic, the pair and the two
+   launches, the plain version and F.grid_sample.
 The launches of phases 15-17 are the tools' measurement runs (path
 "tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
@@ -143,9 +149,6 @@ LEVELS = 4
 # of the scatter's given-coords entry (window 4 + two corner sets 2 x 23 +
 # eight weighted shared-memory adds 16)
 COORDS_OPS_PER_TAP = 31
-# the same per tap for the grid-window variants, one thread per tap
-# (window 4 + grid sample 47)
-TAP_COORDS_OPS_PER_TAP = 51
 SCATTER_OPS_PER_TAP = 66
 # the scatter's grid entry adds its cross taps' grid sample (47)
 SCATTER_GRID_OPS_PER_TAP = SCATTER_OPS_PER_TAP + 47
@@ -1459,30 +1462,47 @@ def phase_forward_hr(dev, ref_128, flow32, c1, c2, i1, i2):
 
 # -- phase 15: primitive-rate anchors ----------------------------------------------
 
+# integer operations per edge step of the gather plan's Euler splits (the
+# candidate tests and the walk), counted at the f32 rate
+PLAN_OPS_PER_EDGE_STEP = 24
+
+
 def phase_anchors(dev, peaks, sms: int, clock_hz: float):
     """The anchor tool's run (gates, SASS counts, measurement) at its size,
-    beside each kernel's bound; returns the two kernels' rows and the tool
-    run's launch counts."""
+    beside each kernel's bound; returns the chains', the plan's and the
+    copy's rows and the tool run's launch counts."""
     import torch
     from prior_flow_tpu_torch.tools import microbench_vpu_anchor as va
 
     try:
-        chains, step, launches = va.run(dev)
+        chains, step, plan, launches = va.run(dev)
     except va.GateError as e:
         fail(str(e))
-    # x and idx read, the output written
-    t_bytes = 3 * va.GRID * va.TILE_R * va.LANES * 4 / peaks[0] * 1e3
+    rows = va.GRID * va.TILE_R
+    row_bytes = va.LANES * 4
+    plan_bytes = rows * va.LANES * 2
+    # x and idx read, the output written; the gather also reads its plan
+    t_bytes = {kind: (3 * rows * row_bytes
+                      + (plan_bytes if kind == "gather" else 0))
+               / peaks[0] * 1e3 for kind in va.KINDS}
     chain = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
                  bound_by="operations", err=0.0, per={})
     for (kind, ilp), c in chains.items():
         t_ops = va.ops_bound_ms(kind, va.N_ELEM, sms, clock_hz)
         print(f"  anchor {va.chain_line(kind, ilp, c, sms, clock_hz).strip()}"
-              f"; bytes bound {t_bytes:.4f} ms", flush=True)
+              f"; bytes bound {t_bytes[kind]:.4f} ms", flush=True)
         chain["ms"] += c["ms"]
         chain["plain_ms"] += c["plain_ms"]
-        chain["bound_ms"] += max(t_ops, t_bytes)
+        chain["bound_ms"] += max(t_ops, t_bytes[kind])
         chain["err"] = max(chain["err"], c["err"])
         chain["per"][f"{kind}_ilp{ilp}"] = round(c["ms"], 4)
+    # idx read, the plan written; two splits of 128 edge steps per row
+    plan_row = dict(plan, library_ms=None, err=0.0)
+    plan_row["bound_ms"], plan_row["bound_by"] = bound(
+        rows * row_bytes + plan_bytes,
+        rows * 2 * va.LANES * PLAN_OPS_PER_EDGE_STEP, peaks)
+    print(f"  {va.plan_line(plan)}; bound {plan_row['bound_ms']:.4f} ms "
+          f"({plan_row['bound_by']})", flush=True)
     t0, t1 = va.STEP_TILES
     copy = dict(step, ms=step["ms"][t1], small_ms=step["ms"][t0], err=0.0,
                 library_ms=va.cold_ms(lambda x: torch.mul(x, 2.0), dev, t1))
@@ -1494,7 +1514,7 @@ def phase_anchors(dev, peaks, sms: int, clock_hz: float):
     print(f"  anchors, six chains: {chain['ms']:.4f} ms against a bound of "
           f"{chain['bound_ms']:.4f} ms ({sms} SMs at "
           f"{clock_hz / 1e9:.3f} GHz)", flush=True)
-    return chain, copy, launches
+    return chain, plan_row, copy, launches
 
 
 # -- phase 16: the DCCL stage split ------------------------------------------------
@@ -1666,10 +1686,10 @@ def phase_gridwin(dev, peaks):
             for img, g in zip(imgs, libs)], 50)
     out_bytes = 4 * N * NTAP * 4
     grid_bytes = 2 * gA.numel() * 4
-    variant = dict(ms=rec["direct_ms"], plain_ms=plain_ms, library_ms=lib_ms,
-                   err=0.0)
+    variant = dict(ms=rec["smem_grid_ms"], direct_ms=rec["direct_ms"],
+                   plain_ms=plain_ms, library_ms=lib_ms, err=0.0)
     variant["bound_ms"], variant["bound_by"] = bound(
-        N * 8 + out_bytes + grid_bytes, 2 * N * NTAP * TAP_COORDS_OPS_PER_TAP,
+        N * 8 + out_bytes + grid_bytes, 2 * N * NTAP * COORDS_OPS_PER_TAP,
         peaks)
     pair = dict(ms=rec["pair_ms"], plain_ms=pair_plain_ms,
                 library_ms=pair_lib_ms, err=0.0)
@@ -1679,7 +1699,8 @@ def phase_gridwin(dev, peaks):
     # the same work as two one-branch launches of the coords kernel
     one_branch = dict(pair, ms=rec["coords_kernel_x2_ms"])
     print(f"  gridwin Q={N}, grids {Hg}x{Wg}: direct and smem_grid variants "
-          f"and the pair bitwise equal to the coords kernel; ms: "
+          f"and the pair bitwise equal to the coords kernel, the reads and "
+          f"arith diagnostics to their plain versions; ms: "
           + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in rec.items())
           + f"; plain {plain_ms:.4f} (pair {pair_plain_ms:.4f}); 2 "
           f"F.grid_sample {lib_ms:.4f} (pair {pair_lib_ms:.4f}); bound "
@@ -1810,7 +1831,7 @@ def main(argv=None) -> None:
     clock_hz = max_sm_clock_hz()
     print(f"phase 15 primitive-rate anchors ({sms} SMs, max SM clock "
           f"{clock_hz / 1e6:.0f} MHz)", flush=True)
-    chain, copy, tool_anchor = phase_anchors(dev, peaks, sms, clock_hz)
+    chain, plan, copy, tool_anchor = phase_anchors(dev, peaks, sms, clock_hz)
     print(f"phase 16 DCCL stage split, {H}x{W}, batch 1", flush=True)
     stages, tool_split = phase_stage_split(dev, peaks)
     print("phase 17 grid-window variants", flush=True)
@@ -1941,11 +1962,22 @@ def main(argv=None) -> None:
         row("anchor_chain", "microbench_anchor.cu",
             "tools/microbench_vpu_anchor.py:46", chain,
             "ms/plain/bound: the six (kind, ilp) chains of the anchor tool, "
-            "one launch each, 128 x (512, 128) f32, K = 256, summed; per "
-            f"chain ms {chain['per']}; max_abs_err over finite outputs; "
-            "library_ms "
+            "one launch each, 128 x (512, 128) f32, K = 256, summed, the "
+            "gathers on a plan built once (row gather_plan); per "
+            f"chain ms {chain['per']}; the bound of each gather counts its "
+            "plan's bytes; max_abs_err over finite outputs; library_ms "
             "null: no single PyTorch call computes a 256-deep dependent "
             "chain", chain["err"], path="tool"),
+        row("gather_plan", "microbench_anchor.cu",
+            "tools/microbench_vpu_anchor.py:46", plan,
+            "ms/plain/bound: the gather chains' read schedule of the anchor "
+            f"tool's idx ({plan['rows']} rows, one thread per row, two Euler "
+            "splits), one launch, queued, timed apart from the chains; "
+            "bitwise its plain version (max_abs_err 0); shared-memory "
+            "wavefronts per row-step modelled from idx: old layout "
+            f"{plan['wavefronts_old']:.3f}, plan "
+            f"{plan['wavefronts_plan']:.3f}; library_ms null: no PyTorch "
+            "call computes an edge coloring", plan["err"], path="tool"),
         row("step_cost_copy", "microbench_anchor.cu",
             "tools/microbench_vpu_anchor.py:91", copy,
             "ms/plain/bound/library: o = 2x over 4096 (8, 128) f32 tiles, "
@@ -1988,9 +2020,13 @@ def main(argv=None) -> None:
             "normalised window coords", pair["err"], path="tool"),
         row("gridwin_variant", "gridwin_variants.cu",
             "tools/microbench_gridwin.py:394", variant,
-            "ms/plain/bound/library: the direct variant, both grids at one "
-            "centre set, Q = 8192, 64x128 grids, scale 1; every variant, "
-            f"diagnostic and two coords-kernel launches (ms): "
+            "ms/plain/bound/library: the smem_grid variant (both grids "
+            "staged in shared memory), Q = 8192, 64x128 grids, scale 1, "
+            "queued; the direct variant is dccl_coords.cu's "
+            "dccl_cross_coords at one centre set (the gridwin_pair row's "
+            f"kernel): {variant['direct_ms']:.4f} ms, the same bound; "
+            "launches: the wrapper's, every variant and diagnostic; every "
+            "variant, diagnostic and two coords-kernel launches (ms): "
             f"{variant['per']}; library_ms = 2 F.grid_sample at precomputed "
             "normalised window coords", variant["err"], path="tool"),
     ]

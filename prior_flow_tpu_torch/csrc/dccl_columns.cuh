@@ -6,8 +6,10 @@
 // runs it with stages left out (the own taps, the grid window, or the grid
 // window and the cross taps), so that the stages' times split kernel 1's
 // own; dccl_coords.cu runs the grid window's column_taps in a block of its
-// own, which stores whole rows. A stage left out is not computed at all; the stages that run do
-// kernel 1's arithmetic in its order, so they give its bits.
+// own, which stores whole rows (store_run), and gridwin_variants.cu runs it
+// on grids staged in shared memory. A stage left out is not computed at
+// all; the stages that run do kernel 1's arithmetic in its order, so they
+// give its bits.
 
 #pragma once
 
@@ -43,13 +45,40 @@ struct LevelOut {
   float* crossB;
 };
 
+// Copies n floats from shared `src` (16-byte aligned) to `dst` with a
+// block of THREADS threads: 16 bytes a thread from dst's first 16-byte
+// boundary on.
+template <int THREADS>
+__device__ __forceinline__ void store_run(float* __restrict__ dst,
+                                          const float* __restrict__ src,
+                                          int n, int tid) {
+  const int pad = static_cast<int>(
+      (0u - static_cast<unsigned>(reinterpret_cast<uintptr_t>(dst) >> 2)) &
+      3u);
+  const int head = pad < n ? pad : n;
+  if (tid < head) dst[tid] = src[tid];
+  const int quads = (n - head) >> 2;
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  if (head == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    for (int e = tid; e < quads; e += THREADS) d4[e] = s4[e];
+  } else {
+    for (int e = tid; e < quads; e += THREADS) {
+      const float* s = src + head + 4 * e;
+      d4[e] = make_float4(s[0], s[1], s[2], s[3]);
+    }
+  }
+  for (int e = head + 4 * quads + tid; e < n; e += THREADS) dst[e] = src[e];
+}
+
 // The 9 taps of window column i of one branch: the own taps in `own`, the
 // cross taps (the grid sampled at the own coords, then the other volume) in
 // `other`; results into s_own[j], s_cross[j] (with kGridTaps alone: the
 // coords' x and y). The own column first, then the column's 9 grid samples,
 // then their 9 gathers, so that each group's reads are independent of one
-// another.
-template <int STAGES, typename T>
+// another. GridFetch reads grid cells from `grid`: the read-only cache
+// (GlobalGrid), or a copy of the grid in shared memory.
+template <int STAGES, typename T, class GridFetch = GlobalGrid>
 __device__ __forceinline__ void column_taps(
     const T* __restrict__ own, const T* __restrict__ other, float2 cen,
     const float2* __restrict__ grid, int i, int Hl, int Wl, int Hg, int Wg,
@@ -67,7 +96,7 @@ __device__ __forceinline__ void column_taps(
   }
   if (STAGES & kGridTaps) {
     ColumnSampler<float2> grd(Hg, Wg, x);
-    const GlobalGrid rg{grid};
+    const GridFetch rg{grid};
     float2 p[kWin];
 #pragma unroll
     for (int j = 0; j < kWin; ++j) {

@@ -62,30 +62,6 @@ struct Out {
   float* xy[4];
 };
 
-// Copies n floats from shared `src` (16-byte aligned) to `dst` with the
-// block's threads: 16 bytes a thread from dst's first 16-byte boundary on.
-__device__ __forceinline__ void store_run(float* __restrict__ dst,
-                                          const float* __restrict__ src,
-                                          int n, int tid) {
-  const int pad = static_cast<int>(
-      (0u - static_cast<unsigned>(reinterpret_cast<uintptr_t>(dst) >> 2)) &
-      3u);
-  const int head = pad < n ? pad : n;
-  if (tid < head) dst[tid] = src[tid];
-  const int quads = (n - head) >> 2;
-  float4* d4 = reinterpret_cast<float4*>(dst + head);
-  if (head == 0) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    for (int e = tid; e < quads; e += kThreads) d4[e] = s4[e];
-  } else {
-    for (int e = tid; e < quads; e += kThreads) {
-      const float* s = src + head + 4 * e;
-      d4[e] = make_float4(s[0], s[1], s[2], s[3]);
-    }
-  }
-  for (int e = head + 4 * quads + tid; e < n; e += kThreads) dst[e] = src[e];
-}
-
 // One block: centres q0 .. q0 + QB - 1 of level blockIdx.y, BR branches.
 template <int BR>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
@@ -118,7 +94,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   const long long row0 = (static_cast<long long>(l) * N + q0) * kTaps;
 #pragma unroll
   for (int a = 0; a < 2 * BR; ++a) {
-    store_run(out.xy[a] + row0, stage[a], n, tid);
+    dccl::store_run<kThreads>(out.xy[a] + row0, stage[a], n, tid);
   }
 }
 

@@ -11,20 +11,23 @@
 | ``csrc/dccl_scatter.cu`` (grid entry) | the one-hot einsum backward of ``dccl_gather.py`` (``_scatter_own_cross``, ``_scatter_grads_*_multi``) | ``dccl_scatter.dccl_level_scatter_grid`` |
 | ``csrc/dccl_scatter.cu`` (given coords) | the same, for the planes route | ``dccl_scatter.dccl_level_scatter`` |
 | ``csrc/microbench_anchor.cu`` | ``tools/microbench_vpu_anchor.py::_kernel`` | ``anchors.anchor_chain`` |
+| ``csrc/microbench_anchor.cu`` (the gather's read schedule) | the same | ``anchors.gather_plan`` |
 | ``csrc/microbench_anchor.cu`` | ``tools/microbench_vpu_anchor.py::_copy_kernel`` | ``anchors.step_cost_copy`` |
 | ``csrc/dccl_stages.cu`` | ``tools/microbench_kernel_split.py::_own_only_kernel`` | ``dccl_stages.dccl_own_only`` |
 | ``csrc/dccl_stages.cu`` | ``tools/microbench_kernel_split.py::_gridwin_only_kernel`` | ``dccl_stages.dccl_gridwin_only`` |
 | ``csrc/dccl_stages.cu`` | ``tools/microbench_kernel_split.py::_cross_only_kernel`` | ``dccl_stages.dccl_cross_only`` |
 | ``csrc/dccl_coords.cu`` (both branches, one level) | ``tools/microbench_gridwin.py::_pair_kernel`` | ``gridwin_variants.gridwin_pair`` |
-| ``csrc/gridwin_variants.cu`` | ``tools/microbench_gridwin.py::_variant_kernel`` | ``gridwin_variants.gridwin_variant`` |
+| ``csrc/gridwin_variants.cu``, ``csrc/dccl_coords.cu`` (direct) | ``tools/microbench_gridwin.py::_variant_kernel`` | ``gridwin_variants.gridwin_variant`` |
 
 ``csrc/dccl_common.cuh`` holds the sampler and window arithmetic the DCCL
-kernels share. The last seven rows are the kernels of the port's
+kernels share, ``csrc/dccl_columns.cuh`` the column body of the lookup
+and its stages, the coords kernel and the grid-window variants. The last
+eight rows are the kernels of the port's
 measurement tools (``prior_flow_tpu_torch/tools``), off the model's paths.
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
-from .anchors import anchor_chain, step_cost_copy
+from .anchors import anchor_chain, gather_plan, step_cost_copy
 from .dccl_coords import dccl_cross_coords, dccl_grid_coords
 from .dccl_lookup import (dccl_level_lookup, dccl_level_lookup_coords,
                           dccl_lookup_all_levels)
@@ -42,6 +45,7 @@ WRAPPERS = {"dccl_level_lookup": dccl_level_lookup,
             "dccl_level_lookup_coords": dccl_level_lookup_coords,
             "dccl_lookup_all_levels": dccl_lookup_all_levels,
             "anchor_chain": anchor_chain,
+            "gather_plan": gather_plan,
             "step_cost_copy": step_cost_copy,
             "dccl_own_only": dccl_own_only,
             "dccl_gridwin_only": dccl_gridwin_only,

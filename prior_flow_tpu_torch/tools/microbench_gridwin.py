@@ -4,18 +4,20 @@ Counterpart of the JAX package's ``tools/microbench_gridwin.py``, on the
 port's kernels (``ops/kernels/gridwin_variants.py``). The grid-window stage
 (both rotation grids sampled at the 81 window taps of each centre) costs
 the same at every pyramid level; this tool times where its grid reads come
-from: ``direct`` (the read-only cache) and ``smem_grid`` (both grids staged
-in shared memory), the two ungated diagnostics ``reads`` (grid reads alone)
-and ``arith`` (corner arithmetic alone), and ``gridwin_pair`` (both
-branches at their own centres: the coords kernel's both-branch entry, kernel
-1's grid-window column body), beside two one-branch launches of the coords
-kernel (``dccl_grid_coords``).
+from, each variant on kernel 1's grid-window column body: ``direct`` (the
+read-only cache: the coords kernel's both-branch entry at one centre set)
+and ``smem_grid`` (both grids staged in shared memory), the two
+diagnostics that split the column body's time, ``reads`` (its row-pair
+reads alone) and ``arith`` (its corner arithmetic alone), and
+``gridwin_pair`` (both branches at their own centres, the same entry),
+beside two one-branch launches of the coords kernel (``dccl_grid_coords``).
 
 At Q = 8192 centres (the 1/8 identity grid of a 512x1024 input plus N(0, 5)
 noise; the pair's B centres are the A centres reversed), scale 1.0, the
 input's 64x128 grids. Every semantic variant and the pair are first gated
-bitwise against the coords kernel; then one JSON line of the card's ms
-per launch (launches queued ahead, ``_timing.queued_ms``).
+bitwise against the coords kernel, the diagnostics bitwise against their
+plain versions; then one JSON line of the card's ms per launch (launches
+queued ahead, ``_timing.queued_ms``).
 
     python -m prior_flow_tpu_torch.tools.microbench_gridwin
 """
@@ -30,8 +32,9 @@ from ..geometry import identity_grid_on, rotation_grids
 from ..models import resolve_device
 from ..ops.kernels import launch_counts, reset_launch_counts
 from ..ops.kernels.dccl_coords import dccl_grid_coords
-from ..ops.kernels.gridwin_variants import (DIAGNOSTICS, VARIANTS,
-                                            gridwin_pair, gridwin_pair_plain,
+from ..ops.kernels.gridwin_variants import (DIAGNOSTIC_PLAINS, DIAGNOSTICS,
+                                            VARIANTS, gridwin_pair,
+                                            gridwin_pair_plain,
                                             gridwin_variant)
 from ._timing import nvidia_smi, queued_ms
 
@@ -64,24 +67,28 @@ def coords_kernel_pair(cen_A, cen_B, grid_A, grid_B, scale: float = SCALE):
 
 def gate(cen_A, cen_B, grid_A, grid_B, scale: float = SCALE) -> None:
     """Raises GateError unless every semantic variant (at cen_A) and the
-    pair are bitwise two coords-kernel launches, and these their plain
-    version."""
+    pair are bitwise two coords-kernel launches, these their plain
+    version, and each diagnostic its plain version."""
     with torch.no_grad():
         one = coords_kernel_pair(cen_A, cen_A, grid_A, grid_B, scale)
         two = coords_kernel_pair(cen_A, cen_B, grid_A, grid_B, scale)
-        checks = [(f"variant {v}", gridwin_variant(cen_A, grid_A, grid_B,
+        checks = [(f"variant {v} vs the coords kernel", gridwin_variant(cen_A, grid_A, grid_B,
                                                    scale, v), one)
                   for v in VARIANTS]
-        checks += [("pair", gridwin_pair(cen_A, cen_B, grid_A, grid_B, scale),
+        checks += [("pair vs the coords kernel", gridwin_pair(cen_A, cen_B, grid_A, grid_B, scale),
                     two),
                    ("coords kernel vs plain", two,
                     gridwin_pair_plain(cen_A, cen_B, grid_A, grid_B, scale))]
+        checks += [(f"diagnostic {v} vs plain",
+                    gridwin_variant(cen_A, grid_A, grid_B, scale, v),
+                    DIAGNOSTIC_PLAINS[v](cen_A, grid_A, grid_B, scale))
+                   for v in DIAGNOSTICS]
         for name, got, want in checks:
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 err = max((a - b).abs().max().item()
                           for a, b in zip(got, want))
-                raise GateError(f"gridwin {name}: not bitwise equal to the "
-                                f"coords kernel (max abs err {err})")
+                raise GateError(f"gridwin {name}: not bitwise equal (max abs "
+                                f"err {err})")
 
 
 def measure(cen_A, cen_B, grid_A, grid_B, scale: float = SCALE,

@@ -7,12 +7,23 @@ of (512, 128) f32, chains of K = 256 dependent steps per element, each of
 1. select: ``y = where((idx & (1 + (k + j) % 7)) != 0, x, y)``, the select
    that picks a corner's value;
 2. gather: ``y = y[row, idx]`` within a 128-wide row, a shared-memory read
-   at a data-dependent address, the corner fetch;
+   at a data-dependent address. The kernel stores the row and reads it
+   back on a read schedule (``anchors.gather_plan``, built once per index
+   tensor and timed on its own line) that leaves no bank conflicts: 4
+   store and 4 load wavefronts per row-step. So the anchor reads the
+   conflict-free floor of such a read, not the cost of the DCCL corner
+   fetch, whose addresses come with the data and have no schedule built
+   in advance. That fetch's conflicted rate is the old layout's figure in
+   the tool's wavefront model, ~15.8 wavefronts per row-step for 4
+   consecutive elements per lane read at random indices. The tool prints
+   both counts, modelled on the host from idx (``gather_wavefronts``):
+   the card offers no counters to read;
 3. fma: ``y = fma(y, x, x)``, the bilinear blend's arithmetic;
 
 with 1 and 4 independent chains (ilp) per element: ilp 1 measures the
 latency of a dependent chain, ilp 4 comes nearer the primitive's issue
-rate. Each anchor is gated bitwise against its plain version, then timed
+rate. The plan is gated bitwise against its plain version, each anchor
+bitwise against its plain version, then each is timed
 (the card's time, launches queued ahead); it prints ms and T
 element-ops/s with
 n_elem = GRID*512*128*K, beside its operations bound: n_elem over the
@@ -40,8 +51,10 @@ import torch
 
 from ..models import resolve_device
 from ..ops.kernels import _build, launch_counts, reset_launch_counts
-from ..ops.kernels.anchors import (ILPS, anchor_chain, anchor_chain_plain,
-                                   launch_empty, step_cost_copy,
+from ..ops.kernels.anchors import (ILPS, WARP, anchor_chain,
+                                   anchor_chain_plain, gather_plan,
+                                   gather_plan_plain, launch_empty,
+                                   slot_words, step_cost_copy,
                                    step_cost_copy_plain)
 from ._timing import cuda_ms, max_sm_clock_hz, nvidia_smi, queued_ms
 
@@ -65,6 +78,8 @@ PER_CLOCK_PER_SM = {"fma": 128, "select": 64, "gather": 32}
 SASS_STEP = {"select": ("SEL", "FSEL"), "gather": ("LDS",), "fma": ("FFMA",)}
 SASS_SHOWN = ("SEL", "FSEL", "FFMA", "LDS", "SHFL")
 ELEMS_PER_THREAD = 4
+# a float4 store of a 128-wide row: 512 bytes, 128 a wavefront
+ROW_STORE_WAVEFRONTS = LANES * 4 // 128
 
 
 class GateError(RuntimeError):
@@ -96,15 +111,59 @@ def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(d.max().item())
 
 
-def gate(x, idx):
+def access_wavefronts(words: torch.Tensor) -> torch.Tensor:
+    """words: (..., 32) int64 shared-memory word addresses of warp-wide
+    4-byte accesses, one per lane. The wavefronts each takes: the most
+    distinct words that any one of the 32 banks (word % 32) serves; lanes
+    that read one word share it."""
+    flat = words.reshape(-1, WARP)
+    span = (int(flat.max()) // WARP + 1) * WARP
+    present = torch.zeros(flat.shape[0], span, dtype=torch.bool,
+                          device=words.device).scatter_(1, flat, True)
+    return present.view(flat.shape[0], -1, WARP).sum(1).amax(1).reshape(
+        words.shape[:-1])
+
+
+def gather_wavefronts(idx: torch.Tensor, plan: torch.Tensor):
+    """Shared-memory wavefronts per row-step of one gather chain, the mean
+    over the rows: (the old layout, the plan). Old: one float4 store of
+    the row (4) and 4 loads, load e of lane l at idx[4 l + e] & 127. Plan:
+    store k of lane l at word 32 k + l, load k at the plan's source
+    word."""
+    R = idx.shape[0]
+    old_loads = (idx & (LANES - 1)).long().reshape(R, WARP, -1).transpose(1,
+                                                                          2)
+    old = ROW_STORE_WAVEFRONTS + access_wavefronts(old_loads).sum(1)
+    stores = int(access_wavefronts(slot_words().T).sum())
+    loads = plan[..., 1].long().transpose(1, 2)
+    new = stores + access_wavefronts(loads).sum(1)
+    return old.double().mean().item(), new.double().mean().item()
+
+
+def gate_plan(idx):
+    """The plan kernel against its plain version, bitwise; raises
+    GateError. Returns (the kernel's plan, the plain version's ms, timed
+    once by CUDA events)."""
+    got = gather_plan(idx)
+    ref = {}
+    plain_ms = cuda_ms(lambda: ref.update(out=gather_plan_plain(idx)), 1,
+                       warmup=0)
+    if not torch.equal(got, ref["out"]):
+        bad = int((got != ref["out"]).flatten(1).any(1).sum())
+        raise GateError(f"gather plan: {bad} rows differ from the plain "
+                        f"version")
+    return got, plain_ms
+
+
+def gate(x, idx, plan=None):
     """Each (kind, ilp) chain on the card against its plain version on the
-    same inputs; raises GateError unless they are bitwise equal. Returns
-    {(kind, ilp): (max abs error where both are finite, plain ms)}, the
-    plain version timed once by CUDA events."""
+    same inputs, the gather on ``plan``; raises GateError unless they are
+    bitwise equal. Returns {(kind, ilp): (max abs error where both are
+    finite, plain ms)}, the plain version timed once by CUDA events."""
     res = {}
     for kind in KINDS:
         for ilp in ILPS:
-            got = anchor_chain(x, idx, kind, ilp, K)
+            got = anchor_chain(x, idx, kind, ilp, K, plan=plan)
             ref = {}
             plain_ms = cuda_ms(lambda: ref.update(
                 out=anchor_chain_plain(x, idx, kind, ilp, K)), 1, warmup=0)
@@ -126,10 +185,11 @@ def gate_step_cost(device):
         raise GateError("step_cost_copy: not bitwise 2x")
 
 
-def measure(x, idx, n: int = 20):
-    """The card's ms per launch (``queued_ms``) of each (kind, ilp) chain."""
-    return {(kind, ilp): queued_ms(lambda: anchor_chain(x, idx, kind, ilp, K),
-                                   n)
+def measure(x, idx, plan, n: int = 20):
+    """The card's ms per launch (``queued_ms``) of each (kind, ilp) chain,
+    the gather on ``plan``."""
+    return {(kind, ilp): queued_ms(lambda: anchor_chain(x, idx, kind, ilp, K,
+                                                        plan=plan), n)
             for kind in KINDS for ilp in ILPS}
 
 
@@ -219,14 +279,17 @@ def ops_bound_ms(kind: str, n_elem: int, sms: int, clock_hz: float) -> float:
 
 
 def run(device):
-    """The tool's procedure at its size: every chain and the copy gated
-    against their plain versions, the SASS checked for folded chains
-    (GateError on either), then measured. Returns (chains, step,
-    launches): chains {(kind, ilp): dict(ms, plain_ms, err,
-    steps_per_elem, sass)}, step as ``measure_step_cost``, launches the
-    measurement's launch counts."""
+    """The tool's procedure at its size: the gather's plan built once and
+    gated, every chain and the copy gated against their plain versions,
+    the SASS checked for folded chains (GateError on any), then measured,
+    the plan's build on its own. Returns (chains, step, plan, launches):
+    chains {(kind, ilp): dict(ms, plain_ms, err, steps_per_elem, sass)},
+    step as ``measure_step_cost``, plan dict(ms, plain_ms, rows,
+    wavefronts_old, wavefronts_plan), launches the measurement's launch
+    counts."""
     x, idx = inputs(device)
-    gated = gate(x, idx)
+    plan, plan_plain_ms = gate_plan(idx)
+    gated = gate(x, idx, plan)
     gate_step_cost(device)
     counts = sass_counts()
     for kind in KINDS:
@@ -237,15 +300,19 @@ def run(device):
                     f"{steps_per_element(counts, kind, ilp)} step "
                     f"instructions per element in the SASS, fewer than "
                     f"K - ilp = {K - ilp}: the chain was folded")
+    old, new = gather_wavefronts(idx, plan)
     reset_launch_counts()
-    ms = measure(x, idx)
+    ms = measure(x, idx, plan)
+    plan_rec = dict(ms=queued_ms(lambda: gather_plan(idx), 20),
+                    plain_ms=plan_plain_ms, rows=idx.shape[0],
+                    wavefronts_old=old, wavefronts_plan=new)
     step = measure_step_cost(device)
     launches = launch_counts()
     chains = {key: dict(ms=t, err=gated[key][0], plain_ms=gated[key][1],
                         steps_per_elem=steps_per_element(counts, *key),
                         sass={op: counts[key][op] for op in SASS_SHOWN})
               for key, t in ms.items()}
-    return chains, step, launches
+    return chains, step, plan_rec, launches
 
 
 def chain_line(kind: str, ilp: int, c: dict, sms: int, clock_hz: float):
@@ -258,6 +325,16 @@ def chain_line(kind: str, ilp: int, c: dict, sms: int, clock_hz: float):
             f"bitwise its plain version ({c['plain_ms']:.1f} ms); SASS: "
             f"{c['steps_per_elem']} step instructions per element; per "
             f"thread of 4 elements {sass}")
+
+
+def plan_line(plan: dict) -> str:
+    """The gather plan's result as the tool prints it."""
+    return (f"gather plan: {plan['ms']:8.4f} ms for {plan['rows']} rows "
+            f"(one launch, outside the chains' timing), bitwise its plain "
+            f"version ({plan['plain_ms']:.1f} ms); shared-memory wavefronts "
+            f"per row-step, modelled from idx: old layout "
+            f"{plan['wavefronts_old']:.3f}, plan {plan['wavefronts_plan']:.3f}"
+            f" (the bound counts {LANES // WARP} loads)")
 
 
 def step_line(step: dict) -> str:
@@ -276,9 +353,10 @@ def main() -> None:
           f"clocks.max.sm {nvidia_smi('clocks.max.sm')}", flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = max_sm_clock_hz()
-    chains, step, _ = run(dev)
+    chains, step, plan, _ = run(dev)
     for (kind, ilp), c in chains.items():
         print(chain_line(kind, ilp, c, sms, clock), flush=True)
+    print(plan_line(plan), flush=True)
     print(step_line(step), flush=True)
 
 

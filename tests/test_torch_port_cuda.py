@@ -593,17 +593,34 @@ def test_scatter_refuses_bad_inputs(dev):
 # -- the measurement tools' kernels ------------------------------------------------
 
 def _anchor_inputs(dev, rows=64):
+    """x and a permutation idx per row, but rows 3 and 5: random int32 (any
+    sign, duplicates) and a constant."""
     g = torch.Generator().manual_seed(rows)
     x = torch.randn(rows, 128, generator=g)
     idx = torch.argsort(torch.rand(rows, 128, generator=g), dim=1)
+    idx[3] = torch.randint(-2 ** 31, 2 ** 31 - 1, (128,), generator=g)
+    idx[5] = 77
     return x.to(dev), idx.to(torch.int32).to(dev)
+
+
+def test_gather_plan_matches_plain(dev):
+    """The plan kernel bitwise its plain version, permutation rows and
+    others, 75 rows (one full block of its 64 threads and a partial one of
+    11)."""
+    _, idx = _anchor_inputs(dev, 75)
+    n0 = anchors.gather_plan.launches
+    got = anchors.gather_plan(idx)
+    torch.cuda.synchronize()
+    assert anchors.gather_plan.launches == n0 + 1
+    assert torch.equal(got, anchors.gather_plan_plain(idx))
 
 
 @pytest.mark.parametrize("ilp", [1, 4])
 @pytest.mark.parametrize("kind", ["select", "gather", "fma"])
 def test_anchor_chain_matches_plain(dev, kind, ilp):
-    """K = 256 on 75 rows (a partial last block of 3 of its 8 rows),
-    bitwise: the plain fma step rounds once, as the FFMA does."""
+    """K = 256 on 75 rows (a partial last block of 3 of its 8 rows), two of
+    them no permutation, bitwise: the plain fma step rounds once, as the
+    FFMA does; the gather on the plan it builds and on one given."""
     from prior_flow_tpu_torch.tools.microbench_vpu_anchor import ulps_apart
     x, idx = _anchor_inputs(dev, 75)
     n0 = anchors.anchor_chain.launches
@@ -612,6 +629,10 @@ def test_anchor_chain_matches_plain(dev, kind, ilp):
     assert anchors.anchor_chain.launches == n0 + 1
     ref = anchors.anchor_chain_plain(x, idx, kind, ilp)
     assert ulps_apart(got, ref) == 0
+    if kind == "gather":
+        plan = anchors.gather_plan_plain(idx)
+        assert ulps_apart(anchors.anchor_chain(x, idx, kind, ilp,
+                                               plan=plan), ref) == 0
 
 
 def test_anchor_chain_sass_keeps_every_step(dev):
@@ -642,6 +663,11 @@ def test_anchor_wrappers_refuse_bad_inputs(dev):
         anchors.anchor_chain(x[:, :64], idx[:, :64], "select")
     with pytest.raises(ValueError):
         anchors.step_cost_copy(x[:12])
+    with pytest.raises(ValueError):
+        anchors.anchor_chain(x, idx, "gather", plan=anchors.gather_plan(
+            idx)[:-1])
+    with pytest.raises(ValueError):
+        anchors.gather_plan(idx[:, :64].contiguous())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -673,13 +699,14 @@ def test_dccl_stage_refuses_bad_inputs(dev):
 @pytest.mark.parametrize("size", [(64, 128), (512, 1024)])
 def test_gridwin_variants_and_pair_are_the_coords_kernel(dev, size):
     """Every semantic variant and the pair bitwise equal to two
-    coords-kernel launches, and these to their plain version; the
-    diagnostics launch and give finite values."""
+    coords-kernel launches, these to their plain version, and the
+    diagnostics to theirs; the diagnostics give finite values."""
     from prior_flow_tpu_torch.tools import microbench_gridwin as gw
     ins = gw.inputs(dev, size=size)
     reset_launch_counts()
     gw.gate(*ins)
-    assert launch_counts()["gridwin_variant"] == len(gridwin_variants.VARIANTS)
+    assert launch_counts()["gridwin_variant"] == \
+        len(gridwin_variants.VARIANTS) + len(gridwin_variants.DIAGNOSTICS)
     assert launch_counts()["gridwin_pair"] == 1
     for v in gridwin_variants.DIAGNOSTICS:
         outs = gridwin_variants.gridwin_variant(ins[0], ins[2], ins[3], 0.5, v)
@@ -701,3 +728,27 @@ def test_gridwin_refuses_bad_inputs(dev):
     # the same grids at 1024x2048 fit the direct variant
     outs = gridwin_variants.gridwin_variant(cen, big, big, 1.0, "direct")
     assert outs[0].shape == (cen.shape[0], 81)
+    # grids that fit alone but not beside smem_grid's output stage
+    mid = torch.zeros(96, 128, 2, device=dev)
+    assert 2 * mid.numel() * 4 <= gridwin_variants.SMEM_BYTES
+    with pytest.raises(ValueError):
+        gridwin_variants.gridwin_variant(cen, mid, mid, 1.0, "smem_grid")
+
+
+@pytest.mark.parametrize("shape,offset", [((33, 65), 0), ((33, 64), 1)])
+def test_gridwin_smem_grid_odd_and_unaligned_grids(dev, shape, offset):
+    """smem_grid on grids of an odd cell count (33x65) and on grids that
+    start one cell past a 16-byte boundary: bitwise the plain version and
+    direct, at 1000 centres (not a whole number of 32-centre steps)."""
+    g = torch.Generator().manual_seed(offset)
+    cells = shape[0] * shape[1] * 2
+    store = torch.randn(2, cells + 2, generator=g).to(dev)
+    gA, gB = (s[2 * offset:2 * offset + cells].view(*shape, 2)
+              for s in store)
+    cen = (torch.rand(1000, 2, generator=g) * torch.tensor([80.0, 40.0])
+           - 5).to(dev)
+    got = gridwin_variants.gridwin_variant(cen, gA, gB, 0.5, "smem_grid")
+    want = gridwin_variants.gridwin_variant_plain(cen, gA, gB, 0.5)
+    direct = gridwin_variants.gridwin_variant(cen, gA, gB, 0.5, "direct")
+    for a, b, c in zip(got, want, direct):
+        assert torch.equal(a, b) and torch.equal(a, c)

@@ -117,6 +117,72 @@ def test_parse_sass_counts_each_chain_kernel():
     assert not microbench_vpu_anchor.chain_intact(counts, "select", 4)
 
 
+def _plan_indices(rows=40, seed=0):
+    """Row permutations but rows 3 and 5: random int32 (any sign,
+    duplicates) and a constant; and the rows that are permutations."""
+    rng = np.random.default_rng(seed)
+    idx = np.argsort(rng.random((rows, 128)), axis=1).astype(np.int32)
+    idx[3] = rng.integers(-2 ** 31, 2 ** 31 - 1, 128, dtype=np.int64)
+    idx[5] = 77
+    perm = [r for r in range(rows) if r not in (3, 5)]
+    return T(idx), perm
+
+
+def test_gather_plan_plain_is_a_conflict_free_coloring():
+    """Every lane holds elements of its own lane, each element once; in
+    permutation rows every register's 32 sources lie in 32 distinct banks
+    (lanes); every source word holds the element the chain gathers."""
+    idx, perm = _plan_indices()
+    plan = anchors.gather_plan_plain(idx)
+    assert plan.shape == (40, 32, 4, 2) and plan.dtype == torch.uint8
+    elem, src = plan[..., 0].long(), plan[..., 1].long()
+    assert torch.equal(elem % 32, torch.arange(32)[None, :, None].expand_as(
+        elem))
+    assert torch.equal(elem.reshape(40, 128).sort(1).values,
+                       torch.arange(128).expand(40, 128))
+    banks = (src % 32).transpose(1, 2)            # (rows, register, lane)
+    distinct = torch.tensor([[len(set(b.tolist())) for b in row]
+                             for row in banks])
+    assert bool((distinct[perm] == 32).all())
+    assert int(distinct[3].min()) < 32            # a multigraph of its own
+    # the word of element c: lane c % 32 stored its register there
+    word_of = torch.empty(40, 128, dtype=torch.long).scatter_(
+        1, elem.reshape(40, 128),
+        anchors.slot_words().reshape(1, 128).expand(40, 128))
+    want = word_of.gather(1, (idx.long() & 127).gather(1, elem.reshape(40,
+                                                                       128)))
+    assert torch.equal(src.reshape(40, 128), want)
+
+
+@pytest.mark.parametrize("ilp", [1, 4])
+def test_scheduled_gather_chain_is_the_plain_chain(ilp):
+    """The chain run on the plan as the kernel runs it is bitwise the
+    plain gather chain, permutation rows and others."""
+    idx, _ = _plan_indices()
+    x = torch.randn(idx.shape, generator=torch.Generator().manual_seed(1))
+    plan = anchors.gather_plan_plain(idx)
+    got = anchors.gather_chain_scheduled_plain(x, plan, ilp, 16)
+    assert torch.equal(got, anchors.anchor_chain_plain(x, idx, "gather", ilp,
+                                                       16))
+
+
+def test_gather_wavefront_model():
+    """8 wavefronts per row-step on a permutation's plan (4 stores, 4
+    conflict-free loads), about 16 for the old layout's random reads; a
+    warp-wide access costs its busiest bank's distinct words."""
+    va = microbench_vpu_anchor
+    x, idx = va.inputs(torch.device("cpu"), grid=1)
+    old, new = va.gather_wavefronts(idx, anchors.gather_plan_plain(idx))
+    assert new == 8.0
+    assert 14.0 < old < 18.0
+    lanes = torch.arange(32)
+    assert int(va.access_wavefronts(lanes)) == 1
+    assert int(va.access_wavefronts(lanes * 0 + 5)) == 1     # one word
+    assert int(va.access_wavefronts(lanes * 32)) == 32       # one bank
+    assert int(va.access_wavefronts(lanes % 4 * 32)) == 4
+
+
+
 # -- the DCCL stages (kernel 1's pieces) --------------------------------------
 
 def _stage_inputs(rng, lvl, dtype, Q=32, h8=8, w8=16):
@@ -237,17 +303,14 @@ def test_gridwin_plains_match_pallas_interpret(rng):
 def test_gridwin_tool_gate_on_cpu():
     """The gridwin tool's gate with the plain versions (CPU tensors):
     every semantic variant and the pair equal the coords kernel's plain
-    coords bitwise, and no launch is counted; the diagnostics refuse the
-    CPU."""
+    coords bitwise, each diagnostic its plain version, and no launch is
+    counted; an unknown variant is refused."""
     reset_launch_counts()
     cen_A, cen_B, gA, gB = microbench_gridwin.inputs(torch.device("cpu"),
                                                      size=(64, 128))
     assert not torch.equal(cen_A, cen_B)
     microbench_gridwin.gate(cen_A, cen_B, gA, gB)
     assert not any(launch_counts().values())
-    for v in gridwin_variants.DIAGNOSTICS:
-        with pytest.raises(ValueError):
-            gridwin_variants.gridwin_variant(cen_A, gA, gB, 1.0, v)
     with pytest.raises(ValueError):
         gridwin_variants.gridwin_variant(cen_A, gA, gB, 1.0, "preblend")
 
@@ -269,6 +332,43 @@ def test_gridwin_variant_is_the_lookups_cross_coords(rng):
                                                                        cBy)))
 
 
+def test_gridwin_diagnostic_plains():
+    """reads: each tap the unweighted sum of its column's two row pairs,
+    against a loop over the centres in numpy. arith: on the probe grid the
+    weights of an interior tap sum to 1 and weight x offset interpolates
+    the offset, y * Wg + x, at the window coord."""
+    rng = np.random.default_rng(3)
+    Hg, Wg = 12, 20
+    gA = T(rng.normal(size=(Hg, Wg, 2)).astype(np.float32))
+    gB = T(rng.normal(size=(Hg, Wg, 2)).astype(np.float32))
+    cen = T(rng.uniform([-3, -3], [Wg + 3, Hg + 3], (30, 2)).astype(
+        np.float32))
+    reads = gridwin_variants.gridwin_reads_plain(cen, gA, gB, 0.5)
+    for g, (rx, ry) in ((gA, reads[:2]), (gB, reads[2:])):
+        g = g.numpy()
+        for n, (cx, cy) in enumerate(cen.numpy()):
+            fx, fy = int(np.floor(np.float32(cx * 0.5))), int(np.floor(
+                np.float32(cy * 0.5)))
+            for i in range(9):
+                xa = (fx + i - 4) % Wg
+                xb = min(xa + 1, Wg - 1)
+                rows = [np.clip(fy + j - 4, 0, Hg - 1) for j in range(10)]
+                pair = [g[y, xa] + g[y, xb] for y in rows]
+                want = np.array([pair[j] + pair[j + 1] for j in range(9)])
+                np.testing.assert_array_equal(rx[n, 9 * i:9 * i + 9].numpy(),
+                                              want[:, 0])
+                np.testing.assert_array_equal(ry[n, 9 * i:9 * i + 9].numpy(),
+                                              want[:, 1])
+    inner = T(np.array([[9.3, 5.6], [10.5, 6.25]], np.float32))
+    wx, wo, bx, bo = gridwin_variants.gridwin_arith_plain(inner, gA, gB, 1.0)
+    assert torch.equal(wx, bx) and torch.equal(wo, bo)
+    win = inner.unsqueeze(1) + dccl_lookup.window_delta(4, inner.device)
+    np.testing.assert_allclose(wx.numpy(), 1.0, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        wo.numpy(), (win[..., 1] * Wg + win[..., 0]).numpy(), rtol=1e-6)
+
+
+
 # -- wrappers and tools without the card ----------------------------------------
 
 def test_anchor_wrappers_take_plain_on_cpu_and_check_arguments():
@@ -279,6 +379,7 @@ def test_anchor_wrappers_take_plain_on_cpu_and_check_arguments():
                        torch.arange(128).expand(512, 128))
     out = anchors.anchor_chain(x, idx, "gather", 4, 8)
     assert torch.equal(out, anchors.anchor_chain_plain(x, idx, "gather", 4, 8))
+    assert torch.equal(anchors.gather_plan(idx), anchors.gather_plan_plain(idx))
     assert torch.equal(anchors.step_cost_copy(x), 2 * x)
     assert not any(launch_counts().values())
     for kind, ilp, K in (("shuffle", 1, 16), ("fma", 2, 16), ("fma", 4, 6)):

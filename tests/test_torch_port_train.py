@@ -6,15 +6,22 @@ One module-scoped JAX oracle: ``make_train_step`` of
 keeps the raw gradients in the optimizer state. The port loads the same
 weights (``state_dict_from_jax``) and takes one step in each grad mode.
 
-Gradient tolerance: relative L2 per parameter tensor, 1e-3 for every
-tensor. The conv biases in front of an instance norm have a zero gradient
-in exact arithmetic and carry only round-off (~1e-12 of the global norm),
-so every reference norm is floored at 1e-6 of the global gradient norm.
-``test_encoder_grads_near_float64`` shows what f32 can give where the
-gradients are most sensitive, the feature encoder. The random conv
-kernels are drawn at half the N(0, 1/fan_in) scale: at full scale the
-GRU's tanh and sigmoid gates saturate (hidden states at 0.99997), where
-both frameworks form 1 - y^2 from rounded outputs.
+Gradient tolerance: relative L2 per parameter tensor. The feature
+encoder's tensors (``fnet.*``) are held at half the 1e-3 gate to a float64
+evaluation of the port's encoder (fixture ``encoder_f64``), every other
+tensor at 1e-3 to JAX. JAX's f32 encoder gradients are no exact reference:
+XLA:CPU sums the instance norms in f32, and how far those gradients lie
+from float64 depends on the host (6.2e-4 on one, 1.9e-3 on another), while
+the port sums in f64 and lies within 2.4e-4 on both. What the float64
+evaluation is fed, the loss's cotangent at the encoder's four outputs, is
+itself held at 1e-3 to JAX's (the oracle's ``fnet_ct``), so only the
+encoder's own round-off is judged against float64. The conv biases in
+front of an instance norm have a zero gradient in exact arithmetic and
+carry only round-off (~1e-12 of the global norm), so every reference norm
+is floored at 1e-6 of the global gradient norm. The random conv kernels are
+drawn at half the N(0, 1/fan_in) scale: at full scale the GRU's tanh and
+sigmoid gates saturate (hidden states at 0.99997), where both frameworks
+form 1 - y^2 from rounded outputs.
 """
 
 import copy
@@ -26,6 +33,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -97,66 +105,68 @@ def oracle():
                               jax.random.PRNGKey(0))
     to_np = lambda tree: {k: v.numpy() for k, v in state_dict_from_jax(
         {"params": tree}).items()}
+    ct_loss, fnet_ct = _fnet_cotangent(jm, variables, batch)
     return dict(variables=variables, batch=batch,
                 grads=to_np(new_state.opt_state[0]),
                 old=to_np(state.params), new=to_np(new_state.params),
                 metrics={k: float(v) for k, v in metrics.items()},
-                lr0=float(schedule(0)))
+                lr0=float(schedule(0)), ct_loss=ct_loss, fnet_ct=fnet_ct)
 
 
-def _rel_l2(got, ref, floor):
-    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), floor))
+def _fnet_cotangent(jm, variables, batch):
+    """JAX's cotangent of the step's loss at the feature encoder's four
+    outputs: the loss of ``make_train_step``'s standard mode (unclipped),
+    differentiated by a zero added to each output of ``fnet`` (a flax
+    method interceptor). Returns (the loss, the four NHWC cotangents as
+    numpy arrays)."""
+    i1, i2, flow, valid = (jnp.asarray(a) for a in batch)
+    flow_B = jnp.concatenate([jwarp.flo_a2b(flow[i:i + 1])
+                              for i in range(flow.shape[0])], axis=0)
+    valid_B = ((jnp.abs(flow_B[..., 0]) < 1000)
+               & (jnp.abs(flow_B[..., 1]) < 1000)).astype(jnp.float32)
+
+    def loss(deltas):
+        def add(next_fun, args, kwargs, ctx):
+            outs = next_fun(*args, **kwargs)
+            if ctx.module.name != "fnet" or ctx.method_name != "__call__":
+                return outs
+            return type(outs)(o + d for o, d in zip(outs, deltas))
+
+        with nn.intercept_methods(add):
+            preds_A, preds_B = jm.apply(variables, i1, i2, iters=ITERS,
+                                        train=True,
+                                        rngs={"dropout": jax.random.PRNGKey(0)})
+        loss_A, _ = jloss.uniform_sequence_loss(preds_A, flow, valid,
+                                                gamma=0.8, prefix="A-")
+        loss_B, _ = jloss.uniform_sequence_loss(preds_B, flow_B, valid_B,
+                                                gamma=0.8, prefix="B-")
+        return loss_A + loss_B
+
+    shapes = []
+
+    def keep_shapes(next_fun, args, kwargs, ctx):
+        outs = next_fun(*args, **kwargs)
+        if ctx.module.name == "fnet" and ctx.method_name == "__call__":
+            shapes.extend(o.shape for o in outs)
+        return outs
+
+    with nn.intercept_methods(keep_shapes):
+        jax.eval_shape(lambda: jm.apply(
+            variables, i1, i2, iters=1, train=True,
+            rngs={"dropout": jax.random.PRNGKey(0)}))
+    zeros = [jnp.zeros(s, jnp.float32) for s in shapes]
+    value, ct = jax.jit(jax.value_and_grad(loss))(zeros)
+    return float(value), [np.asarray(c) for c in ct]
 
 
-@pytest.mark.parametrize("grad_mode", ["standard", "taped"])
-def test_train_step_matches_jax(oracle, grad_mode):
-    """Loss, metrics, clipped gradients and the AdamW update of one step,
-    in both grad modes, against JAX's jitted ``make_train_step``."""
-    model = build_model("cpu", state_dict=state_dict_from_jax(
-        oracle["variables"]))
-    optimizer, schedule = make_optimizer(model.parameters(), LR, NUM_STEPS)
-    step = make_train_step(model, optimizer, schedule, iters=ITERS,
-                           grad_mode=grad_mode)
-    old = {n: p.detach().clone() for n, p in model.named_parameters()}
-    metrics = step(tuple(torch.from_numpy(a) for a in oracle["batch"]), 0)
-
-    ref = oracle["metrics"]
-    for k in ("train/loss", "train/grad_norm", "A-epe", "B-epe", "A-3px"):
-        assert abs(float(metrics[k]) - ref[k]) <= LOSS_RTOL * abs(ref[k]), k
-    # the port's .grad holds the clipped gradient: clip JAX's the same way
-    g_norm = ref["train/grad_norm"]
-    clip = min(1.0, 1.0 / g_norm)
-    floor = GRAD_FLOOR * g_norm * clip
-    names = [n for n, _ in model.named_parameters()]
-    assert set(names) <= set(oracle["grads"])
-    worst = 0.0
-    for n, p in model.named_parameters():
-        g_ref = oracle["grads"][n] * clip
-        err = _rel_l2(p.grad.numpy(), g_ref, floor)
-        assert err <= GRAD_RTOL, (n, err)
-        worst = max(worst, err)
-        # the AdamW update, where the gradient it sees (clipped) is clearly
-        # above Adam's eps of 1e-8
-        d_ref = oracle["new"][n] - oracle["old"][n]
-        d_got = (p.detach() - old[n]).numpy()
-        mask = np.abs(g_ref) > 1e-6
-        np.testing.assert_allclose(d_got[mask], d_ref[mask], rtol=0,
-                                   atol=1e-2 * oracle["lr0"], err_msg=n)
-    print(f"{grad_mode}: loss {float(metrics['train/loss']):.6f} "
-          f"(jax {ref['train/loss']:.6f}), worst grad rel L2 {worst:.2e}")
-
-
-def test_encoder_grads_near_float64(oracle):
-    """The feature encoder's gradients against a float64 evaluation at the
-    same cotangent. They are the gradients most sensitive to round-off:
-    with the instance norms' sums in f32 (torch's CPU sum) the port's f32
-    weight gradients of the stem and stages 1-2 lay up to 1.9e-3 from
-    float64; summed in f64, as the sums' plain version and kernel now do,
-    within 2.2e-4. Reference: the port's encoder in float64
-    with torch's own instance norm, fed the port's views and the loss's
-    cotangent at its four outputs. The port's f32 gradients must lie
-    within half the gate of it, JAX's (the oracle's, at its own cotangent)
-    within the gate."""
+@pytest.fixture(scope="module")
+def encoder_f64(oracle):
+    """The reference for the encoder's gradients: the port's encoder in
+    float64, with torch's own instance norm, fed the views and the loss's
+    cotangent at its four outputs from one port step (standard grad mode,
+    unclipped). Returns (the float64 gradients of the ``fnet.*`` tensors,
+    the port's unclipped f32 gradients of the same step) as numpy
+    dicts."""
     model = build_model("cpu", state_dict=state_dict_from_jax(
         oracle["variables"]))
     fnet64 = copy.deepcopy(model.fnet).double()
@@ -181,19 +191,120 @@ def test_encoder_grads_near_float64(oracle):
     names = ["fnet." + n for n, _ in fnet64.named_parameters()]
     ref = torch.autograd.grad(outs, list(fnet64.parameters()),
                               [o.grad.double() for o in seen["outs"]])
-    floor = GRAD_FLOOR * oracle["metrics"]["train/grad_norm"]
     got = dict(model.named_parameters())
+    return ({n: r.numpy() for n, r in zip(names, ref)},
+            {n: got[n].grad.double().numpy() for n in names})
+
+
+def _rel_l2(got, ref, floor):
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), floor))
+
+
+@pytest.mark.parametrize("grad_mode", ["standard", "taped"])
+def test_train_step_matches_jax(oracle, encoder_f64, grad_mode):
+    """Loss, metrics, clipped gradients and the AdamW update of one step,
+    in both grad modes: the encoder's gradients against float64 at half
+    the gate, every other gradient and all the rest against JAX's jitted
+    ``make_train_step``."""
+    model = build_model("cpu", state_dict=state_dict_from_jax(
+        oracle["variables"]))
+    optimizer, schedule = make_optimizer(model.parameters(), LR, NUM_STEPS)
+    step = make_train_step(model, optimizer, schedule, iters=ITERS,
+                           grad_mode=grad_mode)
+    old = {n: p.detach().clone() for n, p in model.named_parameters()}
+    fnet_outs = []
+
+    def keep(module, args, outs):
+        for o in outs:
+            o.retain_grad()
+        fnet_outs.extend(outs)
+
+    hook = model.fnet.register_forward_hook(keep)
+    metrics = step(tuple(torch.from_numpy(a) for a in oracle["batch"]), 0)
+    hook.remove()
+
+    ref = oracle["metrics"]
+    for k in ("train/loss", "train/grad_norm", "A-epe", "B-epe", "A-3px"):
+        assert abs(float(metrics[k]) - ref[k]) <= LOSS_RTOL * abs(ref[k]), k
+    # the loss's cotangent at the encoder's outputs (NCHW here, NHWC in
+    # JAX), what the float64 reference below is fed, against JAX's
+    assert abs(oracle["ct_loss"] - ref["train/loss"]) <= (
+        LOSS_RTOL * abs(ref["train/loss"]))
+    assert len(fnet_outs) == len(oracle["fnet_ct"]) == 4
+    worst = {"ct": 0.0, "jax": 0.0, "f64": 0.0}
+    for i, (o, ct) in enumerate(zip(fnet_outs, oracle["fnet_ct"])):
+        err = _rel_l2(o.grad.permute(0, 2, 3, 1).numpy(), ct, 0.0)
+        assert err <= GRAD_RTOL, ("fnet output", i, err)
+        worst["ct"] = max(worst["ct"], err)
+    # the port's .grad holds the clipped gradient: clip the references the
+    # same way
+    g_norm = ref["train/grad_norm"]
+    clip = min(1.0, 1.0 / g_norm)
+    floor = GRAD_FLOOR * g_norm * clip
+    names = [n for n, _ in model.named_parameters()]
+    assert set(names) <= set(oracle["grads"])
+    f64 = encoder_f64[0]
+    assert set(f64) == {n for n in names if n.startswith("fnet.")}
+    for n, p in model.named_parameters():
+        g_ref = oracle["grads"][n] * clip
+        if n in f64:
+            err = _rel_l2(p.grad.double().numpy(), f64[n] * clip, floor)
+            assert err <= GRAD_RTOL / 2, (n, err)
+            worst["f64"] = max(worst["f64"], err)
+        else:
+            err = _rel_l2(p.grad.numpy(), g_ref, floor)
+            assert err <= GRAD_RTOL, (n, err)
+            worst["jax"] = max(worst["jax"], err)
+        # the AdamW update, where the gradient it sees (clipped) is clearly
+        # above Adam's eps of 1e-8
+        d_ref = oracle["new"][n] - oracle["old"][n]
+        d_got = (p.detach() - old[n]).numpy()
+        mask = np.abs(g_ref) > 1e-6
+        np.testing.assert_allclose(d_got[mask], d_ref[mask], rtol=0,
+                                   atol=1e-2 * oracle["lr0"], err_msg=n)
+    print(f"{grad_mode}: loss {float(metrics['train/loss']):.6f} "
+          f"(jax {ref['train/loss']:.6f}), worst grad rel L2: encoder "
+          f"{worst['f64']:.2e} against float64, the rest {worst['jax']:.2e} "
+          f"against JAX, the encoder's output cotangents {worst['ct']:.2e} "
+          f"against JAX's")
+
+
+# JAX's f32 encoder gradients against the float64 reference: 6.2e-4 at
+# worst on one host and 1.92e-3 on another (fnet.layer2.1.conv2.weight);
+# the bound leaves twice the larger for hosts not yet seen
+JAX_F64_BOUND = 4e-3
+
+
+def test_encoder_grads_near_float64(oracle, encoder_f64):
+    """The feature encoder's gradients against the float64 reference at
+    the same cotangent (fixture ``encoder_f64``). They are the gradients
+    most sensitive to round-off: with the instance norms' sums in f32
+    (torch's CPU sum) the port's f32 weight gradients of the stem and
+    stages 1-2 lay up to 1.9e-3 from float64; summed in f64, as the sums'
+    plain version and kernel now do, within 2.4e-4. The port's f32
+    gradients must lie within half the gate of float64.
+
+    Two checks tie the reference to JAX. First, it computes JAX's function:
+    JAX's gradients (the oracle's, at its own cotangent) lie within
+    ``JAX_F64_BOUND`` of it. XLA:CPU sums the instance norms in f32, so
+    their distance moves with the host's code generation: 6.2e-4 and
+    1.92e-3 were measured on two hosts, and the bound is twice the larger.
+    A wrong function (a missed term) lies O(1) away. Second, the cotangent
+    the reference is fed is JAX's within the gate
+    (``test_train_step_matches_jax``). Where JAX lies beyond half the gate
+    the port, held within it, lies nearer float64 than JAX does."""
+    ref, port_grads = encoder_f64
+    floor = GRAD_FLOOR * oracle["metrics"]["train/grad_norm"]
     port, jax_err = {}, {}
-    for n, r in zip(names, ref):
-        r = r.numpy()
-        port[n] = _rel_l2(got[n].grad.double().numpy(), r, floor)
+    for n, r in ref.items():
+        port[n] = _rel_l2(port_grads[n], r, floor)
         jax_err[n] = _rel_l2(oracle["grads"][n], r, floor)
     print("encoder gradients against float64, worst: port "
           f"{max(port.values()):.2e} ({max(port, key=port.get)}), JAX "
           f"{max(jax_err.values()):.2e} ({max(jax_err, key=jax_err.get)})")
-    for n in names:
+    for n in ref:
         assert port[n] <= GRAD_RTOL / 2, (n, port[n])
-        assert jax_err[n] <= GRAD_RTOL, (n, jax_err[n])
+        assert jax_err[n] <= JAX_F64_BOUND, (n, jax_err[n])
 
 
 def test_one_cycle_linear_matches_optax():
