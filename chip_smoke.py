@@ -52,7 +52,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    element; per iteration the ms of row 3, of kernel 1 at these shapes and
    of the coords launch, issued back to back and queued;
 12. the all-levels lookup against four per-level launches, bitwise, at
-   512x1024, batch 1 and 4, f32 and bf16;
+   512x1024, batch 1 and 4, f32 and bf16, each timed issued back to back
+   and queued;
 13. the chunked pyramid build against the dense one at 512x1024 and
    1024x2048, f32 and bf16 (bitwise expected; else gated at 2^-20 of
    max|level| in f32 and one bf16 step), ms and peak GB of each;
@@ -87,6 +88,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    coords launches, the reads and arith diagnostics bitwise their plain
    versions; ms of each variant, diagnostic, the pair and the two
    launches, the plain version and F.grid_sample.
+18. the evaluation path at 512x1024 on a seeded synthetic MPF test split
+   (``EFTs_Car100`` and ``City_100_r``, 4 PNG frames and ``.flo`` ground
+   truth each, written under ``build/phase18/`` by the port's writers)
+   with a ``.pth`` of ``build_model(seed=0)``: ``cli.evaluate`` dense,
+   ``--regions`` and ``City100`` (24 iterations) on the card, each gated
+   on finite metrics and on the launches of phase 4's forward per pair
+   (kernel 1 four per iteration, the sums 15), nothing else; the 128x256
+   twin's dense and regions metrics on the card against ``--device cpu``
+   (relative 1e-3); batch 2 against batch 1 (relative 1e-5); an oracle
+   model (EPE < 1e-5, SEPE < 1e-4); ``cli.video --warm_start`` (finite
+   ``.flo`` files) and ``cli.demo_image`` (its PNG reads back); the
+   native host library built into ``build/`` and held to numpy; the
+   loop's ms per pair beside phase 4's and its stages (read, pad,
+   forward, metrics).
 The launches of phases 15-17 are the tools' measurement runs (path
 "tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
@@ -1302,8 +1317,12 @@ def phase_all_levels(dev, grids, peaks):
                              f"differs from its per-level launch")
                 ms = cuda_ms(lambda: dccl_lookup_all_levels(*args), 20)
                 per_ms = cuda_ms(per_level, 20)
+                q_ms = queued_ms(lambda: dccl_lookup_all_levels(*args), 20)
+                per_q_ms = queued_ms(per_level, 20)
                 if b == 1 and dtype == torch.float32:
                     row["ms"], row["per_level_ms"] = ms, per_ms
+                    row["queued_ms"], row["per_level_queued_ms"] = (q_ms,
+                                                                    per_q_ms)
                     row["plain_ms"] = cuda_ms(
                         lambda: dccl_lookup_all_levels_plain(*args), 3,
                         warmup=1)
@@ -1320,7 +1339,8 @@ def phase_all_levels(dev, grids, peaks):
                     row["bytes"] += 2 * gA.numel() * 4
             print(f"  all-levels lookup {tag} batch {b}: bitwise equal to 4 "
                   f"per-level launches; one launch {ms:.4f} ms, 4 launches "
-                  f"{per_ms:.4f} ms", flush=True)
+                  f"{per_ms:.4f} ms; queued {q_ms:.4f} ms against "
+                  f"{per_q_ms:.4f} ms", flush=True)
             del ins, vAs, vBs, args, got, ref
             torch.cuda.empty_cache()
     row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"], peaks)
@@ -1710,6 +1730,227 @@ def phase_gridwin(dev, peaks):
     return variant, pair, one_branch, launches
 
 
+# -- phase 18: the evaluation path ---------------------------------------------
+
+EVAL_PAIRS = 3            # frames per scene less one
+EVAL_SMALL = (128, 256)   # the card-vs-CPU twin of the tree
+EVAL_SMALL_ITERS = 4
+EVAL_CARD_CPU_RTOL = CARD_CPU_TOL   # each metric, relative
+EVAL_BATCH_RTOL = 1e-5    # batch 2 against batch 1, each metric, relative
+ORACLE_EPE, ORACLE_SEPE = 1e-5, 1e-4
+
+
+def eval_tree(root: str, h: int, w: int, seed: int) -> str:
+    """A seeded synthetic MPF test split under ``root``: ``EFTs_Car100``
+    and ``City_100_r``, EVAL_PAIRS + 1 frames each (``image/*.png``) with
+    ``flow/*.flo`` ground truth, written by the port's own writers."""
+    import numpy as np
+    from prior_flow_tpu_torch.data import frame_utils
+    rng = np.random.default_rng(seed)
+    for scene in ("EFTs_Car100", "City_100_r"):
+        for sub in ("image", "flow"):
+            os.makedirs(os.path.join(root, scene, sub), exist_ok=True)
+        for i in range(EVAL_PAIRS + 1):
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            frame_utils.write_image(
+                os.path.join(root, scene, "image", f"{i:04d}.png"), img)
+            flow = (rng.normal(size=(h, w, 2)) * 4).astype(np.float32)
+            frame_utils.write_flo(
+                os.path.join(root, scene, "flow", f"{i:04d}.flo"), flow)
+    return root
+
+
+def metric_values(res: dict) -> dict:
+    """A validator's result flattened to {name: value}."""
+    out = {}
+    for k, v in res.items():
+        if isinstance(v, dict):
+            out.update({f"{k}-{m}": x for m, x in v.items()})
+        else:
+            out[k] = v
+    return out
+
+
+def gate_close(tag: str, got: dict, ref: dict, rtol: float) -> float:
+    """Fails unless every metric of ``got`` lies within ``rtol`` of
+    ``ref`` (relative); returns the largest relative difference."""
+    got, ref = metric_values(got), metric_values(ref)
+    if got.keys() != ref.keys():
+        fail(f"{tag}: metric names {sorted(got)} against {sorted(ref)}")
+    worst = 0.0
+    for k in ref:
+        rel = abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+        worst = max(worst, rel)
+        if not (math.isfinite(got[k]) and rel <= rtol):
+            fail(f"{tag}: {k} = {got[k]!r} against {ref[k]!r} "
+                 f"(relative {rel:.3e}, gate {rtol})")
+    return worst
+
+
+def run_counted(fn, want_per_pair: dict, pairs: int, tag: str):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; fails unless every wrapper launched ``pairs`` times its count
+    per pair."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: v * pairs for k, v in want_per_pair.items()}
+    if counts != want:
+        fail(f"{tag}: launch counts {counts}, expected {want}")
+    return out, counts
+
+
+def phase_eval(dev, forward_ms: float):
+    """The evaluation path through its CLIs on the card at full width (the
+    published PriOr-RAFT, seeded weights from a .pth, 512x1024, a synthetic
+    MPF test split): launch counts per pair, finite metrics; the 128x256
+    twin on the card against the CPU; batch 2 against batch 1; an oracle
+    model; the video CLI with a warm start and demo_image; the loop's ms
+    per pair and its host stages."""
+    import numpy as np
+    import torch
+    from prior_flow_tpu_torch import build_model
+    from prior_flow_tpu_torch.cli import demo_image, evaluate, video
+    from prior_flow_tpu_torch.data import datasets, frame_utils, native
+    from prior_flow_tpu_torch.eval import evaluate as V
+
+    base = os.path.join(REPO, "build", "phase18")
+    t0 = time.perf_counter()
+    big = eval_tree(os.path.join(base, f"mpf_{H}x{W}"), H, W, seed=18)
+    small = eval_tree(os.path.join(base, "mpf_{}x{}".format(*EVAL_SMALL)),
+                      *EVAL_SMALL, seed=19)
+    pth = os.path.join(base, "weights.pth")
+    torch.save(build_model("cpu", seed=0).state_dict(), pth)
+    print(f"  trees {H}x{W} and {EVAL_SMALL[0]}x{EVAL_SMALL[1]} and the "
+          f"weights written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the host library, built from the checkout's source into build/
+    lib = native.build(os.path.join(base, "native"))
+    if native.load(lib) is None or not native.available():
+        fail(f"native library {lib} did not load")
+    flo = os.path.join(big, "EFTs_Car100", "flow", "0001.flo")
+    ref = frame_utils.read_flo(flo)
+    ref[:, :, 0] = (ref[:, :, 0] + W / 2) % W - W / 2
+    got = native.read_flo(flo, wrap_u=True)
+    nerr = float(np.abs(got - ref).max())
+    if nerr > 1e-4:
+        fail(f"native read_flo with the u-wrap: max abs err {nerr:.3e}")
+    print(f"  native library built and loaded; read_flo(wrap_u) within "
+          f"{nerr:.2e} of numpy", flush=True)
+
+    args = ["--model", pth, "--data_root", big]
+    res, counted = {}, {}
+    for tag, extra, iters in (
+            ("dense", ["--dataset", "MPFDataset", "--scene", "EFT"], ITERS),
+            ("regions", ["--dataset", "MPFDataset", "--scene", "EFT",
+                         "--regions"], ITERS),
+            ("City100", ["--dataset", "City100"], 2 * ITERS)):
+        want = forward_counts(dccl_level_lookup=4 * iters)
+        res[tag], counts = counted[tag] = run_counted(
+            lambda: evaluate.main(args + extra), want, EVAL_PAIRS,
+            f"cli.evaluate {tag}")
+        values = metric_values(res[tag])
+        if not all(math.isfinite(v) for v in values.values()):
+            fail(f"cli.evaluate {tag}: non-finite metrics {values}")
+        print(f"  cli.evaluate {tag} {H}x{W} iters {iters}: {values}; "
+              f"launches {dict((k, v) for k, v in counts.items() if v)}",
+              flush=True)
+    eval_counts = {k: v // EVAL_PAIRS for k, v in counted["dense"][1].items()}
+
+    worst = {}
+    sargs = ["--model", pth, "--data_root", small, "--iters",
+             str(EVAL_SMALL_ITERS), "--dataset", "MPFDataset", "--scene",
+             "EFT"]
+    for tag, extra in (("dense", []), ("regions", ["--regions"])):
+        card = evaluate.main(sargs + extra)
+        cpu = evaluate.main(sargs + extra + ["--device", "cpu"])
+        worst[tag] = gate_close(f"card vs CPU {tag}", card, cpu,
+                                EVAL_CARD_CPU_RTOL)
+    print(f"  card vs CPU at {EVAL_SMALL[0]}x{EVAL_SMALL[1]}, "
+          f"{EVAL_SMALL_ITERS} iterations: largest relative difference per "
+          f"validator {worst} (gate {EVAL_CARD_CPU_RTOL})", flush=True)
+
+    batch2 = evaluate.main(args + ["--dataset", "MPFDataset", "--scene",
+                                   "EFT", "--eval_batch_size", "2"])
+    bworst = gate_close("batch 2 vs batch 1", batch2, res["dense"],
+                        EVAL_BATCH_RTOL)
+
+    val = datasets.MPFDataset(split="test", scene="EFT", root=big)
+    gts = [torch.from_numpy(val[i][2]).to(dev) for i in range(len(val))]
+
+    class Oracle(torch.nn.Module):
+        """Returns the ground truth of the k-th pair on its k-th call."""
+
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("anchor", torch.zeros(1, device=dev))
+            self.calls = 0
+
+        def forward(self, image1, image2, iters=12):
+            self.calls += 1
+            return gts[self.calls - 1][None]
+
+    oracle = V.validate_mpf(Oracle(), data_root=big)
+    if not (oracle["EFT-epe"] < ORACLE_EPE
+            and oracle["EFT-SEPE"] < ORACLE_SEPE):
+        fail(f"oracle model: {oracle} (gates EPE {ORACLE_EPE}, SEPE "
+             f"{ORACLE_SEPE})")
+    print(f"  batch 2 vs batch 1 on {EVAL_PAIRS} pairs: largest relative "
+          f"difference {bworst:.3e} (gate {EVAL_BATCH_RTOL}); oracle "
+          f"{oracle}", flush=True)
+
+    out_dir = os.path.join(base, "video")
+    frames = os.path.join(big, "EFTs_Car100", "image")
+    video.main(["--model", pth, "--input", frames, "--output", out_dir,
+                "--warm_start"])
+    flows = sorted(f for f in os.listdir(out_dir) if f.endswith(".flo"))
+    if len(flows) != EVAL_PAIRS:
+        fail(f"cli.video wrote {flows}")
+    for f in flows:
+        fl = frame_utils.read_flo(os.path.join(out_dir, f))
+        if fl.shape != (H, W, 2) or not np.isfinite(fl).all():
+            fail(f"cli.video: {f} shape {fl.shape} or non-finite")
+    png = os.path.join(base, "flow_pr.png")
+    demo_image.main(["--model", pth, "--image1",
+                     os.path.join(frames, "0001.png"), "--image2",
+                     os.path.join(frames, "0000.png"), "--output", png])
+    if frame_utils.read_image(png).shape != (H, W, 3):
+        fail(f"cli.demo_image: {png} does not read back as ({H}, {W}, 3)")
+    print(f"  cli.video --warm_start: {len(flows)} finite .flo files; "
+          f"cli.demo_image: {png} reads back", flush=True)
+
+    # the loop's time per pair, after the runs above warmed it
+    model = build_model(seed=0, precision="highest")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        V.validate_mpf(model, iters=ITERS, data_root=big)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / EVAL_PAIRS)
+    clock = V.EvalClock()
+    V.validate_mpf(model, iters=ITERS, data_root=big, clock=clock)
+    stages = {k: v * 1e3 / clock.pairs for k, v in clock.seconds.items()}
+    total = sum(stages.values())
+    host = stages["read"] + stages["pad"] + stages["metrics"]
+    ms = statistics.median(walls)
+    print(f"  evaluation loop {H}x{W} iters {ITERS} fp32: median {ms:.2f} "
+          f"ms/pair over 3 runs of {EVAL_PAIRS} pairs (min {min(walls):.2f}, "
+          f"max {max(walls):.2f}); phase 4's forward {forward_ms:.2f} "
+          f"ms/pair; stages with a synchronise after each (ms/pair): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f"; host share (read + pad + metrics) {100 * host / total:.1f}%",
+          flush=True)
+    return {"ms_per_pair": ms, "stages_ms_per_pair": stages,
+            "host_share": host / total, "counts_per_pair": eval_counts,
+            "card_vs_cpu_rel": worst, "batch_rel": bworst}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1838,6 +2079,15 @@ def main(argv=None) -> None:
     variant, pair, one_branch, tool_gridwin = phase_gridwin(dev, peaks)
     tool = {k: tool_anchor[k] + tool_split[k] + tool_gridwin[k]
             for k in tool_anchor}
+    print(f"phase 18 evaluation path, {H}x{W}: cli.evaluate, cli.video, "
+          f"cli.demo_image", flush=True)
+    ev = phase_eval(dev, ms32)
+    print(json.dumps({"eval_ms_per_pair": ev["ms_per_pair"],
+                      "forward_ms_per_pair_fp32": ms32,
+                      "eval_stages_ms_per_pair": ev["stages_ms_per_pair"],
+                      "eval_host_share": ev["host_share"],
+                      "eval_card_vs_cpu_rel": ev["card_vs_cpu_rel"],
+                      "eval_batch2_rel": ev["batch_rel"]}))
 
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -1856,7 +2106,9 @@ def main(argv=None) -> None:
                 "launches_train_planes: one standard step with the planes "
                 "route forced (128x256, batch 1, 2 iterations, f32); "
                 "launches_forward_fused_levels: one 512x1024 forward with "
-                "PRIORFLOW_DCCL_FUSE_LEVELS=1; the tools' kernels (path "
+                "PRIORFLOW_DCCL_FUSE_LEVELS=1; launches_eval_512x1024: per "
+                "pair of cli.evaluate on the MPF test split at 512x1024, 12 "
+                "iterations (phase 18); the tools' kernels (path "
                 "tool): one measurement run of phases 15-17")
 
     def row(name, src, replaces, d, work, err, path="train"):
@@ -1872,6 +2124,7 @@ def main(argv=None) -> None:
                 "launches_forward_1024x2048": hr_counts[name],
                 "launches_forward_fused_levels": fused_counts[name],
                 "launches_train_planes": planes_counts[name],
+                "launches_eval_512x1024": ev["counts_per_pair"][name],
                 "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
                 "library_ms": d["library_ms"], "work": work + "; " + per_path}
@@ -1956,8 +2209,11 @@ def main(argv=None) -> None:
             "prior_flow_tpu/ops/pallas/dccl_gather.py:271", all_levels,
             "ms/plain/bound/library: one GRU iteration at 512x1024, batch 1, "
             "f32, one launch for 4 levels; library_ms = 16 F.grid_sample at "
-            "precomputed coords (leaves out the grid-window stage); 4 "
-            f"per-level launches: {all_levels['per_level_ms']:.4f} ms",
+            "precomputed coords (leaves out the grid-window stage); issued "
+            "back to back; queued (the card's own time): "
+            f"{all_levels['queued_ms']:.4f} ms; 4 per-level launches: "
+            f"{all_levels['per_level_ms']:.4f} ms, queued "
+            f"{all_levels['per_level_queued_ms']:.4f} ms",
             all_levels["err"], path="forward_fused_levels"),
         row("anchor_chain", "microbench_anchor.cu",
             "tools/microbench_vpu_anchor.py:46", chain,

@@ -1,8 +1,10 @@
 """PriOr-Flow in PyTorch with hand-written CUDA kernels for Hopper.
 
 A port of ``prior_flow_tpu`` (JAX on a TPU) that imports nothing of it:
-the test-mode PriOr-RAFT forward, with the DCCL level lookup and the
-instance-norm statistics as CUDA kernels (``csrc/``), built at first use.
+the PriOr-RAFT forward and training step, the evaluation path (``eval``,
+``data``, the CLIs), and the measurement tools, with the DCCL lookup, its
+scatter, the cross tap coords and the instance-norm statistics as CUDA
+kernels (``csrc/``), built at first use.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 

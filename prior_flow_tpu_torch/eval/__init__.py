@@ -1,5 +1,1 @@
-"""Evaluation metrics."""
-
-from .metrics import spherical_mask
-
-__all__ = ["spherical_mask"]
+"""Evaluation: the spherical metrics and the validators."""

@@ -1,8 +1,9 @@
 """ERP (equirectangular projection) coordinate algebra.
 
-Counterpart of ``prior_flow_tpu/geometry/erp.py``. The scalar maps are
-plain arithmetic, so they serve both the float64 numpy grid builders and
-torch tensors; ``u_clip`` and ``flow_to_endpoint`` are torch-only.
+Counterpart of ``prior_flow_tpu/geometry/erp.py``. The scalar and grid
+maps are plain arithmetic, so they serve both the float64 numpy grid
+builders and torch tensors; ``u_clip`` and ``flow_to_endpoint`` are
+torch-only.
 
 Conventions: coordinate grids are channels-last ``(..., 2)`` with
 ``[..., 0] = x (m)`` and ``[..., 1] = y (n)``; pixel centres sit at
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 PI = math.pi
@@ -68,6 +70,38 @@ def m2theta(m, W):
 
 def theta2m(theta, W):
     return u2m(theta2u(theta), W)
+
+
+def _stack(a, b):
+    """Stack two equally shaped numpy arrays or torch tensors on a new last
+    axis."""
+    if isinstance(a, torch.Tensor):
+        return torch.stack([a, b], dim=-1)
+    return np.stack([a, b], axis=-1)
+
+
+def plane_to_spherical(grid, H, W):
+    """Pixel grid ``(..., 2)`` [m, n] -> spherical grid ``(..., 2)``
+    [theta, phi] (``prior_flow_tpu/geometry/erp.py:94``)."""
+    return _stack(m2theta(grid[..., 0], W), n2phi(grid[..., 1], H))
+
+
+def spherical_to_plane(sph, H, W, is_flow=False):
+    """Spherical grid ``(..., 2)`` [theta, phi] -> pixel grid ``(..., 2)``
+    (``prior_flow_tpu/geometry/erp.py:104``). With ``is_flow=True`` the
+    input is an angular displacement and the output the pixel displacement
+    ``d_m = d_theta * W / (2 pi)``, ``d_n = d_phi * H / (-pi)``."""
+    if not is_flow:
+        return _stack(theta2m(sph[..., 0], W), phi2n(sph[..., 1], H))
+    return _stack(sph[..., 0] * W / (2.0 * PI), sph[..., 1] * H / (-PI))
+
+
+def piecewise_fun(x, bound):
+    """Piecewise-linear [0, bound) -> [-0.5, bound - 0.5)
+    (``prior_flow_tpu/geometry/erp.py:134``)."""
+    if isinstance(x, torch.Tensor):
+        return torch.where(x >= bound - 0.5, x - bound, x)
+    return np.where(x >= bound - 0.5, x - bound, x)
 
 
 def u_clip(u: torch.Tensor, W: int) -> torch.Tensor:

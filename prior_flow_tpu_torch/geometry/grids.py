@@ -55,6 +55,39 @@ def rotation_grids(H: int, W: int) -> RotationGrids:
     )
 
 
+@lru_cache(maxsize=32)
+def sample_grid(H: int, W: int, euler_zyx: tuple,
+                transpose: bool = False) -> np.ndarray:
+    """One cached rotation grid (H, W, 2) float32 for Euler angles (z, y, x)
+    (``prior_flow_tpu/geometry/grids.py:63``)."""
+    R = rotation_matrix(list(euler_zyx))
+    return make_sample_grid(H, W, R.T if transpose else R)
+
+
+_VIEW_ANGLES = {"a2b": -math.pi / 2, "b2a": math.pi / 2}
+
+
+def view_grid(H: int, W: int, name: str) -> np.ndarray:
+    """The ``a2b`` or ``b2a`` grid at (H, W): the bundle's where H and W
+    divide by 8, else the same rotation built alone
+    (``prior_flow_tpu/ops/warp.py:55-66``)."""
+    if H % 8 == 0 and W % 8 == 0:
+        return getattr(rotation_grids(H, W), name)
+    return sample_grid(H, W, (0.0, 0.0, _VIEW_ANGLES[name]))
+
+
+@lru_cache(maxsize=32)
+def identity_grid(H: int, W: int) -> np.ndarray:
+    """Identity pixel-coordinate grid (H, W, 2) float32, [..., 0] = x
+    (``prior_flow_tpu/geometry/grids.py:70``). The cached array is shared:
+    callers copy it, never write to it."""
+    x, y = np.meshgrid(np.arange(W, dtype=np.float32),
+                       np.arange(H, dtype=np.float32))
+    out = np.stack([x, y], axis=-1)
+    out.flags.writeable = False
+    return out
+
+
 def identity_grid_on(H: int, W: int, device) -> torch.Tensor:
     """Identity pixel-coordinate grid (H, W, 2) f32, [..., 0] = x, built
     on ``device`` (no host-to-device copy)."""

@@ -1,7 +1,9 @@
 """Spherical rotation math and ERP resampling-grid generation, host side.
 
 Counterpart of ``prior_flow_tpu/geometry/rotation.py``: grids are built
-once per (H, W, rotation) in float64 numpy and cast to float32.
+once per (H, W, rotation) in float64 numpy and cast to float32. The
+sphere maps also take torch tensors, for the warps that rotate per-pixel
+coordinates on the device.
 """
 
 from __future__ import annotations
@@ -9,6 +11,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from . import erp
 
@@ -33,27 +36,50 @@ def rotation_matrix(theta_list, axis_list=("z", "y", "x"), dtype=np.float64):
     return R
 
 
-def diverge_zero(x: np.ndarray, eps: float = _EPS) -> np.ndarray:
+def _xp(x):
+    """The array namespace of ``x``: numpy for host grids, torch for tensors
+    (``flow_to_camera`` and ``rotating_warping`` run these on the device)."""
+    return torch if isinstance(x, torch.Tensor) else np
+
+
+def _stack(xp, parts):
+    return torch.stack(parts, dim=-1) if xp is torch else np.stack(parts, -1)
+
+
+def diverge_zero(x, eps: float = _EPS):
     """Push |x| < eps away from zero, sign-preserving; exact zeros stay."""
-    near_zero = np.abs(x) < eps
-    return x + np.sign(x) * near_zero * eps
+    xp = _xp(x)
+    near_zero = xp.abs(x) < eps
+    return x + xp.sign(x) * near_zero * eps
 
 
-def spherical_to_cartesian(sph: np.ndarray) -> np.ndarray:
+def spherical_to_cartesian(sph):
     """(..., 2) [theta, phi] -> (..., 3) [x, y, z] on the unit sphere."""
+    xp = _xp(sph)
     theta, phi = sph[..., 0], sph[..., 1]
-    return np.stack([np.cos(phi) * np.cos(theta),
-                     np.cos(phi) * np.sin(theta),
-                     np.sin(phi)], axis=-1)
+    return _stack(xp, [xp.cos(phi) * xp.cos(theta),
+                       xp.cos(phi) * xp.sin(theta),
+                       xp.sin(phi)])
 
 
-def cartesian_to_spherical(cart: np.ndarray) -> np.ndarray:
+def cartesian_to_spherical(cart):
     """(..., 3) [x, y, z] -> (..., 2) [theta, phi], with the diverge_zero
     guard inside atan2."""
+    xp = _xp(cart)
     x, y, z = cart[..., 0], cart[..., 1], cart[..., 2]
-    phi = np.arcsin(np.clip(z, -1.0, 1.0))
-    theta = np.arctan2(diverge_zero(y), diverge_zero(x))
-    return np.stack([theta, phi], axis=-1)
+    phi = xp.arcsin(xp.clip(z, -1.0, 1.0))
+    theta = xp.arctan2(diverge_zero(y), diverge_zero(x))
+    return _stack(xp, [theta, phi])
+
+
+def rotate_cartesian(cart, R):
+    """Apply a (3, 3) rotation to a (..., 3) Cartesian grid
+    (``prior_flow_tpu/geometry/rotation.py:81``); a tensor is rotated in
+    its own dtype on its own device."""
+    Rt = np.asarray(R).T
+    if isinstance(cart, torch.Tensor):
+        return cart @ torch.as_tensor(Rt, dtype=cart.dtype, device=cart.device)
+    return cart @ Rt
 
 
 def plane_grid(H: int, W: int, dtype=np.float64) -> np.ndarray:
@@ -62,16 +88,24 @@ def plane_grid(H: int, W: int, dtype=np.float64) -> np.ndarray:
     return np.stack([xx, yy], axis=-1)
 
 
-def make_sample_grid(H: int, W: int, R: np.ndarray) -> np.ndarray:
-    """ERP resampling grid for a spherical rotation
-    (``prior_flow_tpu/geometry/rotation.py:117``): every output pixel is
-    lifted to the sphere, rotated by ``R`` and mapped back to the source
-    pixel coordinates it samples. float64 math, float32 (H, W, 2) result."""
-    grid = plane_grid(H, W)
-    sph = np.stack([erp.m2theta(grid[..., 0], W),
-                    erp.n2phi(grid[..., 1], H)], axis=-1)
-    cart_rot = spherical_to_cartesian(sph) @ np.asarray(R).T
-    sph_rot = cartesian_to_spherical(cart_rot)
-    m = erp.theta2m(sph_rot[..., 0], W)
-    n = erp.phi2n(sph_rot[..., 1], H)
+def make_sample_grid_sized(H1: int, W1: int, H2: int, W2: int,
+                           R: np.ndarray) -> np.ndarray:
+    """Rotation resampling grid between two ERP sizes
+    (``prior_flow_tpu/geometry/rotation.py:101``): every pixel of an
+    (H1, W1) output is lifted to the sphere, rotated by ``R`` and mapped to
+    the pixel coordinates it samples in an (H2, W2) source. float64 math,
+    float32 (H1, W1, 2) result."""
+    grid = plane_grid(H1, W1)
+    sph = np.stack([erp.m2theta(grid[..., 0], W1),
+                    erp.n2phi(grid[..., 1], H1)], axis=-1)
+    sph_rot = cartesian_to_spherical(
+        rotate_cartesian(spherical_to_cartesian(sph), R))
+    m = erp.theta2m(sph_rot[..., 0], W2)
+    n = erp.phi2n(sph_rot[..., 1], H2)
     return np.stack([m, n], axis=-1).astype(np.float32)
+
+
+def make_sample_grid(H: int, W: int, R: np.ndarray) -> np.ndarray:
+    """ERP resampling grid for a spherical rotation at one size
+    (``prior_flow_tpu/geometry/rotation.py:117``)."""
+    return make_sample_grid_sized(H, W, H, W, R)

@@ -70,20 +70,67 @@ def _flatten_coords(coords):
     return coords.reshape(lead[0], -1, 2), lead
 
 
-def bilinear_sample(img, coords):
+def bilinear_sample(img, coords, mask: bool = False):
     """``grid_sample(align_corners=True, padding_mode='zeros')`` in pixel
-    coordinates (``prior_flow_tpu/ops/samplers.py:117``)."""
+    coordinates (``prior_flow_tpu/ops/samplers.py:117``). With ``mask=True``
+    it also returns the in-bounds mask the reference computes: strict
+    inequalities on the normalised coordinates, in the image's dtype."""
+    H, W = img.shape[1], img.shape[2]
     flat, lead = _flatten_coords(coords)
-    out = _bilinear_core(img, flat[..., 0], flat[..., 1])
-    return out.reshape(*lead, img.shape[-1])
+    x, y = flat[..., 0], flat[..., 1]
+    out = _bilinear_core(img, x, y).reshape(*lead, img.shape[-1])
+    if not mask:
+        return out
+    xn = 2 * x / (W - 1) - 1
+    yn = 2 * y / (H - 1) - 1
+    m = ((xn > -1) & (xn < 1) & (yn > -1) & (yn < 1)).to(img.dtype)
+    return out, m.reshape(*lead)
 
 
-def cycle_bilinear_sample(img, coords):
+def _wrap_x(coords, W: int):
+    return torch.stack([torch.remainder(coords[..., 0], W), coords[..., 1]],
+                       dim=-1)
+
+
+def cycle_bilinear_sample(img, coords, mask: bool = False):
     """``bilinear_sample`` with x wrapped mod W first
     (``prior_flow_tpu/ops/samplers.py:139``)."""
-    W = img.shape[2]
-    x = torch.remainder(coords[..., 0], W)
-    return bilinear_sample(img, torch.stack([x, coords[..., 1]], dim=-1))
+    return bilinear_sample(img, _wrap_x(coords, img.shape[2]), mask=mask)
+
+
+def _binarised_ones(img, coords):
+    """The reference's validity mask: an all-ones image resampled at
+    ``coords``, 0 below 0.9999 and 1 elsewhere."""
+    m = bilinear_sample(torch.ones_like(img), coords)
+    return torch.where(m < 0.9999, 0.0, 1.0).to(img.dtype)
+
+
+def masked_bilinear_interpolate(img, grid):
+    """Wrap-x bilinear sample times a binarised validity mask
+    (``prior_flow_tpu/ops/samplers.py:220``)."""
+    wrapped = _wrap_x(grid, img.shape[2])
+    return bilinear_sample(img, wrapped) * _binarised_ones(img, wrapped)
+
+
+def cycle_interpolate(img, grid, nearest: bool = False):
+    """Wrap-aware interpolation over the image with a copy of column 0
+    appended (width W + 1), x wrapped mod W, times a binarised validity
+    mask; ``nearest=True`` rounds to the nearest pixel instead
+    (``prior_flow_tpu/ops/samplers.py:237``)."""
+    B, H, W, C = img.shape
+    padded = torch.cat([img, img[:, :, :1, :]], dim=2)
+    coords = _wrap_x(grid, W)
+    if not nearest:
+        return bilinear_sample(padded, coords) * _binarised_ones(padded,
+                                                                 coords)
+    ix = torch.round(coords[..., 0]).long()
+    iy = torch.round(coords[..., 1]).long()
+    valid = (ix >= 0) & (ix <= W) & (iy >= 0) & (iy <= H - 1)
+    ix = torch.clamp(ix, 0, W)
+    iy = torch.clamp(iy, 0, H - 1)
+    lead = coords.shape[:-1]
+    out = _gather_2d(padded, ix.reshape(B, -1), iy.reshape(B, -1))
+    return out.reshape(*lead, C) * valid.unsqueeze(-1)
 
 
 def cycle_grid_sample(img, grid, is_grid: bool = False):

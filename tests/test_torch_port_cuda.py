@@ -752,3 +752,61 @@ def test_gridwin_smem_grid_odd_and_unaligned_grids(dev, shape, offset):
     direct = gridwin_variants.gridwin_variant(cen, gA, gB, 0.5, "direct")
     for a, b, c in zip(got, want, direct):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _mpf_tree(root, h, w, frames=3, seed=0):
+    """A seeded MPF test split (``EFTs_Car100``) written by the port's own
+    writers: ``frames`` PNG frames and their ``.flo`` ground truth."""
+    import os
+
+    import numpy as np
+
+    from prior_flow_tpu_torch.data import frame_utils
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, "EFTs_Car100")
+    os.makedirs(os.path.join(d, "image"))
+    os.makedirs(os.path.join(d, "flow"))
+    for i in range(frames):
+        frame_utils.write_image(os.path.join(d, "image", f"{i:04d}.png"),
+                                rng.integers(0, 256, (h, w, 3), np.uint8))
+        frame_utils.write_flo(os.path.join(d, "flow", f"{i:04d}.flo"),
+                              (rng.normal(size=(h, w, 2)) * 4).astype(
+                                  np.float32))
+    return str(root)
+
+
+@pytest.mark.parametrize("regions", [False, True])
+def test_eval_loop_on_card_matches_cpu(dev, tmp_path, regions):
+    """The MPF validators on the card against the CPU at 128x256, 4
+    iterations, 2 pairs, each metric to a relative 1e-3 (chip_smoke.py
+    phase 18's gate)."""
+    from prior_flow_tpu_torch.eval import evaluate as V
+    root = _mpf_tree(tmp_path, 128, 256)
+    fn = V.validate_mpf_regions if regions else V.validate_mpf
+    card = fn(build_model(dev, seed=3, precision="highest"), iters=4,
+              data_root=root)
+    cpu = fn(build_model("cpu", seed=3), iters=4, data_root=root)
+
+    def flat(res):
+        return {f"{k}-{m}": x for k, v in res.items()
+                for m, x in (v.items() if isinstance(v, dict) else [("", v)])}
+
+    got, ref = flat(card), flat(cpu)
+    assert got.keys() == ref.keys()
+    for k in ref:
+        assert abs(got[k] - ref[k]) <= 1e-3 * abs(ref[k]), (k, got[k], ref[k])
+
+
+def test_eval_loop_launch_counts(dev, tmp_path):
+    """The evaluation loop launches kernel 1 four times per iteration and
+    the sums 15 times per pair, and nothing else: no plain route."""
+    from prior_flow_tpu_torch.eval import evaluate as V
+    root = _mpf_tree(tmp_path, 64, 128, frames=3)
+    model = build_model(dev, seed=0, precision="highest")
+    V.validate_mpf(model, iters=2, data_root=root, max_samples=1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    V.validate_mpf(model, iters=2, data_root=root)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(dccl_level_lookup=2 * 4 * 2,
+                                      instance_norm_sums=2 * 15)

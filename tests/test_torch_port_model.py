@@ -266,6 +266,10 @@ import prior_flow_tpu_torch.ops.kernels.dccl_scatter
 import prior_flow_tpu_torch.tools.microbench_vpu_anchor
 import prior_flow_tpu_torch.tools.microbench_kernel_split
 import prior_flow_tpu_torch.tools.microbench_gridwin
+import prior_flow_tpu_torch.eval.evaluate, prior_flow_tpu_torch.utils.flow_viz
+import prior_flow_tpu_torch.data.datasets, prior_flow_tpu_torch.data.native
+import prior_flow_tpu_torch.cli.evaluate, prior_flow_tpu_torch.cli.video
+import prior_flow_tpu_torch.cli.demo_image
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "prior_flow_tpu", "tools"))
 raised = None
