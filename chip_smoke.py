@@ -101,7 +101,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``.flo`` files) and ``cli.demo_image`` (its PNG reads back); the
    native host library built into ``build/`` and held to numpy; the
    loop's ms per pair beside phase 4's and its stages (read, pad,
-   forward, metrics).
+   forward, metrics);
+19. the training CLI (``cli.train``, in-process) at the EFT recipe on a
+   seeded synthetic MPF training tree written under ``build/phase19/``
+   (``EFTs_Car2000``, 9 frames at 512x1024, 2 batches of 4 per epoch, so
+   an epoch boundary falls inside the run; ``EFTs_Car100``, 4 frames, for
+   ``--validation EFT``): ``--mixed_precision --num_steps 5 --val_freq 3
+   --add_noise``, each grad mode: the launches of 6 steps, 2 validations of
+   3 pairs and one image panel forward, finite losses and validation
+   metrics, checkpoint tags 3, 6 and final, the model in train mode after
+   validation; ``cli.evaluate`` on ``final/model.pth``; a run resumed
+   from tag 3 within ``RESUME_RTOL`` of the uninterrupted one; the seeded
+   weights through a ``module.``-prefixed ``.pth`` and
+   ``--restore_ckpt`` (step 0's loss is the seeded run's); the loop's ms
+   per step on the card's clock beside phase 9's bare step, the loader's
+   wait per step, its host ms per batch at 1 and 4 workers, peak GB.
 The launches of phases 15-17 are the tools' measurement runs (path
 "tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
@@ -1740,23 +1754,31 @@ EVAL_BATCH_RTOL = 1e-5    # batch 2 against batch 1, each metric, relative
 ORACLE_EPE, ORACLE_SEPE = 1e-5, 1e-4
 
 
-def eval_tree(root: str, h: int, w: int, seed: int) -> str:
-    """A seeded synthetic MPF test split under ``root``: ``EFTs_Car100``
-    and ``City_100_r``, EVAL_PAIRS + 1 frames each (``image/*.png``) with
-    ``flow/*.flo`` ground truth, written by the port's own writers."""
+def write_mpf_scene(root: str, scene: str, frames: int, h: int, w: int,
+                    rng) -> None:
+    """``frames`` random PNG frames (``image/*.png``) and ``.flo`` ground
+    truth (``flow/*.flo``) of an MPF scene directory, drawn from ``rng``
+    and written by the port's own writers."""
     import numpy as np
     from prior_flow_tpu_torch.data import frame_utils
+    for sub in ("image", "flow"):
+        os.makedirs(os.path.join(root, scene, sub), exist_ok=True)
+    for i in range(frames):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        frame_utils.write_image(
+            os.path.join(root, scene, "image", f"{i:04d}.png"), img)
+        flow = (rng.normal(size=(h, w, 2)) * 4).astype(np.float32)
+        frame_utils.write_flo(
+            os.path.join(root, scene, "flow", f"{i:04d}.flo"), flow)
+
+
+def eval_tree(root: str, h: int, w: int, seed: int) -> str:
+    """A seeded synthetic MPF test split under ``root``: ``EFTs_Car100``
+    and ``City_100_r``, EVAL_PAIRS + 1 frames each."""
+    import numpy as np
     rng = np.random.default_rng(seed)
     for scene in ("EFTs_Car100", "City_100_r"):
-        for sub in ("image", "flow"):
-            os.makedirs(os.path.join(root, scene, sub), exist_ok=True)
-        for i in range(EVAL_PAIRS + 1):
-            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-            frame_utils.write_image(
-                os.path.join(root, scene, "image", f"{i:04d}.png"), img)
-            flow = (rng.normal(size=(h, w, 2)) * 4).astype(np.float32)
-            frame_utils.write_flo(
-                os.path.join(root, scene, "flow", f"{i:04d}.flo"), flow)
+        write_mpf_scene(root, scene, EVAL_PAIRS + 1, h, w, rng)
     return root
 
 
@@ -1951,6 +1973,257 @@ def phase_eval(dev, forward_ms: float):
             "card_vs_cpu_rel": worst, "batch_rel": bworst}
 
 
+# -- phase 19: the training CLI --------------------------------------------------
+
+TRAIN_CLI_FRAMES = 9      # EFTs_Car2000: 8 pairs, 2 batches of 4 per epoch
+TRAIN_CLI_NUM_STEPS = 5   # --num_steps: 6 updates, checkpoints 3, 6, final
+TRAIN_CLI_VAL_FREQ = 3
+TRAIN_CLI_VAL_PAIRS = 3   # EFTs_Car100: 4 frames
+TRAIN_CLI_TAGS = ["3", "6", "final", "logs"]
+# a run resumed from tag 3 against the uninterrupted run: the distance of
+# their final weights over the distance the uninterrupted run moved them in
+# the same 3 steps (relative L2 over all tensors). Not bitwise on the card:
+# the scatter's shared-memory f32 adds and cuDNN's weight-gradient sums
+# land in any order, and Adam scales each gradient by its own running
+# magnitude, so elements whose gradients are near zero move by up to the
+# learning rate either way.
+RESUME_RTOL = 5e-2
+# the .pth run against the seeded run: the same weights, batch and noise
+# at step 0, so the same loss but for the reductions' order
+PTH_LOSS_RTOL = 1e-5
+
+
+class StepLosses:
+    """Keeps each training step's loss tensor (no synchronise) while the
+    block runs ``cli.train``: ``Trainer.train_step`` is wrapped, and put
+    back after."""
+
+    def __enter__(self):
+        from prior_flow_tpu_torch.train import trainer
+        self.cls, self.orig, self.losses = trainer.Trainer, None, []
+        self.orig = self.cls.train_step
+        orig, losses = self.orig, self.losses
+
+        def train_step(trainer_self, batch):
+            m = orig(trainer_self, batch)
+            losses.append(m["train/loss"].detach())
+            return m
+
+        self.cls.train_step = train_step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.orig
+
+    def values(self):
+        return [float(v) for v in self.losses]
+
+
+def jsonl(path: str):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_cli_counts(mode: str, steps: int, validations: int,
+                     panels: int) -> dict:
+    """The launches of a CLI run: per step kernel 1 4 x ITERS, the sums 30
+    and the scatter's grid entry 2 x 4 x ITERS (standard) or 8 (taped); per
+    validated pair and per image panel a forward's 4 x ITERS and 15."""
+    forwards = validations * TRAIN_CLI_VAL_PAIRS + panels
+    per = 2 * LEVELS * (ITERS if mode == "standard" else 1)
+    return forward_counts(
+        dccl_level_lookup=LEVELS * ITERS * (steps + forwards),
+        instance_norm_sums=30 * steps + 15 * forwards,
+        dccl_level_scatter_grid=per * steps)
+
+
+def loader_ms_per_batch(tree: str, workers: int) -> float:
+    """Host ms per batch of 4 (read two PNGs and a .flo per sample,
+    augment, stack, pin) of the EFT loader at ``workers`` worker processes,
+    each ``prefetch`` batches ahead: the wall time per batch of 4 x depth
+    batches taken as fast as they come, after depth = workers x prefetch
+    untimed ones (the workers' start). At most depth batches are ready
+    when the timing starts, so it reads at most a quarter fast."""
+    from prior_flow_tpu_torch.data import datasets
+    from prior_flow_tpu_torch.data.loader import DataLoader
+    loader = DataLoader(datasets.fetch_dataset("EFT", tree), TRAIN_B,
+                        num_workers=workers)
+    depth = workers * loader.prefetch
+    stream = loader.infinite()
+    try:
+        for _ in range(depth):
+            next(stream)
+        t0 = time.perf_counter()
+        for _ in range(4 * depth):
+            next(stream)
+        return (time.perf_counter() - t0) * 1e3 / (4 * depth)
+    finally:
+        stream.close()
+
+
+def phase_train_cli(dev, train):
+    """``cli.train`` at the EFT recipe on a seeded synthetic MPF training
+    tree, in-process, both grad modes: launch counts, finite losses and
+    validation metrics, the checkpoint tags, train mode after validation,
+    ``cli.evaluate`` on the final ``model.pth``, a run resumed from tag 3
+    against the uninterrupted one, a ``module.``-prefixed ``.pth`` through
+    ``--restore_ckpt``; the loop's card ms per step beside phase 9's bare
+    step (``train``), the loader's wait per step and its host ms per
+    batch, peak GB."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from prior_flow_tpu_torch import build_model
+    from prior_flow_tpu_torch.checkpoint import load_pth, write_pth
+    from prior_flow_tpu_torch.cli import evaluate
+    from prior_flow_tpu_torch.cli import train as cli
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+
+    base = os.path.join(REPO, "build", "phase19")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree = os.path.join(base, "mpf")
+    rng = np.random.default_rng(19)
+    write_mpf_scene(tree, "EFTs_Car2000", TRAIN_CLI_FRAMES, H, W, rng)
+    write_mpf_scene(tree, "EFTs_Car100", TRAIN_CLI_VAL_PAIRS + 1, H, W, rng)
+    seed = cli.build_parser().get_default("seed")
+    pth = write_pth(build_model("cpu", seed=seed).state_dict(),
+                    os.path.join(base, "seeded.pth"))
+    print(f"  tree {H}x{W} ({TRAIN_CLI_FRAMES} training frames, "
+          f"{TRAIN_CLI_VAL_PAIRS + 1} test frames) and a .pth written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    common = ["--stage", "EFT", "--data_root", tree, "--batch_size",
+              str(TRAIN_B), "--iters", str(ITERS), "--mixed_precision",
+              "--num_steps", str(TRAIN_CLI_NUM_STEPS), "--val_freq",
+              str(TRAIN_CLI_VAL_FREQ), "--validation", "EFT", "--add_noise"]
+    steps = TRAIN_CLI_NUM_STEPS + 1
+    card = nvidia_smi("name,power.limit")
+
+    def run(args, mode, want=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with StepLosses() as rec:
+            trainer = cli.main(args + ["--grad_mode", mode])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if want is not None and counts != want:
+            fail(f"cli.train {mode}: launch counts {counts}, expected {want}")
+        losses = rec.values()
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"cli.train {mode}: losses {losses}")
+        return trainer, counts, losses, torch.cuda.max_memory_allocated() / 1e9
+
+    out = {}
+    for mode in ("standard", "taped"):
+        save = os.path.join(base, f"ckpt_{mode}")
+        want = train_cli_counts(mode, steps, 2, 1)
+        trainer, counts, losses, peak = run(common + ["--save_path", save],
+                                            mode, want)
+        tags = sorted(os.listdir(save))
+        if tags != TRAIN_CLI_TAGS or trainer.step != steps:
+            fail(f"cli.train {mode}: tags {tags}, step {trainer.step}")
+        if not trainer.model.training:
+            fail(f"cli.train {mode}: the model left validation in eval mode")
+        records = jsonl(os.path.join(save, "logs", "EFT.jsonl"))
+        val = [r for r in records if "EFT-epe" in r]
+        logged = [v for r in records for k, v in r.items() if k != "ts"]
+        if [r["step"] for r in val] != [2, 5] or not all(
+                math.isfinite(v) for v in logged):
+            fail(f"cli.train {mode}: log records {records}")
+        step_ms = trainer.clock.step_ms()
+        gap_ms = trainer.clock.gap_ms()
+        wait_ms = [w * 1e3 for w in trainer.clock.wait_s]
+        med = statistics.median(step_ms[2:])
+        wait = statistics.median(wait_ms[1:])
+        out[mode] = dict(ms=med, wait_ms=wait, first_wait_ms=wait_ms[0],
+                         gap_ms=gap_ms, peak_gb=peak, counts=counts,
+                         losses=losses, val=val, save=save,
+                         weights={k: v.detach().clone() for k, v in
+                                  trainer.model.state_dict().items()})
+        print(f"  cli.train {mode} {H}x{W} batch {TRAIN_B} iters {ITERS} "
+              f"bf16, {steps} steps, 2 validations of "
+              f"{TRAIN_CLI_VAL_PAIRS} pairs: tags {tags}; launches "
+              f"{dict((k, v) for k, v in counts.items() if v)}; losses "
+              f"{[round(v, 4) for v in losses]}; validation "
+              f"{[(r['EFT-epe'], r['EFT-SEPE']) for r in val]}", flush=True)
+        print(f"    [{card}] loop {med:.1f} ms/step on the card's clock "
+              f"(median of steps 3-{steps}; each {[round(v, 1) for v in step_ms]}"
+              f"), phase 9's bare step {train[mode]['ms']:.1f} ms/step "
+              f"({100 * (med / train[mode]['ms'] - 1):+.1f}%); loader wait "
+              f"{wait:.2f} ms/step (median after the first; first "
+              f"{wait_ms[0]:.1f} ms with the workers' start; each "
+              f"{[round(v, 2) for v in wait_ms]}); card idle between steps "
+              f"{[round(v, 1) for v in gap_ms]} ms (after step 1 the log "
+              f"and the image panels, after step 3 a checkpoint and a "
+              f"validation); peak {peak:.2f} GB", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+    std = out["standard"]
+    res, counted = run_counted(
+        lambda: evaluate.main(["--model", os.path.join(
+            std["save"], "final", "model.pth"), "--dataset", "MPFDataset",
+            "--scene", "EFT", "--data_root", tree, "--mixed_precision"]),
+        forward_counts(dccl_level_lookup=LEVELS * ITERS),
+        TRAIN_CLI_VAL_PAIRS, "cli.evaluate on the final model.pth")
+    if not all(math.isfinite(v) for v in res.values()):
+        fail(f"cli.evaluate on the final model.pth: {res}")
+    print(f"  cli.evaluate --model final/model.pth: {res}", flush=True)
+
+    # resumed from tag 3 against the uninterrupted standard run
+    resumed, _, r_losses, _ = run(common + [
+        "--save_path", os.path.join(base, "resumed"), "--restore_ckpt",
+        os.path.join(std["save"], "3")], "standard")
+    if resumed.step != steps:
+        fail(f"resumed run ended at step {resumed.step}")
+    at3 = load_pth(os.path.join(std["save"], "3", "model.pth"))
+    num = den = 0.0
+    for k, v in resumed.model.state_dict().items():
+        full = std["weights"][k].double()
+        num += float(((v.double() - full) ** 2).sum())
+        den += float(((full - at3[k].to(full)) ** 2).sum())
+    rel = math.sqrt(num / den)
+    loss_rel = [abs(a - b) / abs(b) for a, b in
+                zip(r_losses, std["losses"][3:])]
+    if not rel <= RESUME_RTOL:
+        fail(f"resumed from tag 3: final weights {rel:.3e} of the 3 steps' "
+             f"movement from the uninterrupted run's (gate {RESUME_RTOL})")
+    print(f"  resumed from tag 3: final weights {rel:.3e} of the last 3 "
+          f"steps' movement from the uninterrupted run's (gate "
+          f"{RESUME_RTOL}); its losses against the uninterrupted steps 4-6, "
+          f"relative {[f'{v:.2e}' for v in loss_rel]}", flush=True)
+    del resumed
+    torch.cuda.empty_cache()
+
+    # the seeded weights through a module.-prefixed .pth: step 0's loss is
+    # the seeded run's
+    _, _, p_losses, _ = run(common + [
+        "--save_path", os.path.join(base, "from_pth"), "--restore_ckpt",
+        pth, "--num_steps", "0"], "standard")
+    p_rel = abs(p_losses[0] - std["losses"][0]) / abs(std["losses"][0])
+    if len(p_losses) != 1 or p_rel > PTH_LOSS_RTOL:
+        fail(f"--restore_ckpt {pth}: losses {p_losses} against the seeded "
+             f"run's first {std['losses'][0]} (gate {PTH_LOSS_RTOL})")
+    print(f"  --restore_ckpt seeded.pth (module. prefix): step 0 loss "
+          f"{p_losses[0]:.6f}, the seeded run's {std['losses'][0]:.6f} "
+          f"(relative {p_rel:.2e}, gate {PTH_LOSS_RTOL})", flush=True)
+
+    host = {w: loader_ms_per_batch(tree, w) for w in (1, 4)}
+    print(f"  [{card}] loader host ms per batch of {TRAIN_B} (read, augment, "
+          f"stack, pin): 1 worker {host[1]:.1f}, 4 workers (the default) "
+          f"{host[4]:.1f}", flush=True)
+    return {"ms_per_step": {m: out[m]["ms"] for m in out},
+            "bare_ms_per_step": {m: train[m]["ms"] for m in out},
+            "loader_wait_ms_per_step": {m: out[m]["wait_ms"] for m in out},
+            "card_idle_between_steps_ms": {m: out[m]["gap_ms"] for m in out},
+            "peak_gb": {m: out[m]["peak_gb"] for m in out},
+            "loader_host_ms_per_batch": host, "resume_rel": rel,
+            "counts": {m: out[m]["counts"] for m in out}}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2089,6 +2362,11 @@ def main(argv=None) -> None:
                       "eval_card_vs_cpu_rel": ev["card_vs_cpu_rel"],
                       "eval_batch2_rel": ev["batch_rel"]}))
 
+    print(f"phase 19 training CLI, {H}x{W}, batch {TRAIN_B}, {ITERS} "
+          f"iterations, bf16", flush=True)
+    tc = phase_train_cli(dev, train)
+    print(json.dumps({k: v for k, v in tc.items() if k != "counts"}))
+
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     try:
@@ -2108,7 +2386,10 @@ def main(argv=None) -> None:
                 "launches_forward_fused_levels: one 512x1024 forward with "
                 "PRIORFLOW_DCCL_FUSE_LEVELS=1; launches_eval_512x1024: per "
                 "pair of cli.evaluate on the MPF test split at 512x1024, 12 "
-                "iterations (phase 18); the tools' kernels (path "
+                "iterations (phase 18); launches_train_cli: one standard "
+                "run of cli.train (phase 19: 512x1024, batch 4, 12 "
+                "iterations, bf16, 6 steps, 2 validations of 3 pairs, one "
+                "image panel forward); the tools' kernels (path "
                 "tool): one measurement run of phases 15-17")
 
     def row(name, src, replaces, d, work, err, path="train"):
@@ -2125,6 +2406,7 @@ def main(argv=None) -> None:
                 "launches_forward_fused_levels": fused_counts[name],
                 "launches_train_planes": planes_counts[name],
                 "launches_eval_512x1024": ev["counts_per_pair"][name],
+                "launches_train_cli": tc["counts"]["standard"][name],
                 "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
                 "library_ms": d["library_ms"], "work": work + "; " + per_path}

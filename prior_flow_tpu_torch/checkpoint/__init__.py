@@ -1,7 +1,8 @@
-"""Checkpoint conversion and seeded initialisation."""
+"""Checkpoint conversion, the FlyingThings graft, the reference ``.pth``
+writer and seeded initialisation."""
 
-from .convert import (init_weights, load_pth, state_dict_from_jax,
-                      strip_module_prefix)
+from .convert import (convert_things_ckpt, init_weights, load_pth,
+                      state_dict_from_jax, strip_module_prefix, write_pth)
 
-__all__ = ["init_weights", "load_pth", "state_dict_from_jax",
-           "strip_module_prefix"]
+__all__ = ["convert_things_ckpt", "init_weights", "load_pth",
+           "state_dict_from_jax", "strip_module_prefix", "write_pth"]

@@ -1,7 +1,8 @@
-"""Weights into the port: JAX variables or reference ``.pth`` files to a
-state dict in the reference layout (counterpart of
-``prior_flow_tpu/checkpoint/convert.py``), and a seeded initialisation for
-hosts without either.
+"""Weights into and out of the port (counterpart of
+``prior_flow_tpu/checkpoint/convert.py``): JAX variables or reference
+``.pth`` files to a state dict in the reference layout, the FlyingThings
+graft of upstream-RAFT weights, the reference ``.pth`` writer, and a
+seeded initialisation for hosts without weights.
 """
 
 from __future__ import annotations
@@ -75,12 +76,53 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
 
 
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
-    """Read a reference checkpoint: unwrap ``state_dict`` and strip
-    ``module.`` (``convert.py:273-280``)."""
+    """Read a reference checkpoint: unwrap ``state_dict``, strip
+    ``module.`` and drop BatchNorm's ``num_batches_tracked`` counters,
+    which the frozen norms do not hold (``convert.py:61-62,273-280``)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, Mapping) and "state_dict" in sd:
         sd = sd["state_dict"]
-    return strip_module_prefix(sd)
+    return {k: v for k, v in strip_module_prefix(sd).items()
+            if not k.endswith(".num_batches_tracked")}
+
+
+def write_pth(state_dict: Mapping[str, torch.Tensor], path: str) -> str:
+    """Write ``state_dict`` as a reference checkpoint: CPU tensors under
+    ``module.``-prefixed names, as the reference's DataParallel model saves
+    them (``convert.py:217-270``'s layout). ``load_pth`` and the CLIs'
+    ``--model`` read it back."""
+    torch.save({f"module.{k}": v.detach().cpu()
+                for k, v in strip_module_prefix(state_dict).items()}, path)
+    return path
+
+
+# the ODDC blocks that the graft seeds from upstream RAFT's update_block
+_GRAFT_FROM_UPDATE = ("gru", "flow_head", "mask")
+
+
+def convert_things_ckpt(state_dict: Mapping[str, Any],
+                        template: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """The FlyingThings graft (``convert.py:179-215``): ``template`` (the
+    model's own state dict) with every tensor of ``state_dict`` whose name
+    and shape match copied in, and ``ODDC.{gru,flow_head,mask}`` seeded
+    from ``update_block``'s tensors of the same shape. Each strided
+    block's ``downsample.1`` alias takes its ``norm3`` value, the one
+    tensor both names hold."""
+    sd = strip_module_prefix(state_dict)
+    out = {}
+    for name, t in template.items():
+        key = name.replace("downsample.1.", "norm3.")
+        src = sd.get(key)
+        parts = key.split(".")
+        if (src is None or tuple(src.shape) != tuple(t.shape)) and (
+                parts[0] == "ODDC" and parts[1] in _GRAFT_FROM_UPDATE):
+            src = sd.get(".".join(["update_block"] + parts[1:]))
+        if src is not None and tuple(src.shape) == tuple(t.shape):
+            out[name] = torch.as_tensor(np.asarray(src)).to(t.dtype)
+        else:
+            out[name] = t.detach().clone()
+    return out
 
 
 def init_weights(model: torch.nn.Module, seed: int = 0) -> None:

@@ -1,3 +1,3 @@
-"""Data: flow-file and image I/O, the native host library's binding, and
-the datasets' index builders and sample readers. The augmentors, the
-batch loader and the training-stage factory are not ported yet."""
+"""Data: flow-file and image I/O, the native host library's binding, the
+datasets with their augmentors, the batch loader and the training-stage
+and config-driven factories."""

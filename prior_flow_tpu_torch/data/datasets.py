@@ -9,12 +9,14 @@ extra_info)`` for test-only samples. The semantics are the JAX module's:
 - the 360° datasets wrap horizontal flow into [-W/2, W/2);
 - MPFDataset pairs frames in reversed order, because its ground truth is
   backward flow;
-- the directory layouts and scene filters of every family.
+- the directory layouts and scene filters of every family;
+- with ``aug_params`` a sample is augmented (``data/augmentor.py``) from a
+  RandomState keyed by (``aug_seed``, epoch, index), so it does not depend
+  on which loader worker reads it; the loader passes the epoch
+  (``data/loader.py``).
 
-Augmentation is not ported yet: passing ``aug_params`` raises
-``NotImplementedError``. The augmentors, the batch loader and the
-training-stage factory (``fetch_dataset``, ``fetch_dataloader``) come with
-the training-data slice.
+``fetch_dataset`` and ``fetch_dataloader`` build a training stage's
+dataset and loader (``prior_flow_tpu/data/datasets.py:425-447``).
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ import logging
 import os
 import os.path as osp
 from glob import glob
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 from torch.utils.data import Dataset
 
 from . import frame_utils
+from .augmentor import (FlowAugmentor, FlowAugmentor360, SparseFlowAugmentor,
+                        SparseFlowAugmentor360)
 
 log = logging.getLogger(__name__)
 
@@ -41,17 +45,29 @@ class FlowDataset(Dataset):
     wrap_u = False  # 360° subclasses wrap horizontal flow
 
     def __init__(self, aug_params=None, sparse=False, root=None):
-        if aug_params is not None:
-            raise NotImplementedError(
-                "augmentation is not ported yet: the augmentors, the batch "
-                "loader and fetch_dataset come with the training-data slice "
-                "(ROADMAP Queue 1, item 5); pass aug_params=None")
         self.sparse = sparse
+        self.augmentor = None
+        if aug_params is not None:
+            self.augmentor = (SparseFlowAugmentor(**aug_params) if sparse
+                              else FlowAugmentor(**aug_params))
         self.is_test = False
         self.flow_list: List[str] = []
         self.image_list: List[List[str]] = []
         self.extra_info: List = []
         self.root = root
+        self.aug_seed = 1234
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int):
+        """The augmentation epoch: a later visit to an index draws fresh
+        augmentations."""
+        self._epoch = int(epoch)
+
+    def _sample_rng(self, index: int):
+        """The RandomState of one (epoch, index) sample
+        (``prior_flow_tpu/data/datasets.py:68``)."""
+        ss = np.random.SeedSequence([self.aug_seed, self._epoch, int(index)])
+        return np.random.RandomState(ss.generate_state(4))
 
     def _read_images(self, index):
         img1 = np.array(frame_utils.read_gen(self.image_list[index][0])).astype(np.uint8)
@@ -89,6 +105,15 @@ class FlowDataset(Dataset):
                 _, W, _ = flow.shape
                 flow[:, :, 0] = (flow[:, :, 0] + W / 2) % W - W / 2
         img1, img2 = self._read_images(index)
+
+        if self.augmentor is not None:
+            rng = self._sample_rng(index)
+            if self.sparse:
+                img1, img2, flow, valid = self.augmentor(img1, img2, flow,
+                                                         valid, rng=rng)
+            else:
+                img1, img2, flow = self.augmentor(img1, img2, flow, rng=rng)
+
         img1 = img1.astype(np.float32)
         img2 = img2.astype(np.float32)
         if valid is None:
@@ -110,6 +135,12 @@ class FlowDataset360(FlowDataset):
     [-W/2, W/2) (``prior_flow_tpu/data/datasets.py:136``)."""
 
     wrap_u = True
+
+    def __init__(self, aug_params=None, sparse=False, root=None):
+        super().__init__(None, sparse=sparse, root=root)
+        if aug_params is not None:
+            self.augmentor = (SparseFlowAugmentor360(**aug_params) if sparse
+                              else FlowAugmentor360(**aug_params))
 
 
 # ---------------------------------------------------------------------------
@@ -379,3 +410,33 @@ class HD1K(FlowDataset):
                 self.flow_list += [flows[i]]
                 self.image_list += [[images[i], images[i + 1]]]
             seq_ix += 1
+
+
+# ---------------------------------------------------------------------------
+# training stage -> dataset and loader (prior_flow_tpu/data/datasets.py:425)
+# ---------------------------------------------------------------------------
+
+def fetch_dataset(stage: str, data_root: Optional[str] = None):
+    """The training dataset of a stage, City, EFT or FlowScape, augmented
+    with ``do_flip=False``."""
+    aug_params = {"do_flip": False}
+    kw = {"root": data_root} if data_root else {}
+    if stage == "City":
+        return MPFDataset(aug_params, split="train", scene="City", **kw)
+    if stage == "EFT":
+        return MPFDataset(aug_params, split="train", scene="EFT", **kw)
+    if stage == "FlowScape":
+        return FlowScape(aug_params, split="train", **kw)
+    raise ValueError(f"unknown training stage {stage!r}")
+
+
+def fetch_dataloader(args):
+    """The shuffling batch loader of ``args.stage`` (``args.batch_size``,
+    ``args.data_root``), four worker processes, the last short batch
+    dropped."""
+    from .loader import DataLoader
+
+    dataset = fetch_dataset(args.stage, getattr(args, "data_root", None))
+    print(f"Training with {len(dataset)} image pairs")
+    return DataLoader(dataset, batch_size=args.batch_size, shuffle=True,
+                      num_workers=4, drop_last=True)

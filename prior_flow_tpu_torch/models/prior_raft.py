@@ -17,8 +17,13 @@ JAX package makes. Above ``LEAN_BUILD_QUERIES`` 1/8 queries (as at
 1024x2048) the pyramids are built in query chunks
 (``ops.corr.build_pyramid_lean``, ``prior_raft.py:394-409``), and there
 the 1/8 grid is wider than 128 columns, so ``DCCLFused`` takes its planes
-route. ``DCCLOnTheFly``, the two-scan ``deferred_vol_grad`` path,
-rematerialisation and dropout in training are not ported.
+route. ``DCCLOnTheFly``, the two-scan ``deferred_vol_grad`` path and
+rematerialisation are not ported.
+
+Dropout (``dropout`` > 0) acts in the encoders of the training forward
+only, in train mode, and draws from the ``generator`` the caller passes
+(the trainer keys one by (seed, step)); a training forward in train mode
+without one raises. Test-mode forwards and eval mode never drop.
 
 Precision (``prior_raft.py:142-144``): ``precision=None`` runs under
 torch's backend flags as the caller left them (torch's default lets cuDNN
@@ -135,11 +140,10 @@ class PriOrRAFT(nn.Module):
         self.corr_levels = corr_levels
         self.mixed_precision = mixed_precision
         corr_planes = corr_levels * (2 * corr_radius + 1) ** 2
-        # dropout acts only in training, where only 0 is ported (the
-        # published recipes use 0); kept for the reference's constructor
         self.dropout = dropout
-        self.fnet = BasicEncoder(256, "instance")
-        self.cnet = BasicEncoder(hidden_dim + context_dim, "batch")
+        self.fnet = BasicEncoder(256, "instance", dropout=dropout)
+        self.cnet = BasicEncoder(hidden_dim + context_dim, "batch",
+                                 dropout=dropout)
         self.ODDC = BasicMultiUpdateBlock(hidden_dim, corr_planes)
         self.update_block = BasicUpdateBlock(hidden_dim, corr_planes)
         self.dccl = DCCLFused(corr_levels, corr_radius)
@@ -149,6 +153,16 @@ class PriOrRAFT(nn.Module):
         return torch.autocast(device.type, dtype=torch.bfloat16,
                               enabled=self.mixed_precision)
 
+    def dropout_generator(self, generator):
+        """The generator a training forward's encoders drop out from:
+        ``generator`` in train mode with dropout on, else None."""
+        if not (self.training and self.dropout > 0):
+            return None
+        if generator is None:
+            raise ValueError("dropout in training draws from an explicit "
+                             "generator: pass generator=")
+        return generator
+
     def rotation_grids(self, H: int, W: int, device) -> gridlib.RotationGrids:
         """The (H, W) grid bundle on ``device``, copied there once."""
         key = (H, W, str(device))
@@ -156,11 +170,13 @@ class PriOrRAFT(nn.Module):
             self._grids[key] = gridlib.rotation_grids(H, W).to_device(device)
         return self._grids[key]
 
-    def encode(self, image1, image2, g: gridlib.RotationGrids):
+    def encode(self, image1, image2, g: gridlib.RotationGrids,
+               generator=None):
         """Normalisation, orthogonal view and both encoders
         (``prior_raft.py:342``). Returns NCHW ``net_A, net_B, inp_A,
         inp_B`` and the channels-last f32 fmaps (fmap1_A, fmap2_A, fmap1_B,
-        fmap2_B)."""
+        fmap2_B). Given a ``generator`` (``dropout_generator``'s), the
+        encoders drop out from it, the context encoder first."""
         image1_A = 2.0 * (image1 / 255.0) - 1.0
         image2_A = 2.0 * (image2 / 255.0) - 1.0
         rotated = img_rotate(torch.cat([image1_A, image2_A], dim=-1), g.a2b)
@@ -168,8 +184,8 @@ class PriOrRAFT(nn.Module):
         views = [_nchw(v).contiguous()
                  for v in (image1_A, image2_A, image1_B, image2_B)]
         with self._autocast(image1.device):
-            cnet_A, cnet_B = self.cnet([views[0], views[2]])
-            fmaps = self.fnet(views)
+            cnet_A, cnet_B = self.cnet([views[0], views[2]], generator)
+            fmaps = self.fnet(views, generator)
         hd = self.hidden_dim
         net_A, inp_A = torch.tanh(cnet_A[:, :hd]), F.relu(cnet_A[:, hd:])
         net_B, inp_B = torch.tanh(cnet_B[:, :hd]), F.relu(cnet_B[:, hd:])
@@ -247,21 +263,24 @@ class PriOrRAFT(nn.Module):
 
     def forward(self, image1, image2, iters: int = 12,
                 init_flow: Optional[torch.Tensor] = None,
-                test_mode: bool = True):
+                test_mode: bool = True, generator=None):
+        """``generator``: the dropout draws of a training forward
+        (``test_mode=False``) in train mode."""
         if iters < 1:
             raise ValueError("iters must be at least 1")
-        if not test_mode and self.dropout > 0:
-            raise NotImplementedError("dropout in training is not ported")
         grad = torch.no_grad() if test_mode else contextlib.nullcontext()
         with precision_scope(self.precision), grad:
             return self._forward(image1, image2, iters, init_flow,
-                                 not test_mode)
+                                 not test_mode, generator)
 
-    def _forward(self, image1, image2, iters, init_flow, train: bool):
+    def _forward(self, image1, image2, iters, init_flow, train: bool,
+                 generator=None):
         B, H, W, _ = image1.shape
         dev = image1.device
         g = self.rotation_grids(H, W, dev)
-        net_A, net_B, inp_A, inp_B, fmaps = self.encode(image1, image2, g)
+        net_A, net_B, inp_A, inp_B, fmaps = self.encode(
+            image1, image2, g,
+            self.dropout_generator(generator) if train else None)
         pyr_A, pyr_B = self.build_pyramids(fmaps)
 
         h8, w8 = H // 8, W // 8

@@ -8,7 +8,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .layers import conv, make_norm
+from .layers import conv, dropout, make_norm
 
 
 class ResidualBlock(nn.Module):
@@ -42,11 +42,15 @@ class ResidualBlock(nn.Module):
 class BasicEncoder(nn.Module):
     """7x7/2 stem, three stages of two ResidualBlocks (64, 96/2, 128/2) and a
     1x1 head: stride 8. A list input is concatenated on the batch axis,
-    encoded in one pass and split back. NCHW in and out. (The reference's
-    dropout acts only in training, which is not ported.)"""
+    encoded in one pass and split back. NCHW in and out. Given a
+    ``generator``, dropout at rate ``dropout`` follows the head (the
+    training forward, ``prior_flow_tpu/nn/encoder.py:115-116``); without
+    one the encoder is deterministic."""
 
-    def __init__(self, output_dim: int = 128, norm_fn: str = "batch"):
+    def __init__(self, output_dim: int = 128, norm_fn: str = "batch",
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.conv1 = conv(3, 64, 7, stride=2, padding=3)
         self.norm1 = make_norm(norm_fn, 64)
         stages = [(64, 64, 1), (64, 96, 2), (96, 128, 2)]
@@ -56,7 +60,7 @@ class BasicEncoder(nn.Module):
                 ResidualBlock(out, out, norm_fn, stride=1)))
         self.conv2 = conv(128, output_dim, 1, padding=0)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         is_list = isinstance(x, (tuple, list))
         if is_list:
             batch_dim = x[0].shape[0]
@@ -64,6 +68,8 @@ class BasicEncoder(nn.Module):
         x = F.relu(self.norm1(self.conv1(x)))
         x = self.layer3(self.layer2(self.layer1(x)))
         x = self.conv2(x)
+        if generator is not None and self.dropout > 0:
+            x = dropout(x, self.dropout, generator)
         if is_list:
             return tuple(torch.split(x, batch_dim, dim=0))
         return x

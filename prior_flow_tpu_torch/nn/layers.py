@@ -56,6 +56,15 @@ class FrozenBatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator):
+    """Elementwise dropout at rate ``p`` drawn from ``generator``: each
+    element kept with probability 1 - p and scaled by 1 / (1 - p), the
+    rest zero (flax ``nn.Dropout``'s rule, ``select(keep, x / (1 - p),
+    0)``)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
 def make_norm(kind: str, features: int) -> nn.Module:
     """'instance' or 'batch' (frozen), the two norms PriOr-RAFT uses."""
     if kind == "instance":

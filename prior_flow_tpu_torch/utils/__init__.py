@@ -1,1 +1,2 @@
-"""Host utilities: input padding, the warm-start splat, flow colouring."""
+"""Host utilities: input padding, the warm-start splat, flow colouring,
+metric logging and profiling hooks."""

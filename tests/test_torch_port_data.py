@@ -1,12 +1,13 @@
 """The port's data modules against the JAX package's on the CPU: flow and
-image I/O, the native host library's binding, and every dataset class's
-index builder and sample reader on synthetic trees (the MPF and FlowScape
-trees of ``tests/test_data.py``, the other layouts as
-``tests/test_datasets_all.py`` builds them).
+image I/O, the native host library's binding, every dataset class's index
+lists and sample reader on synthetic trees (the MPF and FlowScape trees
+of ``tests/test_data.py``, the other layouts as
+``tests/test_datasets_all.py`` builds them), the augmentors, the augmented
+training split, the batch loader and the factory.
 
-Tolerances: none. File I/O, index lists and samples are compared bitwise,
-and each native function against the JAX binding's on one library, then
-on both numpy fallbacks.
+Tolerances: none. File I/O, index lists, samples, augmented samples and
+batches are compared bitwise; each native function and each augmentor
+against the JAX package's on one library, then on both numpy fallbacks.
 """
 
 import os
@@ -343,7 +344,220 @@ def test_dataset_family_matches_jax(tmp_path, name, build):
 
 
 def test_aug_params_raise_naming_the_next_slice(tmp_path):
+    """``aug_params`` once raised, naming the slice that would port the
+    augmentors; that slice is here. Each base now builds the JAX package's
+    augmentor class with the same settings: 360° dense and sparse,
+    perspective dense and sparse."""
     root = _make_mpf_tree(str(tmp_path), n=2, H=16, W=32)
-    with pytest.raises(NotImplementedError, match="training-data slice"):
-        tds.MPFDataset({"do_flip": False}, split="test", scene="EFT",
-                       root=root)
+    aug = {"do_flip": False}
+    pairs = [(jds.MPFDataset(aug, split="test", scene="EFT", root=root),
+              tds.MPFDataset(aug, split="test", scene="EFT", root=root))]
+    crop = {"crop_size": (8, 16)}
+    for base, sparse, kw in (("FlowDataset", False, crop),
+                             ("FlowDataset", True, crop),
+                             ("FlowDataset360", False, aug),
+                             ("FlowDataset360", True, crop)):
+        pairs.append((getattr(jds, base)(kw, sparse=sparse),
+                      getattr(tds, base)(kw, sparse=sparse)))
+    for j, t in pairs:
+        assert type(t.augmentor).__name__ == type(j.augmentor).__name__
+        strip = lambda a: {k: v for k, v in vars(a).items() if k != "rng"}
+        assert strip(t.augmentor) == strip(j.augmentor)
+    assert tds.MPFDataset(split="test", scene="EFT",
+                          root=root).augmentor is None
+
+
+# -- the augmentors ----------------------------------------------------------------
+
+AH, AW, CROP = 64, 128, (48, 96)
+
+# (class, constructor arguments, probabilities forced on the instance)
+AUG_CASES = [
+    ("FlowAugmentor360", {}, dict(asymmetric_color_aug_prob=0.0,
+                                  eraser_aug_prob=0.0, rotation_aug_prob=1.0)),
+    ("FlowAugmentor360", {}, dict(asymmetric_color_aug_prob=1.0,
+                                  eraser_aug_prob=1.0, rotation_aug_prob=1.0,
+                                  asymmetric_rotation_aug_prob=1.0)),
+    ("FlowAugmentor360", {}, dict(rotation_aug_prob=0.0)),
+    ("FlowAugmentor", dict(crop_size=CROP, do_flip=True),
+     dict(h_flip_prob=1.0, v_flip_prob=1.0, stretch_prob=1.0,
+          spatial_aug_prob=1.0, asymmetric_color_aug_prob=1.0,
+          eraser_aug_prob=1.0)),
+    ("FlowAugmentor", dict(crop_size=CROP, do_flip=True),
+     dict(h_flip_prob=0.0, v_flip_prob=0.0, stretch_prob=0.0,
+          spatial_aug_prob=0.0, asymmetric_color_aug_prob=0.0,
+          eraser_aug_prob=0.0)),
+    ("SparseFlowAugmentor", dict(crop_size=CROP, do_flip=True),
+     dict(spatial_aug_prob=1.0, eraser_aug_prob=1.0)),
+    ("SparseFlowAugmentor", dict(crop_size=CROP, do_flip=False),
+     dict(spatial_aug_prob=0.0, eraser_aug_prob=0.0)),
+    ("SparseFlowAugmentor360", dict(crop_size=CROP),
+     dict(spatial_aug_prob=1.0)),
+    ("FlowAugmentor360Ortho", {}, dict(asymmetric_color_aug_prob=1.0,
+                                       eraser_aug_prob=1.0,
+                                       rotation_aug_prob=1.0)),
+    ("SparseFlowAugmentor360Ortho", dict(crop_size=CROP),
+     dict(spatial_aug_prob=1.0, eraser_aug_prob=1.0)),
+]
+
+
+def _aug_inputs(seed, cls_name):
+    """Uint8 frames, a float32 flow, a 0/1 validity for the sparse
+    classes, and the two orthogonal views for the ortho classes."""
+    rng = np.random.default_rng(100 + seed)
+    img = lambda: rng.integers(0, 256, (AH, AW, 3), dtype=np.uint8)
+    args = [img(), img(), (rng.normal(size=(AH, AW, 2)) * 10).astype(
+        np.float32)]
+    if "Sparse" in cls_name:
+        args.append((rng.uniform(size=(AH, AW)) > 0.3).astype(np.float32))
+    if "Ortho" in cls_name:
+        args += [img(), img()]
+    return args
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("case", range(len(AUG_CASES)),
+                         ids=[f"{c}-{i}" for i, (c, _, _) in
+                              enumerate(AUG_CASES)])
+def test_augmentors_match_jax(port_native, case, seed):
+    """Every augmentor class under the same RandomState, with each
+    probability branch forced on and off: the same images, flow and
+    validity, bitwise, on the native library and on the numpy
+    fallbacks."""
+    from prior_flow_tpu.data import augmentor as jaug
+    from prior_flow_tpu_torch.data import augmentor as taug
+    name, kw, probs = AUG_CASES[case]
+    j, t = getattr(jaug, name)(**kw), getattr(taug, name)(**kw)
+    for k, v in probs.items():
+        setattr(j, k, v)
+        setattr(t, k, v)
+    args = _aug_inputs(seed, name)
+    ref = j(*[a.copy() for a in args], rng=np.random.RandomState(seed))
+    got = t(*[a.copy() for a in args], rng=np.random.RandomState(seed))
+    _same(got, ref)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_augmentor_functions_and_methods_match_jax(port_native, seed):
+    """``color_jitter`` (each op alone and all four), ``_eraser``,
+    ``u_clip_np``, and the 360° augmentor's flip and resize methods, which
+    its ``__call__`` leaves out."""
+    from prior_flow_tpu.data import augmentor as jaug
+    from prior_flow_tpu_torch.data import augmentor as taug
+    img1, img2, flow = _aug_inputs(seed, "FlowAugmentor360")
+    for kw in (dict(brightness=0.4, contrast=0, saturation=0, hue=0),
+               dict(brightness=0, contrast=0.4, saturation=0, hue=0),
+               dict(brightness=0, contrast=0, saturation=0.4, hue=0),
+               dict(brightness=0, contrast=0, saturation=0, hue=0.2),
+               {}):
+        _same([taug.color_jitter(img1, rng=np.random.RandomState(seed), **kw)],
+              [jaug.color_jitter(img1, rng=np.random.RandomState(seed), **kw)])
+    _same(taug._eraser(img1.copy(), img2.copy(), (5, 30), 1.0,
+                       np.random.RandomState(seed)),
+          jaug._eraser(img1.copy(), img2.copy(), (5, 30), 1.0,
+                       np.random.RandomState(seed)))
+    u = np.linspace(-300, 300, 97).astype(np.float32)
+    _same([taug.u_clip_np(u, AW)], [jaug.u_clip_np(u, AW)])
+    j = jaug.FlowAugmentor360(resize_size=(32, 96), do_flip=True)
+    t = taug.FlowAugmentor360(resize_size=(32, 96), do_flip=True)
+    for a in (j, t):
+        a.h_flip_prob = a.v_flip_prob = 1.0
+    _same(t.flip_transform(img1, img2, flow, rng=np.random.RandomState(seed)),
+          j.flip_transform(img1, img2, flow, rng=np.random.RandomState(seed)))
+    _same(t.resize_transform(img1, img2, flow),
+          j.resize_transform(img1, img2, flow))
+
+
+def _train_tree(root, n=5, h=AH, w=AW):
+    """``_make_mpf_tree`` as the EFT training split."""
+    _make_mpf_tree(root, n=n, H=h, W=w)
+    os.rename(osp.join(root, "EFTs_Car100"), osp.join(root, "EFTs_Car2000"))
+    return root
+
+
+def test_fetch_dataset_eft_matches_jax(tmp_path, port_native):
+    """``fetch_dataset("EFT")``'s augmented samples, every index, epochs 0
+    and 1, bitwise."""
+    root = _train_tree(str(tmp_path))
+    j, t = jds.fetch_dataset("EFT", root), tds.fetch_dataset("EFT", root)
+    assert len(t) == len(j) == 4
+    for epoch in (0, 1):
+        j.set_epoch(epoch)
+        t.set_epoch(epoch)
+        for i in range(len(t)):
+            _same(t[i], j[i])
+    t.set_epoch(0)
+    assert not np.array_equal(t[0][0], j[0][0])   # j is at epoch 1
+    with pytest.raises(ValueError, match="stage"):
+        tds.fetch_dataset("Sintel", root)
+
+
+# -- the loader and the factory --------------------------------------------------
+
+def _take(stream, n):
+    """The first ``n`` batches of a stream as numpy tuples; the stream is
+    closed after (its workers or producer stop)."""
+    import itertools
+    try:
+        return [tuple(np.asarray(x) for x in b)
+                for b in itertools.islice(stream, n)]
+    finally:
+        stream.close()
+
+
+def _same_batches(got, ref):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        _same(g, r)
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_loader_batch_sequence_matches_jax(tmp_path, workers):
+    """The loader's batches against the JAX ``DataLoader``'s, bitwise, at
+    32x64: the infinite stream across two epoch boundaries (the epoch
+    travels with each index into the worker processes), a resume at batch
+    3, successive ``iter()`` calls, both shards of a two-way split without
+    ``drop_last`` (a short batch), and the error of an empty loader."""
+    from prior_flow_tpu.data.loader import DataLoader as JLoader
+    from prior_flow_tpu_torch.data.loader import DataLoader as TLoader
+    root = _train_tree(str(tmp_path), n=6, h=32, w=64)
+    jd, td = jds.fetch_dataset("EFT", root), tds.fetch_dataset("EFT", root)
+    jl = JLoader(jd, batch_size=2, num_workers=workers)
+    tl = TLoader(td, batch_size=2, num_workers=workers)
+    assert len(tl) == len(jl) == 2
+    _same_batches(_take(tl.infinite(), 5), _take(jl.infinite(), 5))
+    _same_batches(_take(tl.infinite(start_batch=3), 3),
+                  _take(jl.infinite(start_batch=3), 3))
+    for _ in range(2):
+        _same_batches(_take(iter(tl), 5), _take(iter(jl), 5))
+    for shard in (0, 1):
+        kw = dict(batch_size=3, num_workers=workers, drop_last=False,
+                  num_shards=2, shard_index=shard)
+        j, t = JLoader(jd, **kw), TLoader(td, **kw)
+        assert len(t) == len(j) == 1          # one short batch of 2
+        _same_batches(_take(iter(t), 5), _take(iter(j), 5))
+    for loader in (JLoader(jd, batch_size=8), TLoader(td, batch_size=8)):
+        with pytest.raises(ValueError, match="0 batches"):
+            next(loader.infinite())
+
+
+def test_factory_matches_jax(tmp_path):
+    """``build_dataset`` of two MPF training splits: a ``ConcatDataset``
+    with the same length and samples at every index (modulo its length);
+    ``build_dataloader``'s per-shard batch and its first epoch."""
+    from prior_flow_tpu.data import factory as jf
+    from prior_flow_tpu_torch.data import factory as tf
+    root = _train_tree(str(tmp_path), n=4, h=32, w=64)
+    kw = dict(name=("MPFDataset", "MPFDataset"), scene="EFT",
+              aug_params={"do_flip": False}, batch_size=4, num_shards=2,
+              num_workers=1, roots={"MPFDataset": root})
+    j = jf.build_dataset(jf.DataConfig(**kw))
+    t = tf.build_dataset(tf.DataConfig(**kw))
+    assert isinstance(t, tf.ConcatDataset) and len(t) == len(j) == 6
+    assert t._offsets == j._offsets
+    for i in range(len(t) + 2):
+        _same(t[i], j[i])
+    jl = jf.build_dataloader(jf.DataConfig(**kw))
+    tl = tf.build_dataloader(tf.DataConfig(**kw))
+    assert tl.batch_size == jl.batch_size == 2
+    _same_batches(_take(iter(tl), 4), _take(iter(jl), 4))

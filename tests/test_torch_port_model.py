@@ -269,7 +269,10 @@ import prior_flow_tpu_torch.tools.microbench_gridwin
 import prior_flow_tpu_torch.eval.evaluate, prior_flow_tpu_torch.utils.flow_viz
 import prior_flow_tpu_torch.data.datasets, prior_flow_tpu_torch.data.native
 import prior_flow_tpu_torch.cli.evaluate, prior_flow_tpu_torch.cli.video
-import prior_flow_tpu_torch.cli.demo_image
+import prior_flow_tpu_torch.cli.demo_image, prior_flow_tpu_torch.cli.train
+import prior_flow_tpu_torch.data.augmentor, prior_flow_tpu_torch.data.loader
+import prior_flow_tpu_torch.data.factory, prior_flow_tpu_torch.utils.logger
+import prior_flow_tpu_torch.utils.profiling
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "prior_flow_tpu", "tools"))
 raised = None

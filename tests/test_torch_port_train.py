@@ -352,31 +352,36 @@ def test_train_forward_last_prediction_is_test_mode_flow():
     assert preds_A.requires_grad
     np.testing.assert_allclose(preds_A[-1].detach().numpy(),
                                model(i1, i2, iters=2).numpy(), atol=1e-5)
-    model.dropout = 0.1
-    with pytest.raises(NotImplementedError):
-        model(i1, i2, iters=1, test_mode=False)
+    # dropout (now ported) acts in the training forward only: the
+    # test-mode flow is the same with it on
+    dropped = build_model("cpu", seed=2, dropout=0.1)
+    torch.testing.assert_close(dropped(i1, i2, iters=2),
+                               model(i1, i2, iters=2), rtol=0, atol=0)
 
 
 def test_trainer_save_and_resume(tmp_path):
-    """Two steps, save, resume in a fresh Trainer: the third step equals an
-    uninterrupted run's."""
-    cfg = TrainerConfig(num_steps=10, iters=1, lr=1e-3, seed=5)
+    """Two steps, a checkpoint, a fresh Trainer restored from it: its third
+    step equals an uninterrupted run's, bitwise."""
     batches = [tuple(torch.from_numpy(a) for a in _batch(seed=s, b=1,
                                                           h=32, w=64))
                for s in range(3)]
-    full = Trainer(cfg, device="cpu")
+    cfg = lambda path, **kw: TrainerConfig(num_steps=2, iters=1, lr=1e-3,
+                                           seed=5, save_path=str(path), **kw)
+    full = Trainer(cfg(tmp_path / "full"), device="cpu")
     full.run(batches)
-    part = Trainer(cfg, device="cpu")
+    assert full.step == 3
+    part = Trainer(cfg(tmp_path / "part"), device="cpu")
     logged = []
-    part.run(batches[:2], log=lambda m, s: logged.append((s, m)))
-    assert [s for s, _ in logged] == [0, 1]
-    assert np.isfinite(logged[-1][1]["train/loss"])
-    path = str(tmp_path / "state.pt")
-    part.save(path)
-    resumed = Trainer(cfg, device="cpu")
-    resumed.load(path)
+    for batch in batches[:2]:
+        m = part.train_step(batch)
+        logged.append(float(m["train/loss"]))
+    assert np.isfinite(logged[-1])
+    path = part.save("mid")
+    resumed = Trainer(cfg(tmp_path / "resumed", restore_ckpt=path),
+                      device="cpu")
     assert resumed.step == 2
     resumed.run(batches[2:])
+    assert resumed.step == 3
     for (n, a), b in zip(full.model.state_dict().items(),
                          resumed.model.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=n)
