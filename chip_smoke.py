@@ -116,6 +116,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``--restore_ckpt`` (step 0's loss is the seeded run's); the loop's ms
    per step on the card's clock beside phase 9's bare step, the loader's
    wait per step, its host ms per batch at 1 and 4 workers, peak GB.
+20. serving (``prior_flow_tpu_torch.serving``): ``torch.library.opcheck``
+   of each priorflow:: op on the card (the lookup per level and fused at
+   the 512x1024 level shapes, row 3 at level 0 of 512x1024 and 1024x2048,
+   the coords at both sizes, the sums at the first fnet norm's shape, f32
+   and bf16); at 512x1024, batch 1, 12 iterations, fp32
+   ``precision="highest"`` and bf16: the exported program saved, loaded
+   and run in a process that never imports the model code (within 1e-5 of
+   eager, 48 kernel-1 and 15 sums launches per call), the AOTInductor
+   package (``serving.aot_compile``, loaded from its file alone; each
+   precision compiled at 12 iterations and at one, the four side by side
+   in processes of their own while the other checks run; compile
+   seconds), called with TF32 on for cuDNN (torch's default) with seed 0's
+   and seed 1's states: each strictly below a fraction of the distance one
+   step down in precision puts eager from itself (``SERVING_GATE``), the
+   fp32 one at one iteration also within 1e-3 x flow scale; exactly 4
+   kernel-1 launches per iteration and 15 sums per call; at 12 iterations
+   every convolution kernel of one profiled call of the precision by its
+   name (fp32 none TF32, bf16 all bf16; TF32 eager the control), bitwise
+   the same on a side stream, batch, dtype and device drift raise; ms/pair
+   of eager, exported program and package (median of 7 after one warm-up,
+   after the compiles); the 1024x2048 forward as an exported program,
+   bitwise eager, 12 coords and 48 row-3 launches per call;
+   ``cli.export --check`` on a seeded ``.pth``.
 The launches of phases 15-17 are the tools' measurement runs (path
 "tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
@@ -132,6 +155,7 @@ mode. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -2224,6 +2248,447 @@ def phase_train_cli(dev, train):
             "counts": {m: out[m]["counts"] for m in out}}
 
 
+# -- phase 20: serving -------------------------------------------------------------
+
+# the forward's kernels, PERF.md rows 1-5, which run as priorflow:: ops
+SERVED = ("dccl_level_lookup", "instance_norm_sums",
+          "dccl_level_lookup_coords", "dccl_lookup_all_levels",
+          "dccl_cross_coords")
+SERVING_DIR = os.path.join(REPO, "build", "phase20")
+# the exported program against eager (JAX's tests/test_serving.py atol;
+# the same ATen ops in the same order, so bitwise is expected)
+SERVING_ATOL = 1e-5
+# the AOTInductor packages against eager, x flow scale, each strictly
+# below a fraction of the distance d one step down in precision puts
+# eager from itself at the same seed and depth (fp32: TF32 convolutions;
+# bf16: the fp32 forward), the packages called with TF32 on for cuDNN
+# (torch's default), so a package run outside its recorded precision lies
+# ~d away. The random-weight 12-iteration forward at 512x1024 is chaotic
+# (1e-3 grey levels added to one image move its flow by 3.9e-3 of the
+# flow scale), so each precision is also compiled at one iteration, where
+# it is not. Readings (prior_flow_tpu_torch/tools/serving_precision.py,
+# PERF.md §6, an H100), seed 0: fp32 3.7e-6 (1 iteration) and 3.8e-3 (12)
+# against d 8.9e-4 and 1.19e-2; bf16 6.0e-3 and 1.30e-2 against d 1.33e-2
+# and 2.08e-2, where an fp32 package reads 0.99 d. At 12 iterations no
+# distance tells bf16 from fp32: there the kernels' names do
+# (``precision_by_name``).
+SERVING_DEPTHS = (ITERS, 1)
+SERVING_GATE = {("fp32", ITERS): 0.5, ("fp32", 1): 0.5,
+                ("bf16", ITERS): 1.0, ("bf16", 1): 0.75}
+# at one iteration the fp32 package also meets the card-vs-CPU gate
+SERVING_AOT_TOL = CARD_CPU_TOL
+# cli.export --check, JAX's absolute gate
+SERVING_CHECK_ATOL = 1e-3
+# AOTInductor links a package with -fopenmp: the system g++ links libgomp,
+# which a $CXX of another toolchain may lack
+SERVING_CXX = "/usr/bin/g++"
+# compiles one package with serving.aot_compile, in a process of its own
+SERVING_COMPILE = """
+import json, sys, time, torch
+from prior_flow_tpu_torch import build_model, serving
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+path, tag, h, w, iters = sys.argv[1], sys.argv[2], *map(int, sys.argv[3:])
+model = build_model(seed=0, mixed_precision=tag == "bf16", precision="highest")
+t0 = time.perf_counter()
+serving.aot_compile(model, model.state_dict(), (1, h, w), iters,
+                    package_path=path)
+print(json.dumps({"compile_s": time.perf_counter() - t0}))
+"""
+# runs the saved programs in a process that never imports the model code
+SERVING_LOAD = """
+import json, sys, torch
+from prior_flow_tpu_torch import serving
+from prior_flow_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+out = {"counts": {}}
+for tag in sys.argv[2:]:
+    fn = serving.load_exported(f"{sys.argv[1]}/{tag}.pt2")
+    inputs = torch.load(f"{sys.argv[1]}/inputs_{tag}.pt", weights_only=True)
+    fn(inputs["state"], *inputs["images"])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    flow = fn(inputs["state"], *inputs["images"])
+    torch.cuda.synchronize()
+    out["counts"][tag] = launch_counts()
+    torch.save(flow.cpu(), f"{sys.argv[1]}/flow_{tag}.pt")
+out["modules"] = sorted(m for m in sys.modules if m.startswith(
+    ("prior_flow_tpu_torch.models", "prior_flow_tpu.", "jax")))
+print(json.dumps(out))
+"""
+
+
+def pair_ms(fn, runs: int = 7) -> float:
+    """Median host ms of ``fn`` ending in a synchronise, after one
+    warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def serving_opcheck(dev, grids, grids2) -> list:
+    """``torch.library.opcheck`` of each priorflow:: op on CUDA tensors:
+    the lookup (per level and fused) at the 512x1024 level shapes, row 3
+    at level 0 of 512x1024 and 1024x2048, the coords at both sizes, the
+    sums at the first fnet norm's shape; f32 and bf16 volumes."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels import library
+    scales = [1.0 / 2 ** lvl for lvl in range(LEVELS)]
+    done = []
+
+    def check(op, args, what):
+        torch.library.opcheck(op, args)
+        torch.cuda.synchronize()
+        done.append(what)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        levels = [lookup_inputs(lvl, dtype, dev, grids)
+                  for lvl in range(LEVELS)]
+        vA, vB = [lv[0] for lv in levels], [lv[1] for lv in levels]
+        cA, cB, gA, gB = levels[0][2:]
+        for fuse in (False, True):
+            check(library.dccl_lookup_levels,
+                  (vA, vB, cA, cB, gA, gB, scales, fuse),
+                  f"dccl_lookup_levels {tag} fuse={fuse} {H}x{W}")
+        del levels, vA, vB
+        for size, gr in (((H, W), grids), ((H2, W2), grids2)):
+            vA0, vB0, cA, cB, gA, gB = lookup_inputs(0, dtype, dev, gr,
+                                                     size=size)
+            xy = [c.reshape(1, -1, 81)
+                  for c in library.dccl_cross_coords(cA, cB, gA, gB, [1.0])]
+            check(library.dccl_level_lookup_coords,
+                  (vA0, vB0, cA, cB, 1.0, *xy),
+                  f"dccl_level_lookup_coords {tag} level 0 "
+                  f"{size[0]}x{size[1]}")
+            del vA0, vB0, xy
+            torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(20)
+        x = torch.randn(FNET_SHAPES[0], generator=g, device=dev).to(dtype)
+        check(library.instance_norm_sums, (x, x),
+              f"instance_norm_sums {tag} {tuple(x.shape)}")
+    for size, gr in (((H, W), grids), ((H2, W2), grids2)):
+        Q = size[0] // 8 * size[1] // 8
+        cA, cB = (train_centres(dev, Q, seed, size).reshape(1, Q, 2)
+                  for seed in (7, 8))
+        check(library.dccl_cross_coords,
+              (cA, cB, gr.a2b_w2c_8, gr.b2a_w2c_8, scales),
+              f"dccl_cross_coords {size[0]}x{size[1]}")
+    return done
+
+
+@contextlib.contextmanager
+def tf32_convolutions():
+    """torch's default flags, TF32 on for cuDNN convolutions, which this
+    script otherwise turns off."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def eager_refs(seed: int, iters: int, i1, i2) -> dict:
+    """The seeded 512x1024 forward's flow at each precision: fp32
+    ``precision="highest"``, TF32 convolutions (``precision=None`` at
+    torch's default flags) and bf16; and ``d``, the distance (/ flow scale)
+    one step down in precision puts it from itself: fp32 to TF32, bf16 to
+    fp32."""
+    import torch
+    from prior_flow_tpu_torch.tools.serving_precision import (REFS,
+                                                              eager_model,
+                                                              ratio)
+    flows = {}
+    for ref in REFS:
+        model = eager_model(ref, seed, "cuda")
+        with tf32_convolutions(), torch.no_grad():
+            flows[ref] = model(i1, i2, iters=iters)
+    flows["d"] = {"fp32": ratio(flows["tf32"], flows["fp32"]),
+                  "bf16": ratio(flows["bf16"], flows["fp32"])}
+    return flows
+
+
+def conv_kernels(fn) -> dict:
+    """{name: launches} of the cuDNN convolution kernels of one profiled
+    call of ``fn``, with TF32 on for cuDNN (torch's default)."""
+    from prior_flow_tpu_torch.tools import serving_precision
+    with tf32_convolutions():
+        return serving_precision.conv_kernels(
+            serving_precision.kernel_events(fn))
+
+
+def phase_serving(dev, grids, grids2):
+    """Phase 20: the serving path (``prior_flow_tpu_torch.serving``). The
+    four AOTInductor packages compile in processes of their own while this
+    one checks the ops and the exported programs; every timing is taken
+    after they have finished."""
+    import subprocess
+
+    os.makedirs(SERVING_DIR, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO, CXX=SERVING_CXX)
+    print(f"  AOTInductor's C++ compiler: CXX={SERVING_CXX}", flush=True)
+    package = {(tag, iters): os.path.join(SERVING_DIR,
+                                          f"{tag}_{iters}it_aoti.pt2")
+               for tag in ("fp32", "bf16") for iters in SERVING_DEPTHS}
+    t_compile = time.perf_counter()
+    compiles = {key: subprocess.Popen(
+        [sys.executable, "-c", SERVING_COMPILE, path, key[0], str(H),
+         str(W), str(key[1])], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for key, path in package.items()}
+    try:
+        return serving_checks(dev, grids, grids2, compiles, package,
+                              t_compile, env)
+    finally:
+        for proc in compiles.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def serving_checks(dev, grids, grids2, compiles, package, t_compile, env):
+    """Phase 20's checks, beside the compiles ``compiles`` ((precision,
+    iterations) -> process) of ``package`` ((precision, iterations) ->
+    path)."""
+    import io
+    import subprocess
+    import torch
+    from prior_flow_tpu_torch import build_model, serving
+    from prior_flow_tpu_torch.checkpoint import write_pth
+    from prior_flow_tpu_torch.cli import export as export_cli
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    from prior_flow_tpu_torch.tools.serving_precision import (
+        eager_model, precision_by_name, ratio)
+
+    out = {"opcheck": serving_opcheck(dev, grids, grids2)}
+    print(f"  opcheck passed: {out['opcheck']}", flush=True)
+    torch.cuda.empty_cache()
+    i1, i2 = (t.to(dev) for t in images(0, H, W))
+    want = forward_counts(dccl_level_lookup=LEVELS * ITERS)
+    models, live = {}, {}
+    for tag in ("fp32", "bf16"):
+        models[tag] = build_model(seed=0, mixed_precision=tag == "bf16",
+                                  precision="highest")
+        state = models[tag].state_dict()
+        live[tag] = serving.make_forward(models[tag], ITERS)(state, i1, i2)
+        t0 = time.perf_counter()
+        exported = serving.export_forward(models[tag], state, (1, H, W),
+                                          ITERS)
+        out[tag] = {"export_s": time.perf_counter() - t0}
+        serving.save_exported(exported,
+                              os.path.join(SERVING_DIR, f"{tag}.pt2"))
+        torch.save({"state": state, "images": (i1, i2)},
+                   os.path.join(SERVING_DIR, f"inputs_{tag}.pt"))
+
+    # the saved programs in a process without the model code
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVING_LOAD, SERVING_DIR, "fp32", "bf16"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"loading the exported programs failed:\n{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    if res["modules"]:
+        fail(f"load_exported imported {res['modules']}")
+    for tag in ("fp32", "bf16"):
+        flow = torch.load(os.path.join(SERVING_DIR, f"flow_{tag}.pt"),
+                          weights_only=True)
+        err = (flow - live[tag].cpu()).abs().max().item()
+        print(f"  {tag} {H}x{W} exported program ({out[tag]['export_s']:.1f} "
+              f"s to export), loaded without the model code: max abs err "
+              f"{err:.3e} against eager (gate {SERVING_ATOL}); launches "
+              f"{res['counts'][tag]}", flush=True)
+        if err > SERVING_ATOL or res["counts"][tag] != want:
+            fail(f"{tag} exported program departs from eager or launches "
+                 f"{res['counts'][tag]}")
+        out[tag]["export_err"] = err
+
+    # the 1024x2048 planes route as an exported program
+    model_hr = build_model(seed=0, precision="highest")
+    state_hr = model_hr.state_dict()
+    h1, h2 = (t.to(dev) for t in images(2, H2, W2))
+    eager = model_hr(h1, h2, iters=ITERS)
+    path = os.path.join(SERVING_DIR, f"fp32_{H2}x{W2}.pt2")
+    serving.save_exported(serving.export_forward(
+        model_hr, state_hr, (1, H2, W2), ITERS), path)
+    program_hr = serving.load_exported(path)
+    program_hr(state_hr, h1, h2)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    flow = program_hr(state_hr, h1, h2)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want_hr = forward_counts(dccl_level_lookup_coords=LEVELS * ITERS,
+                             dccl_cross_coords=ITERS)
+    same = bool(torch.equal(flow, eager))
+    print(f"  fp32 {H2}x{W2} exported program: bitwise eager {same} (max "
+          f"abs diff {(flow - eager).abs().max().item():.3e}); launches "
+          f"{counts}", flush=True)
+    if not same or counts != want_hr:
+        fail(f"the {H2}x{W2} exported program: bitwise {same}, launches "
+             f"{counts}, expected {want_hr}")
+    out["hr"] = {"counts": counts}
+    del eager, flow
+
+    # the export CLI with --check on a seeded .pth
+    pth = write_pth(build_model("cpu", seed=0).state_dict(),
+                    os.path.join(SERVING_DIR, "seed0.pth"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        export_cli.main(["--model", pth, "--output",
+                         os.path.join(SERVING_DIR, "cli.pt2"), "--size",
+                         str(H), str(W), "--iters", str(ITERS), "--check"])
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    print(f"  cli.export --check: {lines}", flush=True)
+    if not (lines[0]["platforms"] == ["cuda"]
+            and lines[1]["check_max_abs_err"] < SERVING_CHECK_ATOL):
+        fail(f"cli.export --check: {lines}")
+    out["cli_check_err"] = lines[1]["check_max_abs_err"]
+
+    # the eager references: each seed and depth at each precision
+    refs = {(seed, iters): eager_refs(seed, iters, i1, i2)
+            for seed in (0, 1) for iters in SERVING_DEPTHS}
+    bound = {f"seed{seed}_{iters}it": refs[seed, iters]["d"]
+             for seed, iters in refs}
+    sensitivity = ratio(models["fp32"](i1 + 1e-3, i2, iters=ITERS),
+                        live["fp32"])
+    print(f"  the fp32 forward with 1e-3 grey levels added to image 1: "
+          f"{sensitivity:.3e} x flow scale from itself; one step down in "
+          f"precision: {bound}", flush=True)
+    # the kernel-name rules' controls: TF32 eager fails the fp32 rule,
+    # bf16 eager passes the bf16 one
+    control = {ref: conv_kernels(lambda: eager_model(ref, 0, dev)(
+        i1, i2, iters=ITERS)) for ref in ("tf32", "bf16")}
+    tf32_launches = sum(n for name, n in control["tf32"].items()
+                        if "tf32" in name.lower())
+    print(f"  eager's convolution launches: TF32 {tf32_launches} TF32 by "
+          f"name of {sum(control['tf32'].values())}; bf16 "
+          f"{sum(control['bf16'].values())}", flush=True)
+    if (precision_by_name(control["tf32"], "fp32")
+            or not precision_by_name(control["bf16"], "bf16")):
+        fail(f"the kernel-name rules do not tell the precisions apart: "
+             f"{control}")
+    out["conv_kernels_eager"] = {ref: sum(c.values())
+                                 for ref, c in control.items()}
+
+    # the packages
+    for key, proc in compiles.items():
+        stdout, stderr = proc.communicate(timeout=1800)
+        if proc.returncode != 0:
+            fail(f"{key} AOTInductor compile failed:\n{stderr[-3000:]}")
+        out.setdefault(key[0], {})[f"compile_s_{key[1]}it"] = json.loads(
+            stdout.strip().splitlines()[-1])["compile_s"]
+    compile_wall = time.perf_counter() - t_compile
+    out["compile_wall_s"] = compile_wall
+    print(f"  four packages compiled in {compile_wall:.1f} s of wall time, "
+          f"side by side: " + ", ".join(
+              f"{tag} {out[tag][f'compile_s_{it}it']:.1f} s ({it} it)"
+              for tag, it in package), flush=True)
+    states = {(tag, seed): build_model(
+        seed=seed, mixed_precision=tag == "bf16",
+        precision="highest").state_dict()
+        for tag in ("fp32", "bf16") for seed in (0, 1)}
+    for tag, iters in package:
+        compiled = serving.export.CompiledForward(package[tag, iters])
+        state = states[tag, 0]
+        errs, gates = [], []
+        with tf32_convolutions():
+            for seed in (0, 1):
+                got = compiled(states[tag, seed], i1, i2)
+                torch.cuda.synchronize()
+                errs.append(ratio(got, refs[seed, iters][tag]))
+                gates.append(SERVING_GATE[tag, iters]
+                             * refs[seed, iters]["d"][tag])
+                tol = SERVING_AOT_TOL if (tag, iters) == ("fp32", 1) else 1
+                if not (tuple(got.shape) == (1, H, W, 2)
+                        and bool(torch.isfinite(got).all())
+                        and errs[-1] < gates[-1] and errs[-1] <= tol):
+                    fail(f"{tag} {iters}-iteration AOTInductor package, "
+                         f"seed {seed}: {errs[-1]:.3e} x flow scale from "
+                         f"eager (gate {gates[-1]:.3e})")
+            moved = ratio(compiled(states[tag, 1], i1, i2),
+                          compiled(state, i1, i2))
+            if moved < max(gates):
+                fail(f"{tag} package: the second state moved the flow by "
+                     f"{moved:.3e} only")
+            reset_launch_counts()
+            got = compiled(state, i1, i2)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        want_it = forward_counts(dccl_level_lookup=LEVELS * iters)
+        if counts != want_it:
+            fail(f"{tag} {iters}-iteration AOTInductor package: launch "
+                 f"counts {counts}, expected {want_it}")
+        out[tag][f"aot_err_{iters}it"] = errs
+        out[tag][f"aot_gate_{iters}it"] = gates
+        print(f"  {tag} {H}x{W} iters {iters} AOTInductor package: seeds "
+              f"0 / 1 {errs[0]:.3e} / {errs[1]:.3e} x flow scale from eager "
+              f"(gates {gates[0]:.3e} / {gates[1]:.3e}); launches per call "
+              f"{LEVELS * iters} kernel-1, 15 sums", flush=True)
+        if iters != ITERS:
+            del compiled
+            continue
+        names = conv_kernels(lambda: compiled(state, i1, i2))
+        if not precision_by_name(names, tag):
+            fail(f"{tag} package's convolution kernels: {names}")
+        out[tag].update(counts=counts, conv_kernels=names)
+        # the ops launch on the stream the package runs on
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            on_side = compiled(state, i1, i2)
+        torch.cuda.synchronize()
+        if not torch.equal(on_side, got):
+            fail(f"{tag} AOTInductor package on a side stream departs by "
+                 f"{(on_side - got).abs().max().item()}")
+        for what, args in (
+                ("batch 2", (state, i1.expand(2, -1, -1, -1).contiguous(),
+                             i2.expand(2, -1, -1, -1).contiguous())),
+                ("float64 images", (state, i1.double(), i2.double())),
+                ("images on the CPU", (state, i1.cpu(), i2.cpu()))):
+            try:
+                compiled(*args)
+            except ValueError:
+                continue
+            fail(f"{tag} AOTInductor package ran {what}")
+        model = models[tag]
+        program = serving.load_exported(os.path.join(SERVING_DIR,
+                                                     f"{tag}.pt2"))
+        ms = {"eager": pair_ms(lambda: model(i1, i2, iters=ITERS)),
+              "exported": pair_ms(lambda: program(state, i1, i2)),
+              "aot": pair_ms(lambda: compiled(state, i1, i2))}
+        print(f"  {tag} package: {sum(names.values())} convolution "
+              f"launches, each {tag} by its kernel's name; bitwise the same "
+              f"on a side stream; batch, dtype and device drift raise; "
+              f"ms/pair (median of 7) eager {ms['eager']:.2f}, exported "
+              f"{ms['exported']:.2f}, AOTInductor {ms['aot']:.2f}",
+              flush=True)
+        out[tag]["ms"] = ms
+        if tag == "fp32" and precision_by_name(names, "bf16"):
+            fail("the fp32 package's kernels pass as bf16 by name")
+        del compiled, program, got, on_side
+        torch.cuda.empty_cache()
+    out["step_down"] = bound
+    out["sensitivity"] = sensitivity
+    del models, live, refs, states
+    torch.cuda.empty_cache()
+
+    # the 1024x2048 exported program's time, beside eager
+    out["hr"]["ms"] = {
+        "eager": pair_ms(lambda: model_hr(h1, h2, iters=ITERS), 5),
+        "exported": pair_ms(lambda: program_hr(state_hr, h1, h2), 5)}
+    print(f"  fp32 {H2}x{W2}: ms/pair (median of 5) eager "
+          f"{out['hr']['ms']['eager']:.2f}, exported program "
+          f"{out['hr']['ms']['exported']:.2f}", flush=True)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2367,6 +2832,31 @@ def main(argv=None) -> None:
     tc = phase_train_cli(dev, train)
     print(json.dumps({k: v for k, v in tc.items() if k != "counts"}))
 
+    print(f"phase 20 serving, {H}x{W} and {H2}x{W2}: torch.library ops, "
+          f"exported programs, AOTInductor packages, cli.export", flush=True)
+    sv = phase_serving(dev, grids, grids2)
+    print(json.dumps({"serving_ms_per_pair": {
+        tag: sv[tag]["ms"] for tag in ("fp32", "bf16")},
+        "serving_1024x2048_ms_per_pair": sv["hr"]["ms"],
+        "serving_compile_s": {tag: {k: v for k, v in sv[tag].items()
+                                    if k.startswith("compile_s")}
+                              for tag in ("fp32", "bf16")},
+        "serving_export_s": {tag: sv[tag]["export_s"]
+                             for tag in ("fp32", "bf16")},
+        "serving_compile_wall_s": sv["compile_wall_s"],
+        "serving_aot_err_ratio": {tag: {k: v for k, v in sv[tag].items()
+                                        if k.startswith(("aot_err",
+                                                         "aot_gate"))}
+                                  for tag in ("fp32", "bf16")},
+        "serving_conv_kernel_launches": {
+            tag: sum(sv[tag]["conv_kernels"].values())
+            for tag in ("fp32", "bf16")},
+        "serving_step_down": sv["step_down"],
+        "serving_sensitivity_1e-3_grey": sv["sensitivity"],
+        "serving_export_err": {tag: sv[tag]["export_err"]
+                               for tag in ("fp32", "bf16")},
+        "serving_cli_check_err": sv["cli_check_err"]}))
+
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     try:
@@ -2390,7 +2880,11 @@ def main(argv=None) -> None:
                 "run of cli.train (phase 19: 512x1024, batch 4, 12 "
                 "iterations, bf16, 6 steps, 2 validations of 3 pairs, one "
                 "image panel forward); the tools' kernels (path "
-                "tool): one measurement run of phases 15-17")
+                "tool): one measurement run of phases 15-17; rows 1-5 also "
+                "launches_serving_512x1024: one call of phase 20's "
+                "AOTInductor package (512x1024, batch 1, 12 iterations, "
+                "fp32), and launches_serving_1024x2048: one call of phase "
+                "20's exported 1024x2048 program (the planes route)")
 
     def row(name, src, replaces, d, work, err, path="train"):
         paths = {"train": std, "forward_1024x2048": hr_counts,
@@ -2409,7 +2903,10 @@ def main(argv=None) -> None:
                 "launches_train_cli": tc["counts"]["standard"][name],
                 "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-                "library_ms": d["library_ms"], "work": work + "; " + per_path}
+                "library_ms": d["library_ms"], "work": work + "; " + per_path,
+                **({"launches_serving_512x1024": sv["fp32"]["counts"][name],
+                    "launches_serving_1024x2048": sv["hr"]["counts"][name]}
+                   if name in SERVED else {})}
 
     lk = lookup["f32"]
     kernels = [

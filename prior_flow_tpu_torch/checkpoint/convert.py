@@ -75,6 +75,12 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     return out
 
 
+# what the port's readers say of an Orbax directory (the JAX package's
+# format, which needs JAX to read)
+ORBAX_HINT = ("convert an Orbax checkpoint of the JAX package first, where "
+              "JAX is installed: python convert_orbax.py CKPT_DIR OUT.pth")
+
+
 def load_pth(path: str) -> Dict[str, torch.Tensor]:
     """Read a reference checkpoint: unwrap ``state_dict``, strip
     ``module.`` and drop BatchNorm's ``num_batches_tracked`` counters,

@@ -28,14 +28,14 @@ def load_image(path):
 def load_model_state(ckpt_path: str):
     """The state dict of a reference-layout ``.pth`` checkpoint. An Orbax
     directory (the JAX package's own format) needs JAX to read, so the port
-    refuses it: convert it first (ROADMAP Queue 1, item 7)."""
-    from ..checkpoint import load_pth
+    refuses it and names the converter, ``convert_orbax.py`` at the root of
+    the repository."""
+    from ..checkpoint.convert import ORBAX_HINT, load_pth
 
     if os.path.isdir(ckpt_path):
         raise ValueError(
             f"{ckpt_path} is a directory (an Orbax checkpoint?): the port "
-            f"reads only .pth files in the reference layout; the Orbax "
-            f"converter is ROADMAP Queue 1, item 7")
+            f"reads only .pth files in the reference layout; {ORBAX_HINT}")
     return load_pth(ckpt_path)
 
 

@@ -49,38 +49,7 @@ from ..ops.corr import (DCCLFused, all_pairs_correlation, build_pyramid,
                         build_pyramid_lean, groupwise_corr)
 from ..ops.samplers import cycle_bilinear_sample
 from ..ops.warp import flo_rotate, img_rotate
-
-
-# the values of PriOrRAFT's ``precision``
-PRECISIONS = (None, "highest")
-
-
-def check_precision(precision) -> None:
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got "
-                         f"{precision!r}")
-
-
-@contextlib.contextmanager
-def precision_scope(precision: Optional[str]):
-    """Runs its block at ``precision`` (one of ``PRECISIONS``): None leaves
-    torch's backend flags alone; "highest" sets TF32 off for matmuls and
-    cuDNN convolutions and restores the caller's settings on the way out.
-    The flags are read and set through torch's ``fp32_precision`` API,
-    whose saved values restore either API's settings exactly."""
-    check_precision(precision)
-    if precision is None:
-        yield
-        return
-    flags = (torch.backends.cuda.matmul, torch.backends.cudnn.conv)
-    saved = [f.fp32_precision for f in flags]
-    try:
-        for f in flags:
-            f.fp32_precision = "ieee"
-        yield
-    finally:
-        for f, v in zip(flags, saved):
-            f.fp32_precision = v
+from ..utils.precision import check_precision, precision_scope
 
 
 # above this many 1/8 queries (H*W/64) the pyramids are built in query

@@ -29,11 +29,9 @@ from typing import Sequence
 
 import torch
 
-from .kernels.dccl_coords import dccl_cross_coords
+# importing ops.kernels registers the priorflow:: ops the lookups call
 from .kernels.dccl_lookup import (NTAP, RADIUS, dccl_level_lookup,
-                                  dccl_level_lookup_coords,
-                                  dccl_level_lookup_plain,
-                                  dccl_lookup_all_levels, window_delta)
+                                  dccl_level_lookup_plain, window_delta)
 from .kernels.dccl_scatter import dccl_level_scatter, dccl_level_scatter_grid
 from .static_resample import resample_static
 
@@ -145,7 +143,8 @@ class DCCLLevelLookupCoords(torch.autograd.Function):
     VJP (counterpart of ``dccl_packed_lookup_planes``' custom VJP,
     ``dccl_gather.py:783-821``).
 
-    Forward: ``dccl_level_lookup_coords`` (the CUDA kernel on the card).
+    Forward: the op ``priorflow::dccl_level_lookup_coords``
+    (``ops/kernels/library.py``; the CUDA kernel on the card).
     Backward: one given-coords scatter per volume with S = 1 at the SAVED
     given coords, nothing recomputed. The centres and coords get no
     gradient.
@@ -154,8 +153,8 @@ class DCCLLevelLookupCoords(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vol_A, vol_B, cen_A, cen_B, scale: float, cxA, cyA, cxB,
                 cyB):
-        outs = dccl_level_lookup_coords(vol_A, vol_B, cen_A, cen_B, scale,
-                                        cxA, cyA, cxB, cyB)
+        outs = torch.ops.priorflow.dccl_level_lookup_coords(
+            vol_A, vol_B, cen_A, cen_B, scale, cxA, cyA, cxB, cyB)
         ctx.save_for_backward(cen_A, cen_B, cxA, cyA, cxB, cyB)
         ctx.scale = scale
         ctx.vol = (vol_A.shape, vol_A.dtype)
@@ -178,31 +177,23 @@ class DCCLAllLevelsLookup(torch.autograd.Function):
     ``apply(cen_A, cen_B, grid_A, grid_B, scales, fuse, *vols)`` with
     ``vols`` = (A_0, B_0, A_1, B_1, ...) returns (own_A, cross_A, own_B,
     cross_B), each (B, Q, L*81) f32, level l in columns 81 l .. 81 l + 80.
-    Forward: the kernels write straight into those four arrays, one
-    ``dccl_level_lookup`` launch per level, or one ``dccl_lookup_all_levels``
-    launch with ``fuse``. Backward: per level, on column views of the
-    cotangents, one grid-entry scatter per volume (``_packed_grid_all_bwd``,
-    ``:984-999``).
+    Forward: the op ``priorflow::dccl_lookup_levels``
+    (``ops/kernels/library.py``), whose kernels write straight into those
+    four arrays, one ``dccl_level_lookup`` launch per level, or one
+    ``dccl_lookup_all_levels`` launch with ``fuse``. Backward: per level,
+    on column views of the cotangents, one grid-entry scatter per volume
+    (``_packed_grid_all_bwd``, ``:984-999``).
     """
 
     @staticmethod
     def forward(ctx, cen_A, cen_B, grid_A, grid_B, scales, fuse, *vols):
-        B, Q = cen_A.shape[:2]
-        L = len(scales)
-        out = torch.empty((4, B, Q, L * NTAP), dtype=torch.float32,
-                          device=cen_A.device).unbind(0)
-        if fuse:
-            dccl_lookup_all_levels(vols[0::2], vols[1::2], cen_A, cen_B,
-                                   grid_A, grid_B, scales, out=out)
-        else:
-            for lvl, s in enumerate(scales):
-                dccl_level_lookup(vols[2 * lvl], vols[2 * lvl + 1], cen_A,
-                                  cen_B, grid_A, grid_B, s, out=out,
-                                  col=lvl * NTAP)
+        out = torch.ops.priorflow.dccl_lookup_levels(
+            list(vols[0::2]), list(vols[1::2]), cen_A, cen_B, grid_A, grid_B,
+            list(scales), fuse)
         ctx.save_for_backward(cen_A, cen_B, grid_A, grid_B)
         ctx.scales = tuple(scales)
         ctx.vols = [(v.shape, v.dtype) for v in vols[0::2]]
-        return tuple(out)
+        return out
 
     @staticmethod
     def backward(ctx, *grads):
@@ -291,8 +282,8 @@ class DCCLFused:
         cqB = coords_B.reshape(B, Q, 2).float().contiguous()
         scales = [1.0 / 2.0 ** i for i in range(L)]
         if self.planes_route(a2b_w2c_8):
-            planes = dccl_cross_coords(cqA, cqB, a2b_w2c_8, b2a_w2c_8,
-                                       scales)
+            planes = torch.ops.priorflow.dccl_cross_coords(
+                cqA, cqB, a2b_w2c_8, b2a_w2c_8, scales)
             fields = _concat([DCCLLevelLookupCoords.apply(
                 pyr_A[i], pyr_B[i], cqA, cqB, scales[i],
                 *(p[i * B * Q:(i + 1) * B * Q].reshape(B, Q, NTAP)

@@ -24,7 +24,10 @@ kernels share, ``csrc/dccl_columns.cuh`` the column body of the lookup
 and its stages, the coords kernel and the grid-window variants. The last
 eight rows are the kernels of the port's
 measurement tools (``prior_flow_tpu_torch/tools``), off the model's paths.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches``. Importing
+this package registers the forward's kernels as ``torch.library`` ops,
+``priorflow::`` (``library.py``), which the model calls and
+``torch.export`` traces.
 """
 
 from .anchors import anchor_chain, gather_plan, step_cost_copy
@@ -35,6 +38,7 @@ from .dccl_scatter import dccl_level_scatter, dccl_level_scatter_grid
 from .dccl_stages import dccl_cross_only, dccl_gridwin_only, dccl_own_only
 from .gridwin_variants import gridwin_pair, gridwin_variant
 from .instance_norm import instance_norm_sums
+from . import library  # noqa: F401  (registers the priorflow:: ops)
 
 WRAPPERS = {"dccl_level_lookup": dccl_level_lookup,
             "instance_norm_sums": instance_norm_sums,

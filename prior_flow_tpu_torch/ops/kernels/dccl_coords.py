@@ -95,8 +95,9 @@ def launch_cross_coords(name, cen_A, cen_B, grid_A, grid_B, scales):
         raise ValueError(f"{name}: 1 to {MAX_LEVELS} level scales, got {L}")
     N = cen_A.numel() // 2
     Hg, Wg, _ = grid_A.shape
-    outs = torch.empty((4, L * N, NTAP), dtype=torch.float32,
-                       device=cen_A.device).unbind(0)
+    # four allocations: a custom op's outputs may not share storage
+    outs = tuple(torch.empty((L * N, NTAP), dtype=torch.float32,
+                             device=cen_A.device) for _ in range(4))
     ENTRIES.launch("dccl_cross_coords", cen_A.device, L, cen_A.data_ptr(),
                    cen_B.data_ptr(), grid_A.data_ptr(), grid_B.data_ptr(),
                    *(o.data_ptr() for o in outs), N, Hg, Wg,

@@ -178,10 +178,11 @@ def _targets(out, B, Q, cols: int, device):
     """The four output arrays and their row stride: new (B, Q, 81) arrays
     when ``out`` is None, else ``out``, four (B, Q, C >= cols) f32 arrays of
     one row layout (unit column stride, C' >= C elements from row to
-    row)."""
-    if out is None:   # one allocation for the four
-        return list(torch.empty((4, B, Q, NTAP), dtype=torch.float32,
-                                device=device).unbind(0)), NTAP
+    row). New arrays are four allocations: the ``priorflow::`` ops return
+    them, and a custom op's outputs may not share storage."""
+    if out is None:
+        return [torch.empty((B, Q, NTAP), dtype=torch.float32, device=device)
+                for _ in range(4)], NTAP
     ld = out[0].stride(1)
     for o in out:
         if (o.device != device or o.dtype != torch.float32 or o.dim() != 3

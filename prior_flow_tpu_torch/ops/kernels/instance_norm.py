@@ -73,10 +73,12 @@ class InstanceNormFunction(torch.autograd.Function):
 
         dx = s * (dy - mean(dy) - xhat * mean(dy * xhat)),  s = rsqrt(var+eps)
 
-    Both means come from the sums kernel, run on (xhat, dy) in f32: the
-    same two sums as the JAX kernel's (x, dy), but centred, so mean(dy *
-    xhat) is not the difference s * mean(dy * x) - s * m * mean(dy), which
-    cancels when a channel's mean is large against its spread. The
+    The forward's moments come from the op ``priorflow::instance_norm_sums``
+    (``library.py``), the backward's from the wrapper. Both means come from
+    the sums kernel, run on (xhat, dy) in f32: the same two sums as the JAX
+    kernel's (x, dy), but centred, so mean(dy * xhat) is not the difference
+    s * mean(dy * x) - s * m * mean(dy), which cancels when a channel's
+    mean is large against its spread. The
     normalisation is centred too, (x - m) * s, as the JAX CPU path
     (``prior_flow_tpu/nn/layers.py:66-77``) computes it. The sums are
     accumulated in f64 (kernel and plain version alike): the encoder's
@@ -87,7 +89,7 @@ class InstanceNormFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, eps: float, out_dtype):
         n = x.shape[2] * x.shape[3]
-        s1, s2 = instance_norm_sums(x, x)
+        s1, s2 = torch.ops.priorflow.instance_norm_sums(x, x)
         m = s1 / n
         var = torch.clamp_min(s2 / n - m * m, 0.0)
         s = torch.rsqrt(var + eps)

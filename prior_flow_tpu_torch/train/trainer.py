@@ -43,7 +43,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..checkpoint.convert import convert_things_ckpt, load_pth, write_pth
+from ..checkpoint.convert import (ORBAX_HINT, convert_things_ckpt, load_pth,
+                                  write_pth)
 from ..data.loader import device_prefetch
 from ..models import build_model, precision_scope
 from ..ops.kernels.dccl_scatter import dccl_level_scatter_grid
@@ -426,8 +427,7 @@ class Trainer:
                 raise ValueError(
                     f"{path} is a directory without {STATE_FILE} (an Orbax "
                     f"checkpoint of the JAX package?): the port restores "
-                    f"its own checkpoints and .pth files; the Orbax "
-                    f"converter is ROADMAP Queue 1, item 7")
+                    f"its own checkpoints and .pth files; {ORBAX_HINT}")
             self.model.load_state_dict(
                 load_pth(os.path.join(path, MODEL_FILE)), strict=True)
             st = torch.load(state, map_location=self.device,

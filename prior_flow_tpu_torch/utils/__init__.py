@@ -1,2 +1,2 @@
 """Host utilities: input padding, the warm-start splat, flow colouring,
-metric logging and profiling hooks."""
+metric logging, profiling hooks and the precision scope."""

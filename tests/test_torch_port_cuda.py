@@ -810,3 +810,75 @@ def test_eval_loop_launch_counts(dev, tmp_path):
     torch.cuda.synchronize()
     assert launch_counts() == _counts(dccl_level_lookup=2 * 4 * 2,
                                       instance_norm_sums=2 * 15)
+
+
+# -- the serving path: the priorflow:: ops and the AOTInductor package ---------
+
+@pytest.mark.parametrize("case", ["lookup_levels", "lookup_levels_fused",
+                                  "lookup_coords", "cross_coords", "sums"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_opcheck_on_card(dev, case, dtype):
+    """``torch.library.opcheck`` of each priorflow:: op on CUDA tensors
+    (schema, fake implementation, dynamic shapes against the kernel)."""
+    from prior_flow_tpu_torch.ops.kernels import library
+    h, w = 16, 32
+    scales = [1.0 / 2 ** lvl for lvl in range(4)]
+    levels = [_level_inputs(dev, 1, h, w, lvl, dtype) for lvl in range(4)]
+    vA, vB = [lv[0] for lv in levels], [lv[1] for lv in levels]
+    cA, cB, gA, gB = levels[0][2:]
+    if case.startswith("lookup_levels"):
+        op, args = library.dccl_lookup_levels, (
+            vA, vB, cA, cB, gA, gB, scales, case.endswith("fused"))
+    elif case == "lookup_coords":
+        xy = [c.reshape(1, -1, 81)
+              for c in library.dccl_cross_coords(cA, cB, gA, gB, [1.0])]
+        op, args = library.dccl_level_lookup_coords, (vA[0], vB[0], cA, cB,
+                                                      1.0, *xy)
+    elif case == "cross_coords":
+        op, args = library.dccl_cross_coords, (cA, cB, gA, gB, scales)
+    else:
+        x = torch.randn(4, 8, 16, 32, device=dev).to(dtype)
+        op, args = library.instance_norm_sums, (x, x)
+    torch.library.opcheck(op, args)
+    torch.cuda.synchronize()
+
+
+def test_aot_package_runs_the_kernels_on_card(dev, tmp_path):
+    """The AOTInductor package, loaded from its file alone, launches kernel
+    1 four times per iteration and the sums 15 times per call and nothing
+    else, and refuses an image of another batch or device. Called with
+    TF32 on for cuDNN (torch's default), it lies within 1e-3 x flow scale
+    of eager and below half the distance TF32 convolutions put eager from
+    itself: it runs under its recorded precision ("highest")."""
+    from prior_flow_tpu_torch import serving
+    from prior_flow_tpu_torch.serving.export import CompiledForward
+    model = build_model(dev, seed=0, precision="highest")
+    state = model.state_dict()
+    g = torch.Generator().manual_seed(0)
+    i1, i2 = (torch.rand(1, 64, 128, 3, generator=g).mul(255).to(dev)
+              for _ in range(2))
+    path = str(tmp_path / "m.pt2")
+    serving.aot_compile(model, state, (1, 64, 128), 2, package_path=path)
+    compiled = CompiledForward(path)
+    want = model(i1, i2, iters=2)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = build_model(dev, seed=0)(i1, i2, iters=2)
+        compiled(state, i1, i2)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = compiled(state, i1, i2)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert launch_counts() == _counts(dccl_level_lookup=8,
+                                      instance_norm_sums=15)
+    scale = want.abs().max()
+    d_tf32 = (tf32 - want).abs().max() / scale
+    err = (got - want).abs().max() / scale
+    print(f"package {err:.3e} x flow scale from eager; TF32 eager "
+          f"{d_tf32:.3e}")
+    assert err <= 1e-3 and err < 0.5 * d_tf32
+    for bad in (torch.cat([i1, i1]), i1.cpu()):
+        with pytest.raises(ValueError):
+            compiled(state, bad, bad)

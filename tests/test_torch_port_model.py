@@ -251,10 +251,12 @@ def test_demo_cli_on_cpu(capsys):
 
 
 def test_import_hygiene_and_no_silent_cpu():
-    """A fresh interpreter imports the whole port, its tools included,
-    without pulling in JAX, the JAX package or the repo-root ``tools``
-    package (which imports JAX), and build_model() with no device raises on
-    a host without CUDA instead of running on the CPU."""
+    """A fresh interpreter imports the whole port, its tools, serving path
+    and op registrations included, without pulling in JAX, the JAX package
+    or the repo-root ``tools`` package (which imports JAX), and
+    build_model(), serving.export_forward() and serving.aot_compile() with
+    no device raise on a host without CUDA instead of running on the
+    CPU."""
     code = """
 import json, sys
 import prior_flow_tpu_torch
@@ -273,18 +275,32 @@ import prior_flow_tpu_torch.cli.demo_image, prior_flow_tpu_torch.cli.train
 import prior_flow_tpu_torch.data.augmentor, prior_flow_tpu_torch.data.loader
 import prior_flow_tpu_torch.data.factory, prior_flow_tpu_torch.utils.logger
 import prior_flow_tpu_torch.utils.profiling
+import prior_flow_tpu_torch.serving, prior_flow_tpu_torch.cli.export
+import prior_flow_tpu_torch.ops.kernels.library
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "prior_flow_tpu", "tools"))
 raised = None
 import torch
+from prior_flow_tpu_torch import serving
 if not torch.cuda.is_available():
-    try:
-        prior_flow_tpu_torch.build_model()
-    except RuntimeError:
-        raised = True
-    else:
-        raised = False
-print(json.dumps({"bad": bad, "raised": raised}))
+    model = prior_flow_tpu_torch.build_model("cpu")
+    calls = [prior_flow_tpu_torch.build_model,
+             lambda: serving.export_forward(model, model.state_dict(),
+                                            (1, 32, 64), 1),
+             lambda: serving.aot_compile(model, model.state_dict(),
+                                         (1, 32, 64), 1)]
+    raised = []
+    for call in calls:
+        try:
+            call()
+        except RuntimeError:
+            raised.append(True)
+        else:
+            raised.append(False)
+ops = sorted(n for n in ("dccl_lookup_levels", "dccl_level_lookup_coords",
+                         "dccl_cross_coords", "instance_norm_sums")
+             if hasattr(torch.ops.priorflow, n))
+print(json.dumps({"bad": bad, "raised": raised, "ops": ops}))
 """
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -292,8 +308,9 @@ print(json.dumps({"bad": bad, "raised": raised}))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
+    assert len(res["ops"]) == 4
     if not torch.cuda.is_available():
-        assert res["raised"] is True
+        assert res["raised"] == [True, True, True]
 
 
 def test_no_jax_imports_in_port_sources():

@@ -372,7 +372,7 @@ def test_restore_a_reference_pth(tmp_path):
 
     orbax = tmp_path / "orbax"
     orbax.mkdir()
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="convert_orbax.py"):
         Trainer(TrainerConfig(iters=1, restore_ckpt=str(orbax)), device="cpu")
 
 
