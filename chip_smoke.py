@@ -139,6 +139,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    after the compiles); the 1024x2048 forward as an exported program,
    bitwise eager, 12 coords and 48 row-3 launches per call;
    ``cli.export --check`` on a seeded ``.pth``.
+21. the memory-scale modes: (a) one ``DCCLOnTheFly`` call against
+   ``DCCLFused``'s fields at 1024x2048 on the same seeded fmaps and centres
+   (f32 chunked build; 2 coords launches), the plain on-the-fly tap path
+   alone at 2048x4096 (ms per 12-iteration forward beside its bound: f1
+   and each tap window's distinct feature rows read once), and the
+   1024x2048 fp32 ``precision="highest"`` forward on the fly against the
+   volume route (3 iterations gated at JAX's contract, 12 reported); (b)
+   the 2048x4096 bf16 forward, batch 1, 12 iterations, on the fly:
+   finite flow, 15 sums and 96 coords launches, peak GB, ms/pair, beside
+   the 91.27 GB the volume route's bf16 pyramids would take; (c) the EFT
+   step (phase 9's recipe) in both grad modes with remat off, ``dccl``
+   and ``dots``: peak GB, ms/step, the launches of no remat (no lookup
+   replayed), the first step's loss and gradients against no remat's
+   within twice the distance between two no-remat steps; (d) one
+   standard step at 512x1024, batch 1, 12 iterations, fp32, remat
+   ``dccl``, on the fly against the volume route.
 The launches of phases 15-17 are the tools' measurement runs (path
 "tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
@@ -175,6 +191,9 @@ FNET_SHAPES = [(4, 64, 256, 512), (4, 96, 128, 256), (4, 128, 64, 128)]
 # items 4 and 5), and its fnet norm shapes
 H2, W2 = 1024, 2048
 FNET_SHAPES_HR = [(4, 64, 512, 1024), (4, 96, 256, 512), (4, 128, 128, 256)]
+# and of the 2048x4096 pair (phase 21)
+FNET_SHAPES_BIG = [(4, 64, 1024, 2048), (4, 96, 512, 1024),
+                   (4, 128, 256, 512)]
 NORMS_PER_SHAPE = 5
 LOOKUP_ATOL = 2e-5        # unit-scale volumes; kernel and plain round alike
 SUMS_RTOL = SUMS_ATOL = 1e-5
@@ -472,6 +491,22 @@ def dccl_call_ms(dtype, dev, grids):
 
 # -- phase 3: instance-norm sums -----------------------------------------------
 
+def sums_check(x, what: str) -> float:
+    """The sums kernel on x against its plain version within
+    SUMS_RTOL / SUMS_ATOL; the max abs error."""
+    from prior_flow_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm_sums, instance_norm_sums_plain)
+    got = instance_norm_sums(x, x)
+    ref = instance_norm_sums_plain(x, x)
+    err = 0.0
+    for a, b in zip(got, ref):
+        over = (a - b).abs() - (SUMS_ATOL + SUMS_RTOL * b.abs())
+        if over.max().item() > 0:
+            fail(f"instance-norm sums {what}: beyond rtol/atol {SUMS_RTOL}")
+        err = max(err, (a - b).abs().max().item())
+    return err
+
+
 def phase_sums(dev, peaks):
     import torch
     from prior_flow_tpu_torch.ops.kernels.instance_norm import (
@@ -491,16 +526,7 @@ def phase_sums(dev, peaks):
             # from 0 and the relative tolerance is meaningful
             x = (torch.randn(shape, generator=g, device=dev) * 3 + 1.5).to(dtype)
             with torch.no_grad():
-                got = instance_norm_sums(x, x)
-                ref = instance_norm_sums_plain(x, x)
-                torch.cuda.synchronize()
-                err = 0.0
-                for a, b in zip(got, ref):
-                    over = (a - b).abs() - (SUMS_ATOL + SUMS_RTOL * b.abs())
-                    if over.max().item() > 0:
-                        fail(f"instance-norm sums {tag} {shape}: beyond "
-                             f"rtol/atol {SUMS_RTOL}")
-                    err = max(err, (a - b).abs().max().item())
+                err = sums_check(x, f"{tag} {shape}")
                 ms = cuda_ms(lambda: instance_norm_sums(x, x), 50)
                 plain_ms = cuda_ms(lambda: instance_norm_sums_plain(x, x), 20)
                 lib_ms = cuda_ms(lambda: torch.var_mean(x, dim=(2, 3)), 50)
@@ -1017,10 +1043,11 @@ def train_batch(seed: int, b: int, h: int, w: int, dev):
     return tuple(t.to(dev) for t in (i1, i2, flow, torch.ones(b, h, w)))
 
 
-def make_trainer(dev, mode: str, mixed: bool, iters: int, seed: int = 0):
+def make_trainer(dev, mode: str, mixed: bool, iters: int, seed: int = 0,
+                 **model_kw):
     from prior_flow_tpu_torch import build_model
     from prior_flow_tpu_torch.train import make_optimizer, make_train_step
-    model = build_model(dev, seed=seed, mixed_precision=mixed)
+    model = build_model(dev, seed=seed, mixed_precision=mixed, **model_kw)
     opt, sched = make_optimizer(model.parameters(), TRAIN_LR, TRAIN_NUM_STEPS)
     return model, make_train_step(model, opt, sched, iters=iters,
                                   grad_mode=mode)
@@ -2689,6 +2716,511 @@ def serving_checks(dev, grids, grids2, compiles, package, t_compile, env):
     return out
 
 
+# -- phase 21: the memory-scale modes --------------------------------------------
+
+# the on-the-fly forward's size: its 1/8 grid has Q = 131072 queries, where
+# the two bf16 volume pyramids would outgrow the card
+H3, W3 = 2048, 4096
+# DCCLOnTheFly's fields against DCCLFused's on the same centres, of
+# max|field|: exact by linearity, the routes differ in the f32 sums' order
+SCALE_FIELD_RTOL = 1e-5
+# the on-the-fly forward against the volume route's, 3 iterations, fp32:
+# JAX's contract (tests/test_model.py:100-115), x flow scale + absolute
+OTF_FLOW_RTOL = OTF_FLOW_ATOL = 1e-4
+# a host time per pair above this many seconds is taken once after the
+# warm-up instead of as the median of three
+SLOW_PAIR_S = 30.0
+SCALE_RUNS = 3
+# rematerialisation against no remat at the first step: each gradient
+# tensor within this multiple of the distance between two no-remat steps
+# (the scatter's float atomics) plus JAX's remat rtol
+# (tests/test_model.py:156-181) of its norm: "dots" computes some
+# gradients in another order than no remat (1.1e-6 of the norm on an
+# H100) where two no-remat steps agree bitwise
+REMAT_SPREAD_X = 2.0
+REMAT_RTOL = 2e-4
+REMAT_STEPS = 5
+# the on-the-fly training step against the volume route's, 12 iterations:
+# the random-weight recurrence amplifies any rounding (phase 20), so the
+# reference distance is the one the volume route's step moves when its
+# fields are quantised to a grid of 2^-OTF_ROUND_BITS of their max|field|
+# (the size of the two routes' field difference in (a), 8.4e-7 of
+# max|field| on an H100): the on-the-fly step's loss and global gradient
+# distance within OTF_SENS_X times it (plus STEP_LOSS_RTOL and twice the
+# two volume steps' spread)
+OTF_ROUND_BITS = 20
+OTF_SENS_X = 4.0
+OTF_NTAP = 81
+# f32 operations per (tap, corner, channel) of the on-the-fly taps: the
+# dot's multiply-add
+OTF_OPS_PER_TAP_CHANNEL = 2 * 4
+
+
+def volume_pyramids_gb(h: int, w: int, itemsize: int = 2) -> float:
+    """GB that both branches' volume pyramids of an (h, w) input take,
+    stored in ``itemsize``-byte elements (bf16: 2)."""
+    q = (h // 8) * (w // 8)
+    cols = sum(((h // 8) >> lvl) * ((w // 8) >> lvl) for lvl in range(LEVELS))
+    return 2 * q * cols * itemsize / 1e9
+
+
+def scale_fmaps(dev, h: int, w: int, seed: int):
+    """Unit-scale (1, h/8, w/8, 256) fmaps, four, and both branches'
+    centres over the 1/8 grid and a margin of 2."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h8, w8 = h // 8, w // 8
+    fm = [torch.randn(1, h8, w8, 256, generator=g, device=dev)
+          for _ in range(4)]
+    cens = [torch.stack([torch.rand(1, h8, w8, generator=g, device=dev)
+                         * (w8 + 4) - 2,
+                         torch.rand(1, h8, w8, generator=g, device=dev)
+                         * (h8 + 4) - 2], -1) for _ in range(2)]
+    return fm, cens
+
+
+def otf_window_rows(pyr_A, pyr_B, cens, grids) -> int:
+    """The distinct f2 rows each query's tap window touches, summed over
+    queries, levels, branches and sides (own and cross): the rows a tap
+    kernel that reads each window's rows once must read. Counted from this
+    run's centres and the coords the path uses, corners of zero weight
+    left out."""
+    import torch
+    from prior_flow_tpu_torch.ops import corr
+    B, Q, _ = cens[0].shape
+    total = 0
+    for q0, q1 in corr._query_chunks(Q, 0, corr.DCCLOnTheFly.QUERY_CHUNK_AUTO):
+        coords = corr.OnTheFlyTaps._coords(
+            *cens, *grids, tuple(1.0 / 2 ** i for i in range(LEVELS)), q0, q1)
+        for lvl, sides in enumerate(coords):
+            for j, b in enumerate(corr.SIDE_BRANCH):
+                f2 = (pyr_A, pyr_B)[b][lvl][1]
+                rows = torch.cat([torch.where(w != 0, idx, -1) for idx, w in
+                                  corr._tap_rows(f2, *sides[j])], dim=-1)
+                rows = rows.view(-1, rows.shape[-1]).sort(dim=-1).values
+                new = torch.ones_like(rows, dtype=torch.bool)
+                new[:, 1:] = rows[:, 1:] != rows[:, :-1]
+                total += int((new & (rows >= 0)).sum())
+    return total
+
+
+def scale_fields(dev, peaks):
+    """(a) One DCCLOnTheFly call against DCCLFused's own and cross fields
+    (the volume route, the f32 chunked build) at 1024x2048 on the same
+    seeded fmaps and centres; then the on-the-fly tap path alone
+    (``OnTheFlyTaps``) at 2048x4096, timed per iteration, with its bound."""
+    import torch
+    from prior_flow_tpu_torch.geometry import rotation_grids
+    from prior_flow_tpu_torch.ops import corr
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    out = {}
+    fm, cens = scale_fmaps(dev, H2, W2, 21)
+    g = rotation_grids(H2, W2).to_device(dev)
+    args = (g.a2b_w2c_8, g.b2a_w2c_8, g.a2b_8, g.b2a_8)
+    with torch.no_grad():
+        vols = [corr.build_pyramid_lean(fm[i], fm[i + 1], LEVELS,
+                                        torch.float32) for i in (0, 2)]
+        ref = corr.DCCLFused(LEVELS)(*cens, *vols, *args)
+        del vols
+        torch.cuda.empty_cache()
+        pyrs = [corr.DCCLOnTheFly.build_pyramid(fm[i], fm[i + 1], LEVELS)
+                for i in (0, 2)]
+        reset_launch_counts()
+        got = corr.DCCLOnTheFly(LEVELS)(*cens, *pyrs, *args)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    want = forward_counts(instance_norm_sums=0, dccl_cross_coords=2)
+    if counts != want:
+        fail(f"on-the-fly call {H2}x{W2}: launch counts {counts}, expected "
+             f"{want}")
+    worst = 0.0
+    for name, a, r in zip(("own_A", "cross_A", "own_B", "cross_B"), got, ref):
+        rel = (a - r).abs().max().item() / r.abs().max().item()
+        worst = max(worst, rel)
+        if not (torch.isfinite(a).all() and rel <= SCALE_FIELD_RTOL):
+            fail(f"on-the-fly {name} at {H2}x{W2}: {rel:.3e} of max|field| "
+                 f"from the volume route (gate {SCALE_FIELD_RTOL})")
+    print(f"  (a) DCCLOnTheFly vs DCCLFused fields, {H2}x{W2}, f32: worst "
+          f"{worst:.3e} of max|field| (gate {SCALE_FIELD_RTOL}); 2 coords "
+          f"launches (2 query chunks)", flush=True)
+    out["field_rel"] = worst
+    del fm, cens, ref, got, pyrs
+    torch.cuda.empty_cache()
+
+    # the tap path alone at 2048x4096, one iteration
+    fm, cens = scale_fmaps(dev, H3, W3, 22)
+    g = rotation_grids(H3, W3).to_device(dev)
+    B, h8, w8, C = fm[0].shape
+    Q = h8 * w8
+    cq = [c.reshape(B, Q, 2).contiguous() for c in cens]
+    scales = tuple(1.0 / 2 ** i for i in range(LEVELS))
+    chunks = corr._query_chunks(Q, 0, corr.DCCLOnTheFly.QUERY_CHUNK_AUTO)
+    with torch.no_grad():
+        pyrs = [corr.DCCLOnTheFly.build_pyramid(fm[i], fm[i + 1], LEVELS)
+                for i in (0, 2)]
+        f2s = [p[i][1] for i in range(LEVELS) for p in pyrs]
+        grids = (g.a2b_w2c_8, g.b2a_w2c_8)
+        call = lambda: corr.OnTheFlyTaps.apply(
+            *cq, *grids, scales, chunks, pyrs[0][0][0], pyrs[1][0][0], *f2s)
+        ms = cuda_ms(call, 1, warmup=1) * ITERS
+        rows = otf_window_rows(*pyrs, cq, grids)
+    taps = Q * OTF_NTAP * LEVELS * 4
+    bytes_moved = (4 * LEVELS * Q * C * 4 + rows * C * 4
+                   + 4 * Q * LEVELS * OTF_NTAP * 4) * ITERS
+    ops = taps * C * OTF_OPS_PER_TAP_CHANNEL * ITERS
+    bound_ms, bound_by = bound(bytes_moved, ops, peaks)
+    print(f"  (a) the plain on-the-fly tap path at {H3}x{W3} (OnTheFlyTaps, "
+          f"{len(chunks)} query chunks, {len(chunks)} coords launches per "
+          f"iteration): {ms:.1f} ms per {ITERS}-iteration forward; bound "
+          f"{bound_ms:.2f} ms ({bound_by}: {bytes_moved / 1e9:.1f} GB with "
+          f"each window's {rows / (Q * LEVELS * 4):.1f} distinct f2 rows "
+          f"read once, {ops / 1e12:.2f} TFLOP)", flush=True)
+    out["tap_path"] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                           launches=len(chunks) * ITERS,
+                           gb=bytes_moved / 1e9, tflop=ops / 1e12,
+                           rows_per_window=rows / (Q * LEVELS * 4))
+    del fm, cens, pyrs, f2s, cq
+    torch.cuda.empty_cache()
+    return out
+
+
+def scale_forward_hr(dev):
+    """(a) The 1024x2048 forward, fp32 ``precision="highest"``, one seeded
+    pair, on-the-fly against the volume route: 3 iterations gated, 12
+    reported."""
+    import torch
+    from prior_flow_tpu_torch import build_model
+    i1, i2 = (t.to(dev) for t in images(5, H2, W2))
+    out = {}
+    flows = {}
+    for mode in ("volume", "onthefly"):
+        model = build_model(seed=0, precision="highest", corr_mode=mode)
+        for iters in (3, ITERS):
+            t0 = time.perf_counter()
+            flows[mode, iters] = model(i1, i2, iters=iters)
+            torch.cuda.synchronize()
+            out[f"{mode}_{iters}_ms"] = (time.perf_counter() - t0) * 1e3
+        del model
+    for iters in (3, ITERS):
+        ref, got = flows["volume", iters], flows["onthefly", iters]
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        out[f"ratio_{iters}"] = err / scale
+        print(f"  (a) forward {H2}x{W2} fp32 {iters} iterations, on-the-fly vs "
+              f"volume: max abs diff {err:.3e}, flow scale {scale:.3f}, ratio "
+              f"{err / scale:.3e}" + (f" (gate {OTF_FLOW_RTOL} x scale + "
+                                      f"{OTF_FLOW_ATOL})" if iters == 3 else
+                                      " (reported)"), flush=True)
+        if not torch.isfinite(got).all():
+            fail(f"on-the-fly forward {H2}x{W2}: non-finite flow")
+        if iters == 3 and err > OTF_FLOW_RTOL * scale + OTF_FLOW_ATOL:
+            fail("the on-the-fly forward departs from the volume route")
+    return out
+
+
+def scale_kernels(dev):
+    """Rows 2 and 5 at the shapes the 2048x4096 forward gives them: the
+    sums kernel at its fnet norm shapes (FNET_SHAPES_BIG), f32 and bf16,
+    within SUMS_RTOL / SUMS_ATOL of the plain version; the coords kernel
+    on the first and the last 16384-query chunk of 2048x4096 centres
+    (``OnTheFlyTaps._coords``' call: both branches, all levels, the
+    rotation grids of 2048x4096), bitwise its plain version."""
+    import torch
+    from prior_flow_tpu_torch.geometry import rotation_grids
+    from prior_flow_tpu_torch.ops import corr
+    from prior_flow_tpu_torch.ops.kernels.dccl_coords import (
+        dccl_cross_coords, dccl_cross_coords_plain)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FNET_SHAPES_BIG:
+            g = torch.Generator(device=dev).manual_seed(sum(shape))
+            x = (torch.randn(shape, generator=g, device=dev) * 3
+                 + 1.5).to(dtype)
+            with torch.no_grad():
+                err = sums_check(x, f"{H3}x{W3} {dtype} {shape}")
+            errs[str(dtype), shape] = err
+            del x
+            torch.cuda.empty_cache()
+    print(f"  (b) sums at the {H3}x{W3} fnet shapes {FNET_SHAPES_BIG}, f32 "
+          f"and bf16: within rtol/atol {SUMS_RTOL} of the plain version, "
+          f"max abs err {max(errs.values()):.3e}", flush=True)
+    Q = (H3 // 8) * (W3 // 8)
+    grid = rotation_grids(H3, W3).to_device(dev)
+    gA, gB = grid.a2b_w2c_8, grid.b2a_w2c_8
+    cA, cB = (train_centres(dev, Q, seed, (H3, W3)).reshape(1, Q, 2)
+              for seed in (31, 32))
+    scales = [1.0 / 2 ** lvl for lvl in range(LEVELS)]
+    chunks = corr._query_chunks(Q, 0, corr.DCCLOnTheFly.QUERY_CHUNK_AUTO)
+    for q0, q1 in (chunks[0], chunks[-1]):
+        args = (cA[:, q0:q1].contiguous(), cB[:, q0:q1].contiguous(), gA, gB,
+                scales)
+        with torch.no_grad():
+            got = dccl_cross_coords(*args)
+            ref = dccl_cross_coords_plain(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+            fail(f"coords {H3}x{W3} queries {q0}:{q1}: not bitwise equal "
+                 f"(max abs err {err})")
+    print(f"  (b) coords at {H3}x{W3}, queries {chunks[0]} and {chunks[-1]} "
+          f"(1, {chunks[0][1]}, 2), both branches, {LEVELS} levels: bitwise "
+          f"equal to the plain version", flush=True)
+    return dict(sums_err=max(errs.values()))
+
+
+def scale_forward_big(dev):
+    """(b) The 2048x4096 forward, batch 1, 12 iterations, bf16 mixed
+    precision, ``corr_mode="onthefly"``: finite flow, launches per forward
+    (15 sums, one coords launch per query chunk and iteration), peak GB,
+    ms/pair."""
+    import torch
+    from prior_flow_tpu_torch import build_model
+    from prior_flow_tpu_torch.ops import corr
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    i1, i2 = (t.to(dev) for t in images(6, H3, W3))
+    model = build_model(seed=0, mixed_precision=True, corr_mode="onthefly")
+    Q = (H3 // 8) * (W3 // 8)
+    chunks = len(corr._query_chunks(Q, 0, corr.DCCLOnTheFly.QUERY_CHUNK_AUTO))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    flow = model(i1, i2, iters=ITERS)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = forward_counts(dccl_cross_coords=chunks * ITERS)
+    if counts != want:
+        fail(f"on-the-fly forward {H3}x{W3}: launch counts {counts}, "
+             f"expected {want}")
+    if tuple(flow.shape) != (1, H3, W3, 2) or not torch.isfinite(flow).all():
+        fail(f"on-the-fly forward {H3}x{W3}: shape {tuple(flow.shape)} or "
+             f"non-finite flow")
+    runs = 1 if warm_s > SLOW_PAIR_S else SCALE_RUNS
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        model(i1, i2, iters=ITERS)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    vol_gb = volume_pyramids_gb(H3, W3)
+    print(f"  (b) forward {H3}x{W3} bf16 {ITERS} iterations, on-the-fly: "
+          f"{ms:.1f} ms/pair ({'median of ' + str(runs) if runs > 1 else 'one run'}"
+          f" after a {warm_s:.1f} s warm-up); peak {peak:.2f} GB; launches "
+          f"{ {k: v for k, v in counts.items() if v} }; flow |max| "
+          f"{flow.abs().max().item():.3f}; the volume route's bf16 pyramids "
+          f"would take {vol_gb:.2f} GB (computed, not run)", flush=True)
+    del model, flow
+    torch.cuda.empty_cache()
+    return dict(ms=ms, runs=runs, warm_s=warm_s, peak_gb=peak, counts=counts,
+                volume_gb=vol_gb, chunks=chunks)
+
+
+def grad_distance(g, ref) -> dict:
+    """Per tensor: ||g - ref|| (L2)."""
+    return {n: (g[n] - r).norm().item() for n, r in ref.items()}
+
+
+def scale_remat(dev):
+    """(c) The EFT recipe step (512x1024, batch 4, 12 iterations, bf16) in
+    both grad modes with remat off, ``dccl`` and ``dots``: peak GB and
+    ms/step (median of REMAT_STEPS after one warm-up step); at the first
+    step the loss within STEP_LOSS_RTOL and each gradient tensor within
+    REMAT_SPREAD_X times the distance between two no-remat steps plus
+    REMAT_RTOL of its norm; the launches per step those of no remat (the
+    lookup not replayed)."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    batches = [train_batch(40 + i, TRAIN_B, H, W, dev)
+               for i in range(REMAT_STEPS + 1)]
+    out = {}
+    for mode in ("standard", "taped"):
+        per = 2 * LEVELS * (ITERS if mode == "standard" else 1)
+        want = forward_counts(dccl_level_lookup=LEVELS * ITERS,
+                              instance_norm_sums=30,
+                              dccl_level_scatter_grid=per)
+        first = {}
+        for policy in ("off", "off_again", "dccl", "dots"):
+            kw = (dict(remat=False) if policy.startswith("off")
+                  else dict(remat_policy=policy))
+            model, step = make_trainer(dev, mode, True, ITERS, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for i, batch in enumerate(batches[:1 if policy == "off_again"
+                                              else None]):
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                m = step(batch, i)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                counts = launch_counts()
+                if counts != want:
+                    fail(f"remat {policy} {mode} step {i}: launch counts "
+                         f"{counts}, expected {want}")
+                if i == 0:
+                    first[policy] = (float(m["train/loss"]), grads_of(model))
+                else:
+                    times.append(dt)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if times:
+                out[mode, policy] = dict(ms=statistics.median(times),
+                                         peak_gb=peak)
+                print(f"  (c) train {mode} remat {policy}: median "
+                      f"{out[mode, policy]['ms']:.1f} ms/step over "
+                      f"{len(times)} after one warm-up (min {min(times):.1f}, "
+                      f"max {max(times):.1f}); peak {peak:.2f} GB; launches "
+                      f"per step as without remat", flush=True)
+            del model, step
+            torch.cuda.empty_cache()
+        l_ref, g_ref = first["off"]
+        spread = grad_distance(first["off_again"][1], g_ref)
+        for policy in ("dccl", "dots"):
+            loss, g = first[policy]
+            if abs(loss - l_ref) > STEP_LOSS_RTOL * abs(l_ref):
+                fail(f"remat {policy} {mode}: loss {loss} vs {l_ref}")
+            dist = grad_distance(g, g_ref)
+            worst = (0.0, "")
+            for n, d in dist.items():
+                gate = (REMAT_SPREAD_X * spread[n]
+                        + REMAT_RTOL * g_ref[n].norm().item())
+                if d > gate:
+                    fail(f"remat {policy} {mode}: gradient {n} {d:.3e} from "
+                         f"no remat, gate {gate:.3e} (two no-remat steps "
+                         f"{spread[n]:.3e} apart)")
+                if gate > 0:
+                    worst = max(worst, (d / gate, n))
+            out[mode, policy]["loss_diff"] = abs(loss - l_ref)
+            out[mode, policy]["worst_of_gate"] = worst[0]
+            print(f"  (c) {mode} remat {policy} vs off, first step: loss "
+                  f"{loss:.6f} vs {l_ref:.6f}; worst gradient tensor at "
+                  f"{worst[0]:.3f} of its gate ({worst[1]})", flush=True)
+    return out
+
+
+class QuantisedFields:
+    """A DCCL lookup whose four fields are quantised to a grid of
+    2^-bits of their max|field|, with the gradient passed straight
+    through: the volume route perturbed by a rounding of a given size."""
+
+    def __init__(self, dccl, bits: int):
+        self.dccl, self.bits = dccl, bits
+
+    def __call__(self, *args):
+        import torch
+        out = []
+        for f in self.dccl(*args):
+            step = f.detach().abs().max() * 2.0 ** -self.bits
+            out.append(f + (torch.round(f / step) * step - f).detach())
+        return tuple(out)
+
+
+def global_distance(g, ref) -> float:
+    return math.sqrt(sum(float(((g[n] - r).double() ** 2).sum())
+                         for n, r in ref.items()))
+
+
+def scale_train_onthefly(dev):
+    """(d) One standard step at 512x1024, batch 1, 12 iterations, fp32
+    ``precision="highest"``, remat ``dccl``, on the fly against the volume
+    route: the loss and the global gradient distance within OTF_SENS_X
+    times the distance a quantisation of the volume route's fields moves
+    its step (see OTF_ROUND_BITS), plus two volume steps' spread; per
+    tensor reported; launches (24 coords: forward and backward, 30 sums);
+    peak GB and ms/step (the on-the-fly step's second)."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    batches = [train_batch(50 + i, 1, H, W, dev) for i in range(2)]
+    first, res = {}, {}
+    for name in ("volume", "volume_again", "volume_quantised", "onthefly"):
+        mode = "onthefly" if name == "onthefly" else "volume"
+        model, step = make_trainer(dev, "standard", False, ITERS,
+                                   precision="highest", corr_mode=mode)
+        if name == "volume_quantised":
+            model.dccl = QuantisedFields(model.dccl, OTF_ROUND_BITS)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for i, batch in enumerate(batches[:2 if name == "onthefly" else 1]):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            m = step(batch, i)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            if i == 0:
+                first[name] = (float(m["train/loss"]), grads_of(model))
+                counts = launch_counts()
+        res[name] = dict(ms=dt, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         counts=counts)
+        del model, step
+        torch.cuda.empty_cache()
+    want = forward_counts(instance_norm_sums=30, dccl_cross_coords=2 * ITERS)
+    if res["onthefly"]["counts"] != want:
+        fail(f"on-the-fly train step: launch counts {res['onthefly']['counts']}"
+             f", expected {want}")
+    l_ref, g_ref = first["volume"]
+    loss, g = first["onthefly"]
+    l_q, g_q = first["volume_quantised"]
+    spread = global_distance(first["volume_again"][1], g_ref)
+    sens = global_distance(g_q, g_ref)
+    dist = global_distance(g, g_ref)
+    norm = math.sqrt(sum(float((a.double() ** 2).sum())
+                         for a in g_ref.values()))
+    loss_gate = STEP_LOSS_RTOL * abs(l_ref) + OTF_SENS_X * abs(l_q - l_ref)
+    grad_gate = REMAT_SPREAD_X * spread + OTF_SENS_X * sens
+    def rel_of(grads):
+        return {n: (grads[n] - r).norm().item() / max(r.norm().item(),
+                                                      grad_floor(n, norm))
+                for n, r in g_ref.items()}
+
+    def worst_of(rel, prefix=""):
+        names = [n for n in rel if n.startswith(prefix)]
+        return max(names, key=rel.get)
+
+    rel, rel_q = rel_of(g), rel_of(g_q)
+    worst, worst_q = worst_of(rel), worst_of(rel_q)
+    fnet, fnet_q = worst_of(rel, "fnet."), worst_of(rel_q, "fnet.")
+    print(f"  (d) train standard {H}x{W} batch 1 fp32 remat dccl, on-the-fly "
+          f"vs volume: loss {loss:.6f} vs {l_ref:.6f} (diff "
+          f"{abs(loss - l_ref):.3e}, gate {loss_gate:.3e}; quantised fields "
+          f"{abs(l_q - l_ref):.3e}); gradient distance {dist / norm:.3e} of "
+          f"the norm (gate {grad_gate / norm:.3e}: quantised fields "
+          f"{sens / norm:.3e}, two volume steps {spread / norm:.3e}); worst "
+          f"tensor rel L2 {rel[worst]:.3e} ({worst}), quantised fields "
+          f"{rel_q[worst_q]:.3e} ({worst_q}); worst fnet tensor "
+          f"{rel[fnet]:.3e} ({fnet}), quantised fields {rel_q[fnet_q]:.3e} "
+          f"({fnet_q}); on-the-fly "
+          f"{res['onthefly']['ms']:.1f} ms/step, peak "
+          f"{res['onthefly']['peak_gb']:.2f} GB; volume "
+          f"{res['volume']['ms']:.1f} ms/step (first step), peak "
+          f"{res['volume']['peak_gb']:.2f} GB", flush=True)
+    if abs(loss - l_ref) > loss_gate or dist > grad_gate:
+        fail("the on-the-fly training step departs from the volume route's")
+    return dict(res=res, loss_rel=abs(loss - l_ref) / abs(l_ref),
+                grad_rel=dist / norm, grad_gate=grad_gate / norm,
+                sens=sens / norm, worst_tensor=rel[worst],
+                worst_tensor_quantised=rel_q[worst_q], worst_fnet=rel[fnet],
+                worst_fnet_quantised=rel_q[fnet_q])
+
+
+def phase_scale(dev, peaks):
+    """Phase 21: the memory-scale modes (a)-(d)."""
+    out = scale_fields(dev, peaks)
+    out["hr"] = scale_forward_hr(dev)
+    out["big_kernels"] = scale_kernels(dev)
+    out["big"] = scale_forward_big(dev)
+    out["remat"] = scale_remat(dev)
+    out["train_otf"] = scale_train_onthefly(dev)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2857,6 +3389,29 @@ def main(argv=None) -> None:
                                for tag in ("fp32", "bf16")},
         "serving_cli_check_err": sv["cli_check_err"]}))
 
+    print(f"phase 21 memory-scale modes: on-the-fly correlation ({H2}x{W2} "
+          f"against the volume route, {H3}x{W3} bf16), rematerialisation at "
+          f"the EFT recipe, on-the-fly training", flush=True)
+    sc = phase_scale(dev, peaks)
+    print(json.dumps({
+        "onthefly_field_rel_1024x2048": sc["field_rel"],
+        "onthefly_tap_path_2048x4096": sc["tap_path"],
+        "onthefly_vs_volume_ratio_1024x2048": {
+            k: v for k, v in sc["hr"].items() if k.startswith("ratio")},
+        "forward_onthefly_2048x4096": {k: sc["big"][k] for k in (
+            "ms", "runs", "warm_s", "peak_gb", "volume_gb")},
+        "sums_err_2048x4096": sc["big_kernels"]["sums_err"],
+        "remat_eft": {f"{m}_{p}": v for (m, p), v in sc["remat"].items()},
+        "train_onthefly_512x1024": {
+            **{k: sc["train_otf"][k] for k in ("loss_rel", "grad_rel",
+                                               "grad_gate", "sens",
+                                               "worst_tensor",
+                                               "worst_tensor_quantised",
+                                               "worst_fnet",
+                                               "worst_fnet_quantised")},
+            **{f"{k}_{q}": v[q] for k, v in sc["train_otf"]["res"].items()
+               for q in ("ms", "peak_gb")}}}))
+
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     try:
@@ -2884,7 +3439,10 @@ def main(argv=None) -> None:
                 "launches_serving_512x1024: one call of phase 20's "
                 "AOTInductor package (512x1024, batch 1, 12 iterations, "
                 "fp32), and launches_serving_1024x2048: one call of phase "
-                "20's exported 1024x2048 program (the planes route)")
+                "20's exported 1024x2048 program (the planes route); "
+                "launches_forward_onthefly_2048x4096: one 2048x4096 bf16 "
+                "forward with corr_mode='onthefly' (phase 21: rows 2 and 5, "
+                "one coords launch per query chunk and iteration)")
 
     def row(name, src, replaces, d, work, err, path="train"):
         paths = {"train": std, "forward_1024x2048": hr_counts,
@@ -2901,6 +3459,8 @@ def main(argv=None) -> None:
                 "launches_train_planes": planes_counts[name],
                 "launches_eval_512x1024": ev["counts_per_pair"][name],
                 "launches_train_cli": tc["counts"]["standard"][name],
+                "launches_forward_onthefly_2048x4096":
+                    sc["big"]["counts"][name],
                 "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
                 "library_ms": d["library_ms"], "work": work + "; " + per_path,

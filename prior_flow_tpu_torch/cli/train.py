@@ -10,9 +10,13 @@ Presets (``scripts/train_*.sh``):
   EFT / City:  60k steps, batch 4, lr 1e-4, wdecay 1e-4
   FlowScape:   100k steps, batch 6, lr 1e-4, wdecay 1e-4
 
-One card only: ``--mesh`` takes ``auto`` or ``1x1``. ``--remat_policy`` is
-accepted and not applied: the port keeps every activation (25.09 GB at
-512x1024, batch 4, 12 iterations, bf16 on an H100).
+One card only: ``--mesh`` takes ``auto`` or ``1x1``. ``--remat_policy``
+picks what each GRU iteration keeps for the backward, as in the JAX CLI:
+``dccl`` (the default) only its lookup results, ``dots`` also every
+convolution output; the rest is recomputed (``PriOrRAFT(remat_policy=)``).
+The flags are the JAX CLI's, so no flag turns remat off:
+``TrainerConfig(remat_policy="none")`` does, the fastest where the step
+fits (the EFT recipe does).
 """
 
 from __future__ import annotations
@@ -55,10 +59,11 @@ def build_parser():
     parser.add_argument("--dropout", type=float, default=0.0)
     parser.add_argument("--remat_policy", default="dccl",
                         choices=["dccl", "dots"],
-                        help="accepted for the JAX CLI's surface and not "
-                             "applied: the port keeps every activation "
-                             "(25.09 GB at 512x1024, batch 4, 12 "
-                             "iterations, bf16)")
+                        help="what each GRU iteration keeps for the "
+                             "backward: 'dccl' only the lookup results "
+                             "(least memory), 'dots' also every convolution "
+                             "output (slower than 'dccl' in the port); the "
+                             "rest runs again in the backward")
 
     parser.add_argument("--grad_mode", default="standard",
                         choices=["standard", "taped"],
@@ -135,7 +140,7 @@ def main(argv=None):
         save_path=args.save_path, restore_ckpt=args.restore_ckpt,
         validation=tuple(args.validation), seed=args.seed,
         data_root=args.data_root, val_freq=args.val_freq,
-        grad_mode=args.grad_mode,
+        grad_mode=args.grad_mode, remat_policy=args.remat_policy,
     )
     logger = MetricLogger.default(
         run_dir=os.path.join(args.save_path, "logs"), name=args.name,

@@ -26,7 +26,9 @@ def build_model(device=None, seed: int = 0, state_dict=None,
     Weights come from ``state_dict`` (reference layout, loaded strictly)
     or, without one, from ``checkpoint.init_weights(seed)``. ``kwargs`` go
     to ``PriOrRAFT`` (e.g. ``mixed_precision=True``, ``precision="highest"``
-    for full f32 convolutions and matmuls).
+    for full f32 convolutions and matmuls, ``corr_mode="onthefly"`` for
+    inputs whose volumes outgrow the card, ``remat_policy="dots"`` or
+    ``remat=False`` for training).
     """
     dev = resolve_device(device)
     model = PriOrRAFT(**kwargs)

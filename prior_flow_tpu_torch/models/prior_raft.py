@@ -17,8 +17,28 @@ JAX package makes. Above ``LEAN_BUILD_QUERIES`` 1/8 queries (as at
 1024x2048) the pyramids are built in query chunks
 (``ops.corr.build_pyramid_lean``, ``prior_raft.py:394-409``), and there
 the 1/8 grid is wider than 128 columns, so ``DCCLFused`` takes its planes
-route. ``DCCLOnTheFly``, the two-scan ``deferred_vol_grad`` path and
-rematerialisation are not ported.
+route. The two-scan ``deferred_vol_grad`` path is not ported.
+
+Correlation (``corr_mode``, ``prior_raft.py:150-155,386-399``):
+``"volume"`` (the default) builds both branches' volume pyramids once and
+looks them up with ``DCCLFused``; ``"onthefly"`` keeps f32 feature
+pyramids (no volume, no lean build, no bf16 storage, as JAX builds them
+from the f32 fmaps) and computes every tap's correlation from them with
+``ops.corr.DCCLOnTheFly``: O(HW C) memory, the route for inputs whose
+volumes outgrow the card (2048x4096).
+
+Rematerialisation (``remat``, ``remat_policy``, ``prior_raft.py:138-141,
+446-448,468-484``), in a training forward and ``iterate_taped`` only, and
+only while autograd records: each GRU iteration's lookup runs outside a
+``torch.utils.checkpoint`` region and its fields enter the region as
+inputs; the flaw maps, ``flo_rotate``, both update blocks and the
+upsampling run inside it and run again in the backward. ``"dccl"`` keeps
+only the region's inputs (the lookup results among them; the lookups
+themselves keep their centres), ``"dots"`` also every convolution and
+matrix product output inside it (selective checkpointing). Neither
+replays a lookup. The replay runs under the forward's autocast state;
+the caller keeps the precision flags (``train/trainer.py`` runs the
+backward inside ``precision_scope``).
 
 Dropout (``dropout`` > 0) acts in the encoders of the training forward
 only, in train mode, and draws from the ``generator`` the caller passes
@@ -45,8 +65,8 @@ from torch.nn import functional as F
 from ..geometry import grids as gridlib
 from ..nn.encoder import BasicEncoder
 from ..nn.update import BasicMultiUpdateBlock, BasicUpdateBlock
-from ..ops.corr import (DCCLFused, all_pairs_correlation, build_pyramid,
-                        build_pyramid_lean, groupwise_corr)
+from ..ops.corr import (DCCLFused, DCCLOnTheFly, all_pairs_correlation,
+                        build_pyramid, build_pyramid_lean, groupwise_corr)
 from ..ops.samplers import cycle_bilinear_sample
 from ..ops.warp import flo_rotate, img_rotate
 from ..utils.precision import check_precision, precision_scope
@@ -57,6 +77,25 @@ from ..utils.precision import check_precision, precision_scope
 # f32 volume and f32 pyramid would not fit beside each other before the
 # cast on the device the JAX package sized it for
 LEAN_BUILD_QUERIES = 16384
+CORR_MODES = ("volume", "onthefly")
+REMAT_POLICIES = ("dccl", "dots")
+# the ops whose outputs the "dots" policy keeps: JAX's ``dots_saveable``
+# saves every dot_general and convolution (``prior_raft.py:469-479``)
+_DOT_OPS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.baddbmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy of ``create_selective_checkpoint_contexts``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_keep_dots)
 
 
 def upsample_flow_convex(flow: torch.Tensor, mask: torch.Tensor):
@@ -101,10 +140,20 @@ class PriOrRAFT(nn.Module):
     def __init__(self, hidden_dim: int = 128, context_dim: int = 128,
                  corr_levels: int = 4, corr_radius: int = 4,
                  dropout: float = 0.0, mixed_precision: bool = False,
-                 precision: Optional[str] = None):
+                 precision: Optional[str] = None, corr_mode: str = "volume",
+                 remat: bool = True, remat_policy: str = "dccl"):
         super().__init__()
         check_precision(precision)
+        if corr_mode not in CORR_MODES:
+            raise ValueError(f"corr_mode must be one of {CORR_MODES}, got "
+                             f"{corr_mode!r}")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                             f"got {remat_policy!r}")
         self.precision = precision
+        self.corr_mode = corr_mode
+        self.remat = remat
+        self.remat_policy = remat_policy
         self.hidden_dim = hidden_dim
         self.corr_levels = corr_levels
         self.mixed_precision = mixed_precision
@@ -115,7 +164,9 @@ class PriOrRAFT(nn.Module):
                                  dropout=dropout)
         self.ODDC = BasicMultiUpdateBlock(hidden_dim, corr_planes)
         self.update_block = BasicUpdateBlock(hidden_dim, corr_planes)
-        self.dccl = DCCLFused(corr_levels, corr_radius)
+        self.dccl = (DCCLOnTheFly(corr_levels, corr_radius)
+                     if corr_mode == "onthefly"
+                     else DCCLFused(corr_levels, corr_radius))
         self._grids = {}
 
     def _autocast(self, device):
@@ -163,13 +214,18 @@ class PriOrRAFT(nn.Module):
 
     def build_pyramids(self, fmaps):
         """Both branches' 4-level pyramids from the channels-last fmaps,
-        stored in bf16 under mixed precision (``prior_raft.py:385``), built
-        in query chunks above ``LEAN_BUILD_QUERIES`` queries
-        (``prior_raft.py:394-414``; the same bits as the dense build);
-        differentiable when autograd records."""
+        differentiable when autograd records. Volume pyramids are stored in
+        bf16 under mixed precision (``prior_raft.py:385``) and built in
+        query chunks above ``LEAN_BUILD_QUERIES`` queries
+        (``prior_raft.py:394-414``; the same bits as the dense build); with
+        ``corr_mode="onthefly"`` the f32 feature pyramids of
+        ``DCCLOnTheFly.build_pyramid``."""
         fmap1_A, fmap2_A, fmap1_B, fmap2_B = fmaps
-        dt = torch.bfloat16 if self.mixed_precision else torch.float32
         pairs = ((fmap1_A, fmap2_A), (fmap1_B, fmap2_B))
+        if self.corr_mode == "onthefly":
+            return tuple(DCCLOnTheFly.build_pyramid(f1, f2, self.corr_levels)
+                         for f1, f2 in pairs)
+        dt = torch.bfloat16 if self.mixed_precision else torch.float32
         _, h8, w8, _ = fmap1_A.shape
         if h8 * w8 > LEAN_BUILD_QUERIES:
             return tuple(build_pyramid_lean(f1, f2, self.corr_levels, dt)
@@ -179,14 +235,32 @@ class PriOrRAFT(nn.Module):
             for f1, f2 in pairs)
 
     def _step(self, net_A, net_B, coords1_A, coords1_B, k: StepConsts,
-              corr_fn, mask_A: bool, mask_B: bool):
+              corr_fn, mask_A: bool, mask_B: bool, upsample: bool):
         """One GRU iteration (``prior_raft.py:193-277``). ``corr_fn(c_A,
         c_B)`` returns both branches' summed own + cross fields. The coords
         are detached first (``:215,220``): no gradient runs along the
-        trajectory."""
-        g = k.grids
+        trajectory. The lookup runs here, the rest in ``_update``, inside a
+        checkpoint region when the model rematerialises and autograd
+        records."""
         coords1_A = coords1_A.detach()
         coords1_B = coords1_B.detach()
+        corr_A, corr_B = corr_fn(coords1_A, coords1_B)
+        args = (net_A, net_B, coords1_A, coords1_B, corr_A, corr_B, k,
+                mask_A, mask_B, upsample)
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._update(*args)
+        from torch.utils.checkpoint import checkpoint, noop_context_fn
+        ctx = _dots_context if self.remat_policy == "dots" else noop_context_fn
+        # the region draws no random numbers: dropout acts in the encoders
+        return checkpoint(self._update, *args, use_reentrant=False,
+                          context_fn=ctx, preserve_rng_state=False)
+
+    def _update(self, net_A, net_B, coords1_A, coords1_B, corr_A, corr_B,
+                k: StepConsts, mask_A: bool, mask_B: bool, upsample: bool):
+        """The iteration after its lookup: flaw maps, ``flo_rotate``, both
+        update blocks, the new coords and, with ``upsample``, both
+        branches' upsampled flows in place of the masks."""
+        g = k.grids
         flow_A = coords1_A - k.coords0
         warped_A = cycle_bilinear_sample(k.fmap2_A, coords1_A)
         flaw_A = groupwise_corr(k.fmap1_A, warped_A, num_groups=4)
@@ -196,7 +270,6 @@ class PriOrRAFT(nn.Module):
         warped_B_A = cycle_bilinear_sample(k.fmap2_A, k.coords0 + flow_B_A)
         flaw_B_A = groupwise_corr(k.fmap1_A, warped_B_A, num_groups=4)
 
-        corr_A, corr_B = corr_fn(coords1_A, coords1_B)
         with self._autocast(coords1_A.device):
             net_A, up_mask_A, delta_A = self.ODDC(
                 net_A, k.inp_A, _nchw(flow_A), _nchw(corr_A), _nchw(flaw_A),
@@ -204,8 +277,14 @@ class PriOrRAFT(nn.Module):
             net_B, up_mask_B, delta_B = self.update_block(
                 net_B, k.inp_B, _nchw(corr_B), _nchw(flow_B),
                 with_mask=mask_B)
-        return (net_A, net_B, coords1_A + _nhwc(delta_A),
-                coords1_B + _nhwc(delta_B), up_mask_A, up_mask_B)
+        coords1_A = coords1_A + _nhwc(delta_A)
+        coords1_B = coords1_B + _nhwc(delta_B)
+        if upsample:
+            up_mask_A = upsample_flow_convex(coords1_A - k.coords0,
+                                             _nhwc(up_mask_A))
+            up_mask_B = upsample_flow_convex(coords1_B - k.coords0,
+                                             _nhwc(up_mask_B))
+        return net_A, net_B, coords1_A, coords1_B, up_mask_A, up_mask_B
 
     def _recur(self, net_A, net_B, coords1_A, coords1_B, k: StepConsts,
                corr_fn, iters: int, train: bool):
@@ -216,16 +295,14 @@ class PriOrRAFT(nn.Module):
         preds_A, preds_B, mask = [], [], None
         for it in range(iters):
             last = it == iters - 1
-            net_A, net_B, coords1_A, coords1_B, mask_A, mask_B = self._step(
+            net_A, net_B, coords1_A, coords1_B, out_A, out_B = self._step(
                 net_A, net_B, coords1_A, coords1_B, k, corr_fn,
-                mask_A=train or last, mask_B=train)
+                mask_A=train or last, mask_B=train, upsample=train)
             if train:
-                preds_A.append(upsample_flow_convex(coords1_A - k.coords0,
-                                                    _nhwc(mask_A)))
-                preds_B.append(upsample_flow_convex(coords1_B - k.coords0,
-                                                    _nhwc(mask_B)))
+                preds_A.append(out_A)
+                preds_B.append(out_B)
             elif last:
-                mask = _nhwc(mask_A)
+                mask = _nhwc(out_A)
         if train:
             return torch.stack(preds_A), torch.stack(preds_B)
         return upsample_flow_convex(coords1_A - k.coords0, mask)

@@ -33,10 +33,12 @@ import torch
 from .kernels.dccl_lookup import (NTAP, RADIUS, dccl_level_lookup,
                                   dccl_level_lookup_plain, window_delta)
 from .kernels.dccl_scatter import dccl_level_scatter, dccl_level_scatter_grid
+from .samplers import bilinear_corners
 from .static_resample import resample_static
 
 __all__ = ["all_pairs_correlation", "avg_pool2", "build_pyramid",
            "build_pyramid_lean", "groupwise_corr", "DCCLFused",
+           "DCCLOnTheFly", "OnTheFlyTaps", "tap_values",
            "DCCLLevelLookupCoords", "DCCLAllLevelsLookup",
            "window_delta", "dccl_level_lookup", "dccl_level_lookup_plain"]
 
@@ -337,3 +339,240 @@ def _concat(levels):
     """Per-level (own_A, cross_A, own_B, cross_B) -> the four (B, Q, L*81)
     fields."""
     return [torch.cat([lv[j] for lv in levels], dim=-1) for j in range(4)]
+
+
+# -- on-the-fly correlation (corr_mode='onthefly') -----------------------------
+
+# taps per gather in the tap path: a third of the 81-tap window, JAX's
+# ``DCCLOnTheFly`` default (``prior_flow_tpu/ops/corr.py:623``)
+TAP_CHUNK = 27
+
+def _tap_rows(f2, x, y):
+    """Per corner of ``cycle_bilinear_sample``'s read at the taps (x, y),
+    each (B, q, k), x wrapped mod Wl: the row indices into
+    ``f2.reshape(B*Hl*Wl, C)`` and the weights, both (B, q, k)."""
+    B, Hl, Wl, _ = f2.shape
+    base = (torch.arange(B, device=f2.device) * (Hl * Wl)).view(B, 1, 1)
+    return [(base + iy * Wl + ix, w) for ix, iy, w in
+            bilinear_corners(torch.remainder(x, Wl), y, Hl, Wl)]
+
+
+def tap_values(f1, f2, x, y):
+    """<f1[q], cycle-bilinear(f2, (x, y)[q, k])> (``DCCLOnTheFly._tap_values``,
+    ``prior_flow_tpu/ops/corr.py:649-659``), in chunks of ``TAP_CHUNK``
+    taps. f1: (B, q, C);
+    f2: (B, Hl, Wl, C); x, y: (B, q, K) -> (B, q, K) in f1's dtype.
+
+    By linearity each corner's dot <f1, f2[corner]> is taken first and the
+    dots are blended with the corner weights, so only the gathered rows of
+    one corner, (B, q, k, C), exist at a time. An empty level (no rows)
+    gives zeros, as the sampler does."""
+    B, q, K = x.shape
+    Hl, Wl, C = f2.shape[1:]
+    out = f1.new_zeros((B, q, K))
+    if Hl * Wl == 0:
+        return out
+    flat = f2.reshape(B * Hl * Wl, C)
+    f1c = f1.reshape(B * q, C, 1)
+    for k0 in range(0, K, TAP_CHUNK):
+        xs, ys = x[..., k0:k0 + TAP_CHUNK], y[..., k0:k0 + TAP_CHUNK]
+        k = xs.shape[-1]
+        for idx, w in _tap_rows(f2, xs, ys):
+            rows = flat.index_select(0, idx.reshape(-1)).view(B * q, k, C)
+            out[..., k0:k0 + k] += w * torch.bmm(rows, f1c).view(B, q, k)
+    return out
+
+
+def tap_values_backward(g, f1, f2, x, y, d_f1, d_f2):
+    """Adds the VJP of ``tap_values`` for the cotangent g (B, q, K) into
+    d_f1 (B, q, C) and d_f2 (B, Hl, Wl, C), either may be None. The gathered
+    rows are read again, not saved: d_f1[q] = sum_k g[q, k] bilinear(f2,
+    tap); d_f2 is the exact transpose of the bilinear read, each corner's
+    weighted g[q, k] f1[q] added into its row (``index_add_``), nothing
+    where the forward sampled zero."""
+    B, q, K = x.shape
+    Hl, Wl, C = f2.shape[1:]
+    if Hl * Wl == 0:
+        return
+    flat = f2.reshape(B * Hl * Wl, C)
+    d_flat = None if d_f2 is None else d_f2.view(B * Hl * Wl, C)
+    f1r = f1.reshape(B * q, 1, C)
+    for k0 in range(0, K, TAP_CHUNK):
+        xs, ys = x[..., k0:k0 + TAP_CHUNK], y[..., k0:k0 + TAP_CHUNK]
+        k = xs.shape[-1]
+        gs = g[..., k0:k0 + k]
+        for idx, w in _tap_rows(f2, xs, ys):
+            gw = (gs * w).reshape(B * q, 1, k)
+            if d_f1 is not None:
+                rows = flat.index_select(0, idx.reshape(-1)).view(B * q, k, C)
+                d_f1 += torch.bmm(gw, rows).view(B, q, C)
+            if d_flat is not None:
+                d_flat.index_add_(0, idx.reshape(-1),
+                                  (gw.transpose(1, 2) * f1r).view(-1, C))
+
+
+def _query_chunks(Q: int, query_chunk: int, auto: int):
+    """The query ranges of ``DCCLOnTheFly``'s chunking
+    (``prior_flow_tpu/ops/corr.py:696-707``): ``query_chunk`` 0 chunks by
+    ``auto`` above ``auto`` queries, -1 never; a chunk of gcd(Q, chunk)."""
+    qc = query_chunk
+    if qc == 0 and Q > auto:
+        qc = auto
+    qc = math.gcd(Q, qc) if 0 < qc < Q else Q
+    return [(q0, q0 + qc) for q0 in range(0, Q, qc)]
+
+
+# the branch whose f1 rows and f2 levels own_A, cross_A, own_B and cross_B
+# read: own taps the branch's own, cross taps the other branch's
+SIDE_BRANCH = (0, 1, 1, 0)
+
+
+class OnTheFlyTaps(torch.autograd.Function):
+    """Both branches' own and cross tap values at every level, computed from
+    the feature pyramids, with a VJP that recomputes instead of saving.
+
+    ``apply(cen_A, cen_B, grid_A, grid_B, scales, chunks, f1_A, f1_B,
+    *f2s)``, f2s = (A_0, B_0, A_1, B_1, ...), returns (own_A, cross_A,
+    own_B, cross_B), each (B, Q, L*81), level l in columns 81 l .. 81 l + 80,
+    the layout of ``DCCLAllLevelsLookup``. Per query chunk: the cross tap
+    coords of both branches at every level in one ``priorflow::
+    dccl_cross_coords`` op (the CUDA kernel on the card), the own taps at
+    centre x scale + offset, then ``tap_values`` per level, branch and side.
+    Branch A's cross taps read branch B's features at its grid's coords,
+    as the volume route's cross lookup reads volume B.
+
+    Saved: the centres, grids, f1 and the f2 levels, which the model holds
+    anyway; the backward recomputes the coords (one op per chunk) and the
+    gathers (``tap_values_backward``). The centres and grids get no
+    gradient. Autocast is off inside: the dots stay in the features' dtype.
+    """
+
+    @staticmethod
+    def _coords(cen_A, cen_B, grid_A, grid_B, scales, q0, q1):
+        """Per level: ((ownA_x, ownA_y), (crossA_x, crossA_y), (ownB ...),
+        (crossB ...)) of the chunk's queries, each (B, q, 81)."""
+        cA = cen_A[:, q0:q1].contiguous()
+        cB = cen_B[:, q0:q1].contiguous()
+        B, q, _ = cA.shape
+        planes = torch.ops.priorflow.dccl_cross_coords(cA, cB, grid_A, grid_B,
+                                                      list(scales))
+        delta = window_delta(RADIUS, cA.device).to(cA.dtype)
+        out = []
+        for lvl, s in enumerate(scales):
+            rows = slice(lvl * B * q, (lvl + 1) * B * q)
+            xA, yA, xB, yB = (p[rows].view(B, q, NTAP) for p in planes)
+            own = [((c * s)[..., None, 0] + delta[:, 0],
+                    (c * s)[..., None, 1] + delta[:, 1]) for c in (cA, cB)]
+            out.append((own[0], (xA, yA), own[1], (xB, yB)))
+        return out
+
+    @staticmethod
+    def forward(ctx, cen_A, cen_B, grid_A, grid_B, scales, chunks, f1_A, f1_B,
+                *f2s):
+        B, Q, _ = f1_A.shape
+        L = len(scales)
+        fields = [f1_A.new_empty((B, Q, L * NTAP)) for _ in range(4)]
+        with torch.autocast(f1_A.device.type, enabled=False):
+            for q0, q1 in chunks:
+                f1s = (f1_A[:, q0:q1], f1_B[:, q0:q1])
+                for lvl, coords in enumerate(OnTheFlyTaps._coords(
+                        cen_A, cen_B, grid_A, grid_B, scales, q0, q1)):
+                    cols = slice(lvl * NTAP, (lvl + 1) * NTAP)
+                    for j, b in enumerate(SIDE_BRANCH):
+                        fields[j][:, q0:q1, cols] = tap_values(
+                            f1s[b], f2s[2 * lvl + b], *coords[j])
+        ctx.save_for_backward(cen_A, cen_B, grid_A, grid_B, f1_A, f1_B, *f2s)
+        ctx.scales, ctx.chunks = scales, chunks
+        return tuple(fields)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        cen_A, cen_B, grid_A, grid_B, f1_A, f1_B, *f2s = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        d_f1 = [torch.zeros_like(f) if need[6 + i] else None
+                for i, f in enumerate((f1_A, f1_B))]
+        d_f2 = [torch.zeros_like(f) if need[8 + i] else None
+                for i, f in enumerate(f2s)]
+        with torch.autocast(f1_A.device.type, enabled=False):
+            for q0, q1 in ctx.chunks:
+                f1s = (f1_A[:, q0:q1], f1_B[:, q0:q1])
+                d1s = [None if d is None else d[:, q0:q1] for d in d_f1]
+                for lvl, coords in enumerate(OnTheFlyTaps._coords(
+                        cen_A, cen_B, grid_A, grid_B, ctx.scales, q0, q1)):
+                    cols = slice(lvl * NTAP, (lvl + 1) * NTAP)
+                    for j, b in enumerate(SIDE_BRANCH):
+                        if grads[j] is not None:
+                            tap_values_backward(
+                                grads[j][:, q0:q1, cols], f1s[b],
+                                f2s[2 * lvl + b], *coords[j], d1s[b],
+                                d_f2[2 * lvl + b])
+        return (None,) * 6 + tuple(d_f1) + tuple(d_f2)
+
+
+class DCCLOnTheFly:
+    """Both branches' DCCL over all levels, the correlation computed per tap
+    from feature pyramids, never as a volume (counterpart of
+    ``prior_flow_tpu/ops/corr.py:590-720``, the reference's
+    ``alt_cuda_corr`` capability).
+
+    Exact, not an approximation: the pyramid pools the volume over the
+    target axes only and correlation is linear in fmap2, so pooling fmap2
+    gives the pooled volume, and bilinear sampling commutes with the
+    feature dot. Memory O(HW C) per level instead of O((HW)^2): the only
+    route where the volumes outgrow the card (at 2048x4096 two bf16
+    volume pyramids need 91.6 GB).
+
+    Called like ``DCCLFused`` with feature pyramids in place of volume
+    pyramids: ``pyr_*`` is ``build_pyramid``'s list of (f1 (B, Q, C), f2_l
+    (B, Hl, Wl, C)); returns (own_A, cross_A, own_B, cross_B), each
+    (B, h1, w1, L*81) f32, the cross fields rotated back into their query
+    frames. The JAX class takes one branch per call; this one serves both,
+    so one coords op per query chunk places both branches' cross taps.
+    Queries are processed in chunks of ``QUERY_CHUNK_AUTO`` above that many
+    (``query_chunk`` 0), never (-1), or of gcd(Q, ``query_chunk``); taps in
+    chunks of ``TAP_CHUNK``. The work is ``OnTheFlyTaps``: plain gathers
+    and matrix products, no kernel of its own.
+    """
+
+    QUERY_CHUNK_AUTO = 16384
+
+    def __init__(self, num_levels: int = 4, radius: int = RADIUS,
+                 query_chunk: int = 0):
+        if radius != RADIUS:
+            raise ValueError(f"the lookup is built for radius {RADIUS}")
+        self.num_levels = num_levels
+        self.query_chunk = query_chunk
+
+    @staticmethod
+    def build_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                      num_levels: int = 4):
+        """(B, h, w, C) x2 -> ``num_levels`` pairs (f1 (B, Q, C), f2_l
+        (B, Hl, Wl, C)) (``prior_flow_tpu/ops/corr.py:632-646``): f1 =
+        fmap1 / sqrt(C), shared by every level; f2 2x2 mean-pooled per
+        level, odd trailing rows and columns dropped as ``avg_pool2``
+        drops them from the volume."""
+        B, h, w, C = fmap1.shape
+        f1 = (fmap1 / math.sqrt(C)).reshape(B, h * w, C)
+        levels, f2 = [], fmap2
+        for i in range(num_levels):
+            levels.append((f1, f2))
+            if i + 1 < num_levels:
+                _, Hl, Wl, _ = f2.shape
+                f2 = f2[:, :Hl // 2 * 2, :Wl // 2 * 2].reshape(
+                    B, Hl // 2, 2, Wl // 2, 2, C).mean(dim=(2, 4))
+        return levels
+
+    def __call__(self, coords_A, coords_B, pyr_A: Sequence, pyr_B: Sequence,
+                 a2b_w2c_8, b2a_w2c_8, a2b_8, b2a_8):
+        B, h1, w1, _ = coords_A.shape
+        Q = h1 * w1
+        L = self.num_levels
+        cqA = coords_A.reshape(B, Q, 2).float().contiguous()
+        cqB = coords_B.reshape(B, Q, 2).float().contiguous()
+        f2s = [pyr[i][1] for i in range(L) for pyr in (pyr_A, pyr_B)]
+        fields = OnTheFlyTaps.apply(
+            cqA, cqB, a2b_w2c_8, b2a_w2c_8,
+            tuple(1.0 / 2.0 ** i for i in range(L)),
+            _query_chunks(Q, self.query_chunk, self.QUERY_CHUNK_AUTO),
+            pyr_A[0][0], pyr_B[0][0], *f2s)
+        return DCCLFused._finish(fields, B, h1, w1, a2b_8, b2a_8)

@@ -47,22 +47,30 @@ def _bilinear_core(img, x, y):
     B, H, W, C = img.shape
     if H * W == 0:
         return img.new_zeros((B, x.shape[1], C)) + 0.0 * x.unsqueeze(-1)
+    out = None
+    for ix, iy, wgt in bilinear_corners(x, y, H, W):
+        term = _gather_2d(img, ix, iy) * wgt.unsqueeze(-1)
+        out = term if out is None else out + term
+    return out
+
+
+def bilinear_corners(x, y, H: int, W: int):
+    """The four corners of the align_corners=True bilinear read at pixel
+    coordinates (x, y) of an H x W image, in the order (dy, dx) = 00, 01,
+    10, 11: (ix, iy, weight), the indices clamped into the image, the
+    weight 0 where the corner lies outside it."""
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = x - x0
     fy = y - y0
-    out = None
     for dy in (0, 1):
         for dx in (0, 1):
             cx = x0 + dx
             cy = y0 + dy
             wgt = (fx if dx else (1.0 - fx)) * (fy if dy else (1.0 - fy))
             valid = (cx >= 0) & (cx <= W - 1) & (cy >= 0) & (cy <= H - 1)
-            ix = torch.clamp(cx, 0, W - 1).long()
-            iy = torch.clamp(cy, 0, H - 1).long()
-            term = _gather_2d(img, ix, iy) * (wgt * valid).unsqueeze(-1)
-            out = term if out is None else out + term
-    return out
+            yield (torch.clamp(cx, 0, W - 1).long(),
+                   torch.clamp(cy, 0, H - 1).long(), wgt * valid)
 
 
 def _flatten_coords(coords):

@@ -27,8 +27,12 @@
   graft), or ``"auto"``, the newest checkpoint under ``save_path``.
 
 bf16 autocast needs no loss scaling (bf16 has f32's exponent range), as in
-the JAX package. Not ported: rematerialisation (every activation is kept)
-and the Orbax checkpoints of the JAX package (ROADMAP).
+the JAX package. Rematerialisation is the model's (``PriOrRAFT(remat,
+remat_policy)``; ``TrainerConfig.remat_policy``, where ``"none"`` turns it
+off): both grad modes recompute each GRU iteration's update in the
+backward, never its lookup.
+The taped mode needs the volume route (``corr_mode="volume"``). Not
+ported: the Orbax checkpoints of the JAX package (ROADMAP).
 """
 
 from __future__ import annotations
@@ -114,8 +118,12 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
     branch's cross tap coords itself (``dccl_gather.py::_rebind_bwd``); (e)
     backward through the pyramid
     build, then through the encoder with the leaves' gradients.
-    ``generator``: the encoders' dropout draws.
+    ``generator``: the encoders' dropout draws. Refuses
+    ``corr_mode="onthefly"`` (``prior_flow_tpu/train/trainer.py:102-103``):
+    the stacked scatter needs volumes.
     """
+    if model.corr_mode == "onthefly":
+        raise ValueError("taped gradients require corr_mode='volume'")
     B, H, W, _ = image1.shape
     g = model.rotation_grids(H, W, image1.device)
     enc = model.encode(image1, image2, g,
@@ -228,10 +236,21 @@ def make_train_step(model, optimizer, schedule: Callable[[int], float],
     return train_step
 
 
+def remat_options(policy: str) -> dict:
+    """``PriOrRAFT``'s ``remat`` / ``remat_policy`` for a
+    ``TrainerConfig.remat_policy``."""
+    if policy == "none":
+        return dict(remat=False)
+    return dict(remat=True, remat_policy=policy)
+
+
 @dataclass
 class TrainerConfig:
     """The flags of ``prior_flow_tpu/train/trainer.py::TrainerConfig``
-    (EFT recipe defaults)."""
+    (EFT recipe defaults), and ``remat_policy``, which the JAX CLI gives
+    its model (``prior_flow_tpu/cli/train.py:121-124``): a policy of
+    ``PriOrRAFT``, or ``"none"`` for no rematerialisation (``remat=False``;
+    at the EFT recipe the step then fits the card and runs fastest)."""
 
     name: str = "EFT"
     stage: str = "EFT"
@@ -253,6 +272,7 @@ class TrainerConfig:
     val_freq: int = VAL_FREQ
     seed: int = 1234
     data_root: Optional[str] = None
+    remat_policy: str = "dccl"
 
 
 class Trainer:
@@ -271,7 +291,8 @@ class Trainer:
         self.cfg = cfg
         self.model = build_model(device, seed=cfg.seed, state_dict=state_dict,
                                  mixed_precision=cfg.mixed_precision,
-                                 dropout=cfg.dropout).train()
+                                 dropout=cfg.dropout,
+                                 **remat_options(cfg.remat_policy)).train()
         self.optimizer, self.schedule = make_optimizer(
             self.model.parameters(), cfg.lr, cfg.num_steps, cfg.wdecay,
             cfg.epsilon)

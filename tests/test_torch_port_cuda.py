@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, the DCCL routes
-against each other, and a forward and a train step on the card against
-the CPU.
+against each other, a forward and a train step on the card against the
+CPU, and the memory-scale modes on the card (the on-the-fly taps and
+forward, rematerialised train steps).
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports no JAX, so it runs as it is on a machine with the card:
@@ -882,3 +883,115 @@ def test_aot_package_runs_the_kernels_on_card(dev, tmp_path):
     for bad in (torch.cat([i1, i1]), i1.cpu()):
         with pytest.raises(ValueError):
             compiled(state, bad, bad)
+
+
+def _taps_inputs(dev, B, h, w, C, L, seed=0):
+    """Unit-scale fmaps of an (8h, 8w) image, both branches' centres over
+    the image and a margin, and its grids: the arguments of
+    ``corr.OnTheFlyTaps`` but for the chunks, on ``dev``."""
+    g = torch.Generator().manual_seed(seed)
+    fm = [torch.randn(B, h, w, C, generator=g) for _ in range(4)]
+    cens = [torch.stack([torch.rand(B, h * w, generator=g) * (w + 4) - 2,
+                         torch.rand(B, h * w, generator=g) * (h + 4) - 2], -1)
+            for _ in range(2)]
+    grids = rotation_grids(8 * h, 8 * w).to_device(dev)
+    return ([t.to(dev) for t in fm], [c.to(dev).contiguous() for c in cens],
+            (grids.a2b_w2c_8, grids.b2a_w2c_8))
+
+
+def _taps(fm, cens, grids, L, chunks):
+    """``OnTheFlyTaps`` on the fmaps' pyramids: the four fields and the
+    fmaps' gradients for fixed cotangents."""
+    fm = [f.detach().requires_grad_() for f in fm]
+    pA = corr.DCCLOnTheFly.build_pyramid(fm[0], fm[1], L)
+    pB = corr.DCCLOnTheFly.build_pyramid(fm[2], fm[3], L)
+    f2s = [p[i][1] for i in range(L) for p in (pA, pB)]
+    out = corr.OnTheFlyTaps.apply(*cens, *grids,
+                                  tuple(1.0 / 2 ** i for i in range(L)),
+                                  chunks, pA[0][0], pB[0][0], *f2s)
+    g = torch.Generator().manual_seed(1)
+    cts = [torch.randn(o.shape, generator=g).to(o.device) for o in out]
+    sum((o * c).sum() for o, c in zip(out, cts)).backward()
+    return [o.detach() for o in out], [f.grad for f in fm]
+
+
+def test_onthefly_taps_on_card_match_cpu(dev):
+    """The on-the-fly tap Function on the card (the coords kernel places
+    the cross taps; gathers, matrix products and ``index_add_`` do the
+    rest) against the CPU, forward and VJP, 16x32 grid, batch 2, C = 64,
+    4 levels, two query chunks: one coords launch per chunk in the forward
+    and one per chunk in the backward. Fields to 2e-5 abs (unit-scale
+    features, the sums' order), gradients to 1e-5 relative L2 (the
+    atomics' order)."""
+    B, h, w, C, L = 2, 16, 32, 64, 4
+    chunks = [(0, 256), (256, 512)]
+    fm, cens, grids = _taps_inputs(dev, B, h, w, C, L)
+    reset_launch_counts()
+    out, grads = _taps(fm, cens, grids, L, chunks)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(dccl_cross_coords=4)
+    cpu_grids = tuple(gr.cpu() for gr in grids)
+    ref_out, ref_grads = _taps([f.cpu() for f in fm], [c.cpu() for c in cens],
+                               cpu_grids, L, chunks)
+    for o, r in zip(out, ref_out):
+        assert (o.cpu() - r).abs().max().item() <= 2e-5
+    for gr, r in zip(grads, ref_grads):
+        assert ((gr.cpu() - r).norm() / r.norm()).item() <= 1e-5
+
+
+def test_onthefly_forward_on_card_matches_volume_route(dev):
+    """The 64x128 on-the-fly forward on the card, 3 iterations, fp32
+    ``precision="highest"``: within JAX's contract of the card's volume
+    route (1e-4 x flow scale + 1e-4), one coords launch and no lookup
+    per iteration."""
+    iters = 3
+    g = torch.Generator().manual_seed(9)
+    i1, i2 = (torch.rand(1, 64, 128, 3, generator=g).to(dev) * 255
+              for _ in range(2))
+    vol = build_model(dev, seed=5, precision="highest")
+    otf = build_model(dev, seed=5, precision="highest", corr_mode="onthefly")
+    ref = vol(i1, i2, iters=iters)
+    reset_launch_counts()
+    out = otf(i1, i2, iters=iters)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(dccl_cross_coords=iters,
+                                      instance_norm_sums=15)
+    scale = ref.abs().max().item()
+    assert (out - ref).abs().max().item() < 1e-4 * scale + 1e-4
+
+
+@pytest.mark.parametrize("policy", ["dccl", "dots"])
+@pytest.mark.parametrize("grad_mode", ["standard", "taped"])
+def test_remat_step_on_card_matches_no_remat(dev, grad_mode, policy):
+    """One 64x128 step on the card, batch 2, 2 iterations, f32, with
+    ``remat_policy`` against ``remat=False``: the same launches (no lookup
+    replayed), loss to 1e-5 relative, every gradient tensor to 1e-3
+    relative L2 (the scatter's atomics reorder the sums; the card-vs-CPU
+    gate), norms floored as in ``test_train_step_on_card_matches_cpu``."""
+    g = torch.Generator().manual_seed(4)
+    batch = (torch.rand(2, 64, 128, 3, generator=g) * 255,
+             torch.rand(2, 64, 128, 3, generator=g) * 255,
+             torch.randn(2, 64, 128, 2, generator=g) * 5,
+             torch.ones(2, 64, 128))
+    out = {}
+    for remat in (False, True):
+        model = build_model(dev, seed=6, remat=remat, remat_policy=policy)
+        opt, sched = make_optimizer(model.parameters(), 1e-4, 100)
+        step = make_train_step(model, opt, sched, iters=2,
+                               grad_mode=grad_mode, clip=1e9)
+        reset_launch_counts()
+        m = step(tuple(t.to(dev) for t in batch), 0)
+        torch.cuda.synchronize()
+        out[remat] = (float(m["train/loss"]), launch_counts(),
+                      {n: p.grad.detach().cpu() for n, p in
+                       model.named_parameters()})
+    (l_ref, c_ref, g_ref), (loss, counts, grads) = out[False], out[True]
+    assert counts == c_ref and counts["dccl_level_lookup"] == 8
+    assert abs(loss - l_ref) <= 1e-5 * abs(l_ref)
+    total = torch.sqrt(sum((t ** 2).sum() for t in g_ref.values()))
+    for n, ref in g_ref.items():
+        zero = (n.startswith("fnet.") and n.endswith(".bias")
+                and n != "fnet.conv2.bias")
+        err = (grads[n] - ref).norm() / max(ref.norm(),
+                                            (1e-2 if zero else 1e-6) * total)
+        assert err <= 1e-3, (n, float(err))
