@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --multichip     # on a host with 2+ cards
 
 Phases, each fatal on failure (non-zero exit, no result line):
 1. build the CUDA kernels from ``prior_flow_tpu_torch/csrc``;
@@ -155,6 +156,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    within twice the distance between two no-remat steps; (d) one
    standard step at 512x1024, batch 1, 12 iterations, fp32, remat
    ``dccl``, on the fly against the volume route.
+22. data parallel on one card (``prior_flow_tpu_torch.parallel``): (a)
+   ``Trainer.run`` for 2 updates at the EFT recipe on a one-rank NCCL
+   mesh (``file://`` rendezvous) against the run without a mesh: the
+   first update's metrics bitwise, the parameters bitwise (or, where two
+   runs without a mesh differ, the scatter's atomics, within twice their
+   distance); the gradient all-reduce's ms and bytes; (b) two spawned
+   ranks sharing the card over gloo, a global batch of 4, fp32
+   ``precision="highest"``, 12 iterations, standard and taped: each
+   rank's all-reduced gradients before the clip and the loss against one
+   process summing the two ranks' shares (bitwise, or within twice the
+   distance of two such sums) and against the batch-4 step (per tensor
+   within twice the sum's distance from it plus 2e-4 of its norm), both
+   ranks' gradients and parameters bitwise equal, per rank ms/step, peak
+   GB and launches; two NCCL ranks on the one card fail; (c)
+   ``dryrun_multichip(2)`` on the card over gloo. The NCCL refusal and
+   (c) run while (b) does.
+23. ``lookup_mode`` mxu and gather (``ops.corr.DCCL``, no kernel): one
+   DCCL call at 512x1024 against the kernel route's fields (1e-5 of
+   max|field|), timed; the 512x1024 fp32 forward against the kernel
+   route at 1 and 3 iterations (1e-4 x flow scale + 1e-4), 12 reported,
+   ms/pair and peak GB; the mxu model exported on the card for cuda and
+   cpu at 64x128, 2 iterations, run on both within 1e-5 of eager.
 The launches of phases 15-17 are the tools' measurement runs (path
 "tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
@@ -165,7 +188,12 @@ setting back, so "fp32" is full f32 and the card-vs-CPU comparisons are
 like for like.
 ``--profile`` adds a torch.profiler kernel breakdown of one forward per
 precision (512x1024 and 1024x2048) and of one training step per grad
-mode. Imports nothing of JAX or of the JAX package.
+mode. ``--multichip`` runs instead only the data-parallel path on every
+visible card (two or more), one rank per card over NCCL: phase 22 (b)'s
+gates with n ranks and a global batch of max(4, n), then
+``dryrun_multichip(n)`` and ``cli.train --mesh auto`` at phase 19's
+recipe, in-process (one spawned rank per card) and under ``torchrun``.
+Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -3221,10 +3249,583 @@ def phase_scale(dev, peaks):
     return out
 
 
+# -- phase 22: data parallel ---------------------------------------------------
+
+DP_RANKS = 2              # (b): ranks sharing the one card over gloo
+DP_B = 4                  # the global batch of (b)
+DP_STEPS = 2              # (b): updates per mode; the first is the warm-up
+DP_SPREAD_X = 2.0         # (a), (b): times the distance of two reference runs
+DP_RTOL = 2e-4            # (b): of a tensor's norm, as phase 21's remat gate
+DP_TIMEOUT_S = 600.0      # (b), (c): the spawned ranks' deadline
+NCCL_SHARED_TIMEOUT_S = 120.0
+
+
+def _flat(tensors) -> "torch.Tensor":
+    import torch
+    return torch.cat([t.detach().reshape(-1).float().cpu() for t in tensors])
+
+
+def dp_world1(dev, tmp: str):
+    """(a) ``Trainer.run`` for 2 updates at the EFT recipe (512x1024, batch
+    4, 12 iterations, bf16, remat ``dccl``, standard) on a one-rank NCCL
+    mesh against the same run without a mesh, twice. Gates: the metrics
+    logged at the first update (its forward; not the grad norm, which
+    follows the scatter's atomics) bitwise those without a mesh; the
+    parameters after both updates bitwise, or where the two runs without
+    a mesh differ (the scatter's atomics reorder f32 sums), within
+    DP_SPREAD_X of their distance (the last update's metrics reported).
+    Also the all-reduce's ms per step (the flat bucket of the model's
+    gradients, CUDA events over 20 calls) and its bytes."""
+    import torch
+    from prior_flow_tpu_torch.parallel import (all_reduce_grads, close_mesh,
+                                               make_mesh)
+    from prior_flow_tpu_torch.train import Trainer, TrainerConfig
+    batches = [train_batch(60 + i, TRAIN_B, H, W, dev) for i in range(2)]
+    timing = ("train/grad_norm", "train/steps_per_sec")
+
+    def run(mesh, tag):
+        cfg = TrainerConfig(num_steps=1, batch_size=TRAIN_B, iters=ITERS,
+                            mixed_precision=True, val_freq=10 ** 9,
+                            save_path=os.path.join(tmp, tag))
+        logged = {}
+        trainer = Trainer(cfg, device=dev, mesh=mesh,
+                          logger=lambda m, step: logged.update(m))
+        m = trainer.run(batches)
+        torch.cuda.synchronize()
+        if trainer.step != 2:
+            fail(f"phase 22 (a) {tag}: {trainer.step} updates, expected 2")
+        first = {k: v for k, v in logged.items() if k not in timing}
+        return (trainer, first, {k: float(v) for k, v in m.items()},
+                _flat(trainer.model.parameters()))
+
+    _, f_ref, m_ref, p_ref = run(None, "plain")
+    mesh = make_mesh(1, device=dev, backend="nccl", rank=0,
+                     init_method=f"file://{os.path.join(tmp, 'store')}")
+    try:
+        trainer, f_dp, m_dp, p_dp = run(mesh, "mesh")
+        grads = [p.grad for p in trainer.model.parameters()]
+        nbytes = all_reduce_grads(grads, mesh)
+        ms = cuda_ms(lambda: all_reduce_grads(grads, mesh), 20)
+        del trainer, grads
+    finally:
+        close_mesh(mesh)
+    _, f_again, m_again, p_again = run(None, "again")
+    torch.cuda.empty_cache()
+    spread = (p_again - p_ref).norm().item()
+    dist = (p_dp - p_ref).norm().item()
+    bitwise = torch.equal(p_dp, p_ref)
+    if f_dp != f_ref:
+        fail(f"phase 22 (a): the first update's metrics on the one-rank "
+             f"mesh {f_dp} differ from those without a mesh {f_ref} (two "
+             f"runs without a mesh: {f_again == f_ref})")
+    if torch.equal(p_again, p_ref) and not bitwise:
+        fail(f"phase 22 (a): the one-rank NCCL run's parameters lie "
+             f"{dist:.3e} from the run without a mesh; two runs without a "
+             f"mesh agree bitwise")
+    if dist > DP_SPREAD_X * spread:
+        fail(f"phase 22 (a): the one-rank NCCL run lies {dist:.3e} from the "
+             f"run without a mesh, two runs without a mesh {spread:.3e} "
+             f"apart")
+    last = {k: (m_dp[k] - m_ref[k], m_again[k] - m_ref[k]) for k in m_ref}
+    print(f"  (a) one-rank NCCL mesh, Trainer.run 2 updates at the EFT "
+          f"recipe: first update's metrics bitwise those without a mesh; "
+          f"parameters {'bitwise' if bitwise else 'not bitwise'} ({dist:.3e} "
+          f"apart; two runs without a mesh {spread:.3e}); last update's "
+          f"metrics, mesh and second run minus the first: "
+          + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in last.items())
+          + f"; all-reduce of {nbytes / 1e6:.2f} MB of gradients {ms:.4f} "
+          f"ms per step", flush=True)
+    return dict(bitwise=bitwise, param_dist=dist, spread=spread,
+                allreduce_ms=ms, grad_bytes=nbytes,
+                loss=m_dp["train/loss"])
+
+
+def shares_and_magnitudes(n: int, dev, case: dict, batch, **kw):
+    """``dryrun.shares_summed`` and, per gradient tensor, the sum over the
+    ranks of the shares' magnitudes: two orders of summing n shares lie
+    within 2 (n - 1) f32 roundings of it apart, element by element."""
+    import numpy as np
+    import torch
+    from prior_flow_tpu_torch.parallel.dryrun import RankShare, train_once
+    total, mag, loss = None, None, 0.0
+    for r in range(n):
+        res = train_once(RankShare(r, n, dev), dev, case, batch, **kw)
+        g = res["grads"]
+        total = g if total is None else {k: total[k] + g[k] for k in total}
+        mag = ({k: v.abs() for k, v in g.items()} if mag is None else
+               {k: mag[k] + g[k].abs() for k in mag})
+        loss += res["metrics"]["train/loss"]
+        torch.cuda.empty_cache()
+    return total, float(np.float32(loss)), mag
+
+
+def dp_ranks(dev, n: int = DP_RANKS, device="cuda:0", backend="gloo",
+             tag: str = "phase 22 (b)", label: str = ""):
+    """(b) ``n`` spawned ranks (by default two sharing the card over gloo;
+    ``device="cuda"``, NCCL: one card each), a global batch of
+    max(DP_B, n), fp32 ``precision="highest"``, 12 iterations, standard
+    and taped: each rank's all-reduced gradients before the clip and the
+    loss against one process that sums the ranks' shares in rank order
+    (twice: bitwise, else within DP_SPREAD_X of the two sums' distance;
+    beyond two ranks the collective sums in its own order, which adds
+    2 (n - 1) f32 roundings of the shares' magnitudes) and against the
+    global-batch step (per tensor within DP_SPREAD_X times the sum's
+    distance from it plus DP_RTOL of its norm); every rank's gradients
+    and updated parameters bitwise rank 0's; per rank ms/step, peak GB
+    and launches per step. This process computes the references on
+    ``dev`` first (beside the ranks they would not fit one card);
+    ``label`` says what else shares the ranks' card."""
+    import torch
+    from prior_flow_tpu_torch.parallel.dryrun import (rank_updates,
+                                                      shares_summed, spawn,
+                                                      synthetic_batch,
+                                                      train_once)
+    b = max(DP_B, n)
+    batch = synthetic_batch(7, b, H, W)
+    kw = dict(precision="highest")
+    cases = [dict(grad_mode=m, iters=ITERS) for m in ("standard", "taped")]
+    refs = []
+    for case in cases:
+        acc, loss, mag = shares_and_magnitudes(n, dev, case, batch, **kw)
+        acc2, loss2 = shares_summed(n, dev, case, batch, **kw)
+        one = train_once(None, dev, case, batch, **kw)
+        torch.cuda.empty_cache()
+        order = 0.0 if n <= 2 else 2 * (n - 1) * 2.0 ** -24 * _flat(
+            mag.values()).norm().item()
+        refs.append((acc, loss, acc2, loss2, one, order))
+    ranks = spawn(rank_updates, n, cases, batch, DP_STEPS, 0, kw,
+                  device=device, backend=backend, timeout_s=DP_TIMEOUT_S)
+    out = {}
+    for i, case in enumerate(cases):
+        mode = case["grad_mode"]
+        per = 2 * LEVELS * (ITERS if mode == "standard" else 1)
+        want = {"dccl_level_lookup": LEVELS * ITERS, "instance_norm_sums": 30,
+                "dccl_level_scatter_grid": per}
+        acc, loss, acc2, loss2, one, order = refs[i]
+        got = ranks[0][i]
+        for r, res in enumerate(ranks):
+            if not (res[i]["grads_same"] and res[i]["params_same"]):
+                fail(f"{tag} {mode}: rank {r}'s gradients or parameters "
+                     f"differ from rank 0's")
+            if res[i]["launches"] != want:
+                fail(f"{tag} {mode} rank {r}: launches per step "
+                     f"{res[i]['launches']}, expected {want}")
+        g = got["grads"]
+        dist = _flat(g[k] - acc[k] for k in acc).norm().item()
+        spread = _flat(acc2[k] - acc[k] for k in acc).norm().item()
+        bitwise = all(torch.equal(g[k], acc[k]) for k in acc) and \
+            got["metrics"]["train/loss"] == loss
+        if not bitwise and (dist > DP_SPREAD_X * spread + order or abs(
+                got["metrics"]["train/loss"] - loss)
+                > DP_SPREAD_X * abs(loss2 - loss)):
+            fail(f"{tag} {mode}: the all-reduced gradients lie {dist:.3e} "
+                 f"from the summed shares, two sums {spread:.3e} apart, "
+                 f"the summing order's bound {order:.3e}; loss "
+                 f"{got['metrics']['train/loss']} against {loss} and "
+                 f"{loss2}")
+        worst = (0.0, "")
+        ref = one["grads"]
+        for k, r in ref.items():
+            d = (g[k] - r).norm().item()
+            gate = (DP_SPREAD_X * (acc[k] - r).norm().item()
+                    + DP_RTOL * r.norm().item())
+            if d > gate:
+                fail(f"{tag} {mode}: gradient {k} {d:.3e} from the "
+                     f"batch-{b} step, gate {gate:.3e}")
+            if gate > 0:
+                worst = max(worst, (d / gate, k))
+        l1, l4 = got["metrics"]["train/loss"], one["metrics"]["train/loss"]
+        if abs(l1 - l4) > STEP_LOSS_RTOL * abs(l4):
+            fail(f"{tag} {mode}: loss {l1} against the batch-{b} step's {l4}")
+        per_rank = [dict(ms=statistics.median(res[i]["ms"]),
+                         peak_gb=res[i]["peak_gb"],
+                         launches=res[i]["launches"]) for res in ranks]
+        out[mode] = dict(bitwise=bitwise, dist=dist, spread=spread,
+                         order_bound=order, worst_of_gate=worst[0], loss=l1, loss_ref=l4,
+                         ranks=per_rank, launches=got["launches"])
+        print(f"  {tag[tag.index('('):]} {n} {backend} ranks on {device}, "
+              f"{mode}, fp32, batch {b}: all-reduced gradients "
+              f"{'bitwise' if bitwise else 'not bitwise'} the summed shares "
+              f"({dist:.3e} apart; two sums {spread:.3e}"
+              + (f"; the summing order's bound {order:.3e}" if order else "")
+              + "); against the "
+              f"batch-{b} step worst tensor at {worst[0]:.3f} of its gate "
+              f"({worst[1]}), loss {l1:.6f} vs {l4:.6f}; per rank{label} "
+              + "; ".join(
+                  f"rank {r}: {q['ms']:.1f} ms/step, peak {q['peak_gb']} GB"
+                  for r, q in enumerate(per_rank))
+              + f"; launches per step {got['launches']}", flush=True)
+    return out
+
+
+def dp_nccl_shared_card(dev):
+    """Two NCCL ranks on one card: the run fails (NCCL refuses a device
+    twice); no rank goes on alone."""
+    from prior_flow_tpu_torch.parallel.dryrun import rank_updates, spawn
+    try:
+        spawn(rank_updates, 2, [], None, device="cuda:0", backend="nccl",
+              timeout_s=NCCL_SHARED_TIMEOUT_S)
+    except Exception as e:      # the ranks' failure, re-raised by spawn
+        msg = str(e).strip().splitlines()
+        print(f"  NCCL with two ranks on one card fails as it must: "
+              f"{type(e).__name__}: {msg[-1][:160] if msg else ''}",
+              flush=True)
+        return type(e).__name__
+    fail("phase 22: NCCL ran two ranks on one card")
+
+
+def phase_parallel(dev):
+    """Phase 22: data parallel on one card, (a)-(c). (a) runs alone (its
+    all-reduce is timed); the NCCL refusal and (c) (64x128) run beside
+    (b)."""
+    import concurrent.futures
+    import tempfile
+
+    import torch
+    from prior_flow_tpu_torch.parallel import dryrun_multichip
+
+    def dryrun():
+        t0 = time.perf_counter()
+        res = dryrun_multichip(DP_RANKS, device="cuda:0", backend="gloo")
+        return dict(loss=res["loss"], s=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase22_") as tmp:
+        out = {"world1": dp_world1(dev, tmp)}
+    torch.cuda.empty_cache()
+    out["world1"]["s"] = t1 = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        refused = pool.submit(dp_nccl_shared_card, dev)
+        dry = pool.submit(dryrun)
+        out["two_ranks"] = dp_ranks(
+            dev, label=" (two processes share one card, beside this "
+            "process and the NCCL refusal's and dryrun_multichip's ranks: "
+            "no speed claim)")
+        out["nccl_shared"], out["dryrun"] = refused.result(), dry.result()
+    out["s"] = time.perf_counter() - t0
+    print(f"  phase 22: {out['s']:.1f} s ((a) {t1:.1f} s; (b), the NCCL "
+          f"refusal and (c) side by side {out['s'] - t1:.1f} s)", flush=True)
+    return out
+
+
+# -- phase 23: the lookup modes --------------------------------------------------
+
+LOOKUP_FIELD_RTOL = 1e-5  # of max|field|, per DCCL call
+MODE_FLOW_RTOL = MODE_FLOW_ATOL = 1e-4
+MODE_RUNS = 3
+EXPORT_HW, EXPORT_ITERS = (64, 128), 2
+EXPORT_ATOL = 1e-5
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Mean ms per replay of ``fn()`` captured in a CUDA graph, by CUDA
+    events: the card's time for a call that launches too many kernels to
+    queue behind a spin (``queued_ms``), without the host's issue."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, n)
+
+
+def mode_fields(dev, grids):
+    """One DCCL call at 512x1024, f32 unit-scale volumes, seeded centres
+    over the image and a margin (no x a hair below 0, where the one-hot
+    window and the samplers part, ROADMAP Queue 3): ``mxu`` and
+    ``gather``, one branch per call, against ``DCCLFused``'s four fields;
+    the mxu call's ms (both branches) issued back to back and replayed
+    from a CUDA graph (its ~2000 launches do not fit the card's queue).
+
+    ``gather`` takes the kernel route's window coords (centre + offset,
+    wrapped) and is gated at LOOKUP_FIELD_RTOL of max|field|. ``mxu``
+    takes JAX's one-hot window (the wrapped centre's fraction, then the
+    offsets), which rounds the window coords otherwise in f32 (ROADMAP
+    Queue 3): each of its fields is gated at the larger of that and the
+    distance that moving every centre by one f32 ulp moves the kernel
+    route's field (the sensitivity of the fields to a rounding of the
+    coords)."""
+    import torch
+    from prior_flow_tpu_torch.ops.corr import DCCL, DCCLFused
+    ins = [lookup_inputs(lvl, torch.float32, dev, grids) for lvl in
+           range(LEVELS)]
+    h8, w8 = H // 8, W // 8
+    g = torch.Generator(device=dev).manual_seed(23)
+    cens = [torch.stack([torch.rand(1, h8, w8, generator=g, device=dev)
+                         * (w8 + 4) - 2,
+                         torch.rand(1, h8, w8, generator=g, device=dev)
+                         * (h8 + 4) - 2], -1) for _ in range(2)]
+    pA, pB = [i[0] for i in ins], [i[1] for i in ins]
+    out = {}
+    gs = (grids.a2b_w2c_8, grids.b2a_w2c_8, grids.a2b_8, grids.b2a_8)
+    with torch.no_grad():
+        ref = DCCLFused(LEVELS)(*cens, pA, pB, *gs)
+        up = [torch.nextafter(c, torch.full_like(c, math.inf)) for c in cens]
+        ulp = [(a - b).abs().max().item() for a, b in zip(
+            DCCLFused(LEVELS)(*up, pA, pB, *gs), ref)]
+        for mode in ("mxu", "gather"):
+            d = DCCL(LEVELS, lookup_mode=mode)
+
+            def call():
+                return (*d(cens[0], pA, pB, grids.a2b_w2c_8, grids.b2a_8),
+                        *d(cens[1], pB, pA, grids.b2a_w2c_8, grids.a2b_8))
+            got = call()
+            worst, of_gate = 0.0, 0.0
+            for name, a, b, u in zip(("own_A", "cross_A", "own_B",
+                                      "cross_B"), got, ref, ulp):
+                err = (a - b).abs().max().item()
+                scale = b.abs().max().item()
+                gate = LOOKUP_FIELD_RTOL * scale
+                if mode == "mxu":
+                    gate = max(gate, u)
+                worst = max(worst, err / scale)
+                of_gate = max(of_gate, err / gate)
+                if not err <= gate:
+                    fail(f"phase 23 {mode} {name}: {err:.3e} from the kernel "
+                         f"route, gate {gate:.3e} (one ulp of the centres "
+                         f"moves it {u:.3e})")
+            out[mode] = dict(field_rel=worst, of_gate=of_gate,
+                             ms=cuda_ms(call, 10),
+                             graph_ms=graph_ms(call) if mode == "mxu"
+                             else None)
+            print(f"  {mode} DCCL call at {H}x{W} (both branches): fields "
+                  f"{worst:.3e} of max|field| from the kernel route, at "
+                  f"{of_gate:.3f} of the gate (one ulp of the centres moves "
+                  f"the kernel route's fields {max(ulp):.3e}); "
+                  f"{out[mode]['ms']:.4f} ms issued back to back"
+                  + (f", replayed from a CUDA graph (the card's time) "
+                     f"{out[mode]['graph_ms']:.4f} ms" if mode == "mxu"
+                     else ""), flush=True)
+        out["ulp_move"] = ulp
+    return out
+
+
+def mode_forwards(dev):
+    """The 512x1024 forward, batch 1, fp32 ``precision="highest"``, with
+    ``lookup_mode`` mxu and gather against the kernel route: flow at 1 and
+    3 iterations gated at JAX's 1e-4 x flow scale + 1e-4, at 12 reported;
+    ms/pair (median of MODE_RUNS after the gated runs) and peak GB of
+    each; the launches of one 12-iteration mxu forward."""
+    import torch
+    from prior_flow_tpu_torch import build_model
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    i1, i2 = (t.to(dev) for t in images(23, H, W))
+    flows, out = {}, {}
+    for mode in ("auto", "mxu", "gather"):
+        model = build_model(seed=0, precision="highest", lookup_mode=mode)
+        for iters in (1, 3):
+            flows[mode, iters] = model(i1, i2, iters=iters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        flows[mode, ITERS] = model(i1, i2, iters=ITERS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        times = []
+        for _ in range(MODE_RUNS):
+            t0 = time.perf_counter()
+            model(i1, i2, iters=ITERS)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        want = forward_counts(**({"dccl_level_lookup": LEVELS * ITERS}
+                                 if mode == "auto" else {}))
+        if counts != want:
+            fail(f"phase 23 {mode} forward: launches {counts}, expected "
+                 f"{want}")
+        out[mode] = dict(ms=statistics.median(times), peak_gb=peak,
+                         counts=counts)
+        del model
+        torch.cuda.empty_cache()
+    for mode in ("mxu", "gather"):
+        for iters in (1, 3, ITERS):
+            ref, got = flows["auto", iters], flows[mode, iters]
+            scale = ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            out[mode][f"ratio_{iters}"] = err / scale
+            gated = iters != ITERS
+            if not torch.isfinite(got).all() or (
+                    gated and err > MODE_FLOW_RTOL * scale + MODE_FLOW_ATOL):
+                fail(f"phase 23 {mode} forward, {iters} iterations: {err:.3e} "
+                     f"from the kernel route (flow scale {scale:.3f})")
+        print(f"  forward {H}x{W} fp32 lookup_mode={mode}: "
+              f"{out[mode]['ms']:.2f} ms/pair (kernel route "
+              f"{out['auto']['ms']:.2f}), peak {out[mode]['peak_gb']:.2f} GB "
+              f"(kernel route {out['auto']['peak_gb']:.2f}); against the "
+              f"kernel route / flow scale: 1 iteration "
+              f"{out[mode]['ratio_1']:.3e}, 3 {out[mode]['ratio_3']:.3e} "
+              f"(gate {MODE_FLOW_RTOL} x scale + {MODE_FLOW_ATOL}), "
+              f"{ITERS} {out[mode][f'ratio_{ITERS}']:.3e} (reported); "
+              f"launches {out[mode]['counts']}", flush=True)
+    return out
+
+
+def mode_export(dev):
+    """The mxu model exported on the card for ("cuda", "cpu") at 64x128, 2
+    iterations, saved, loaded, and run on both devices, each within
+    EXPORT_ATOL of eager on that device."""
+    import torch
+    from prior_flow_tpu_torch import build_model, serving
+    out_dir = os.path.join(REPO, "build", "phase23")
+    os.makedirs(out_dir, exist_ok=True)
+    h, w = EXPORT_HW
+    model = build_model(seed=0, precision="highest", lookup_mode="mxu")
+    state = model.state_dict()
+    t0 = time.perf_counter()
+    exported = serving.export_forward(model, state, (1, h, w), EXPORT_ITERS,
+                                      platforms=["cuda", "cpu"])
+    path = os.path.join(out_dir, "mxu.pt2")
+    serving.save_exported(exported, path)
+    fn = serving.load_exported(path)
+    summary = serving.exported_summary(fn.exported)
+    if summary["platforms"] != ["cpu", "cuda"]:
+        fail(f"phase 23 export: platforms {summary['platforms']}")
+    i1, i2 = images(24, h, w)
+    out = dict(export_s=time.perf_counter() - t0)
+    cpu_model = build_model("cpu", seed=0, precision="highest",
+                            lookup_mode="mxu")
+    for d, m in ((dev, model), (torch.device("cpu"), cpu_model)):
+        st = {k: v.to(d) for k, v in state.items()}
+        got = fn(st, i1.to(d), i2.to(d))
+        want = serving.make_forward(m, EXPORT_ITERS)(st, i1.to(d), i2.to(d))
+        err = (got - want).abs().max().item()
+        out[f"err_{d.type}"] = err
+        if not (got.device.type == d.type and err <= EXPORT_ATOL):
+            fail(f"phase 23 export on {d.type}: {err:.3e} from eager (gate "
+                 f"{EXPORT_ATOL})")
+    print(f"  mxu program exported on the card for {summary['platforms']} "
+          f"({h}x{w}, {EXPORT_ITERS} iterations): against eager, cuda "
+          f"{out['err_cuda']:.3e}, cpu {out['err_cpu']:.3e} (gate "
+          f"{EXPORT_ATOL}); export, save and load {out['export_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def phase_lookup_modes(dev, grids):
+    """Phase 23: ``lookup_mode`` mxu and gather."""
+    return dict(fields=mode_fields(dev, grids), forward=mode_forwards(dev),
+                export=mode_export(dev))
+
+
+# -- --multichip: data parallel over the host's cards ----------------------------
+
+MULTICHIP_TIMEOUT_S = 900
+
+
+def multichip_cli(n: int, base: str):
+    """``cli.train --mesh auto`` at the EFT recipe (phase 19's tree and
+    flags: 512x1024, global batch 4, 12 iterations, bf16, 6 updates, a
+    checkpoint and a rank-0 validation of 3 pairs after updates 3 and 6,
+    noise), both ways a user starts it: in-process, where ``auto`` spawns
+    one rank per card, and under ``torchrun --standalone
+    --nproc_per_node=n``. Gates: the checkpoint tags, rank 0's log (two
+    validations, finite values). Returns the wall seconds of each run,
+    the ranks' start included."""
+    import subprocess
+
+    import numpy as np
+    from prior_flow_tpu_torch.cli import train as cli
+    tree = os.path.join(base, "mpf")
+    rng = np.random.default_rng(19)
+    write_mpf_scene(tree, "EFTs_Car2000", TRAIN_CLI_FRAMES, H, W, rng)
+    write_mpf_scene(tree, "EFTs_Car100", TRAIN_CLI_VAL_PAIRS + 1, H, W, rng)
+    common = ["--mesh", "auto", "--stage", "EFT", "--data_root", tree,
+              "--batch_size", str(TRAIN_B), "--iters", str(ITERS),
+              "--mixed_precision", "--num_steps", str(TRAIN_CLI_NUM_STEPS),
+              "--val_freq", str(TRAIN_CLI_VAL_FREQ), "--validation", "EFT",
+              "--add_noise"]
+    out = {}
+    for how in ("spawn", "torchrun"):
+        save = os.path.join(base, f"ckpt_{how}")
+        t0 = time.perf_counter()
+        if how == "spawn":
+            if cli.main(common + ["--save_path", save]) is not None:
+                fail(f"--multichip cli.train --mesh auto on {n} cards ran "
+                     f"in this process, not on {n} spawned ranks")
+        else:
+            env = dict(os.environ, PYTHONPATH=REPO)
+            run = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", f"--nproc_per_node={n}", "-m",
+                 "prior_flow_tpu_torch.cli.train", *common, "--save_path",
+                 save], cwd=REPO, env=env, capture_output=True, text=True,
+                timeout=MULTICHIP_TIMEOUT_S)
+            if run.returncode != 0:
+                fail(f"--multichip torchrun cli.train: exit "
+                     f"{run.returncode}\n{run.stderr[-3000:]}")
+        out[how] = time.perf_counter() - t0
+        tags = sorted(os.listdir(save))
+        records = jsonl(os.path.join(save, "logs", "EFT.jsonl"))
+        val = [r for r in records if "EFT-epe" in r]
+        logged = [v for r in records for k, v in r.items() if k != "ts"]
+        if tags != TRAIN_CLI_TAGS or [r["step"] for r in val] != [2, 5] or \
+                not all(math.isfinite(v) for v in logged):
+            fail(f"--multichip cli.train ({how}): tags {tags}, log records "
+                 f"{records}")
+        loss = [r["train/loss"] for r in records if "train/loss" in r]
+        print(f"  cli.train --mesh auto ({how}) on {n} cards, {H}x{W} batch "
+              f"{TRAIN_B} iters {ITERS} bf16, {TRAIN_CLI_NUM_STEPS + 1} "
+              f"updates, 2 rank-0 validations: tags {tags}; logged loss "
+              f"{loss}; validation "
+              f"{[(r['EFT-epe'], r['EFT-SEPE']) for r in val]}; "
+              f"{out[how]:.1f} s wall, the ranks' start included",
+              flush=True)
+    return out
+
+
+def multichip_main(name: str) -> None:
+    """``--multichip``: the data-parallel path on every visible card, one
+    rank per card over NCCL: phase 22 (b)'s gradient gates, then
+    ``dryrun_multichip(n)`` and ``cli.train --mesh auto``."""
+    import tempfile
+
+    import torch
+    from prior_flow_tpu_torch.ops.kernels import _build
+    from prior_flow_tpu_torch.parallel import dryrun_multichip
+    n = torch.cuda.device_count()
+    if n < 2:
+        fail(f"--multichip needs two or more cards, found {n}")
+    dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
+    lib = _build.load_library()
+    print(f"build: {lib.build_seconds:.1f} s -> {lib.path.name}", flush=True)
+    print(f"multichip (a) {n} NCCL ranks, one card each, against the shares "
+          f"summed in one process", flush=True)
+    out = {"ranks": dp_ranks(dev, n, device="cuda", backend="nccl",
+                             tag="multichip (a)",
+                             label=" (one card each)")}
+    print(f"multichip (b) dryrun_multichip({n})", flush=True)
+    t0 = time.perf_counter()
+    res = dryrun_multichip(n)
+    out["dryrun"] = dict(loss=res["loss"], s=time.perf_counter() - t0)
+    print(f"multichip (c) cli.train --mesh auto on {n} cards", flush=True)
+    with tempfile.TemporaryDirectory(prefix="multichip_",
+                                     dir=os.path.join(REPO, "build")) as tmp:
+        out["cli_s"] = multichip_cli(n, tmp)
+    print(json.dumps({"multichip": out}))
+    print(f"all multichip checks passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    try:
+        print(nvidia_smi("name,power.limit"))
+    except RuntimeError as e:
+        fail(str(e))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": n}}))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of one forward")
+    ap.add_argument("--multichip", action="store_true",
+                    help="only the data-parallel path, one rank on each "
+                    "visible card (needs two or more)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3246,6 +3847,9 @@ def main(argv=None) -> None:
           f"TF32 off for matmuls and convolutions; peaks used for bounds: "
           f"{peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s f32",
           flush=True)
+    if args.multichip:
+        multichip_main(name)
+        return
 
     t_start = t0 = time.perf_counter()
     lib = _build.load_library()
@@ -3412,6 +4016,29 @@ def main(argv=None) -> None:
             **{f"{k}_{q}": v[q] for k, v in sc["train_otf"]["res"].items()
                for q in ("ms", "peak_gb")}}}))
 
+    print(f"phase 22 data parallel on one card: a one-rank NCCL mesh at the "
+          f"EFT recipe, {DP_RANKS} gloo ranks sharing the card, NCCL refusing "
+          f"them, dryrun_multichip({DP_RANKS})", flush=True)
+    dp = phase_parallel(dev)
+    print(json.dumps({
+        "dp_world1_nccl": dp["world1"],
+        "dp_two_ranks_gloo_one_card": {
+            m: {k: v for k, v in r.items() if k != "launches"}
+            for m, r in dp["two_ranks"].items()},
+        "dp_nccl_two_ranks_one_card": dp["nccl_shared"],
+        "dryrun_multichip": dp["dryrun"]}))
+
+    print(f"phase 23 lookup modes mxu and gather, {H}x{W}, against the kernel "
+          f"route; the mxu program on cuda and cpu", flush=True)
+    t0 = time.perf_counter()
+    lm = phase_lookup_modes(dev, grids)
+    print(f"  phase 23: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"lookup_mode_fields": lm["fields"],
+                      "lookup_mode_forward": {
+                          m: {k: v for k, v in r.items() if k != "counts"}
+                          for m, r in lm["forward"].items()},
+                      "lookup_mode_export": lm["export"]}))
+
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     try:
@@ -3442,7 +4069,13 @@ def main(argv=None) -> None:
                 "20's exported 1024x2048 program (the planes route); "
                 "launches_forward_onthefly_2048x4096: one 2048x4096 bf16 "
                 "forward with corr_mode='onthefly' (phase 21: rows 2 and 5, "
-                "one coords launch per query chunk and iteration)")
+                "one coords launch per query chunk and iteration); "
+                "launches_train_step_dp2_per_rank: one standard step of one "
+                "of phase 22 (b)'s two gloo ranks (512x1024, batch 2 of a "
+                "global 4, 12 iterations, fp32); "
+                "launches_forward_mxu_512x1024: one 512x1024 fp32 forward "
+                "with lookup_mode='mxu' (phase 23: no lookup kernel, the "
+                "encoders' sums)")
 
     def row(name, src, replaces, d, work, err, path="train"):
         paths = {"train": std, "forward_1024x2048": hr_counts,
@@ -3461,6 +4094,10 @@ def main(argv=None) -> None:
                 "launches_train_cli": tc["counts"]["standard"][name],
                 "launches_forward_onthefly_2048x4096":
                     sc["big"]["counts"][name],
+                "launches_train_step_dp2_per_rank":
+                    dp["two_ranks"]["standard"]["launches"].get(name, 0),
+                "launches_forward_mxu_512x1024":
+                    lm["forward"]["mxu"]["counts"][name],
                 "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
                 "library_ms": d["library_ms"], "work": work + "; " + per_path,

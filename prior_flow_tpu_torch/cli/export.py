@@ -2,7 +2,12 @@
 program (a ``.pt2`` file), optionally checked against the live model
 (counterpart of ``prior_flow_tpu/cli/export.py``). Runs on the card unless
 ``--device cpu`` is given; the program runs at ``precision="highest"``
-(TF32 off), as ``cli/evaluate.py``'s forward does by default.
+(TF32 off), as ``cli/evaluate.py``'s forward does by default, where the
+JAX CLI builds at the backend's default precision: the port's default
+lets cuDNN use TF32, so a program would compute as the serving process's
+flags say (ROADMAP Queue 3, "Kept on purpose"). ``--lookup_mode mxu``
+(or ``gather``) builds the model without the lookup kernels, which
+``--platforms cuda cpu`` needs.
 
     python -m prior_flow_tpu_torch.cli.export --model ckpt.pth \\
         --size 512 1024 --iters 12 --output prior_raft.pt2 --check
@@ -27,35 +32,31 @@ def main(argv=None):
     parser.add_argument("--mixed_precision", action="store_true")
     parser.add_argument("--lookup_mode", default="auto",
                         choices=["auto", "pallas", "mxu", "gather"],
-                        help="auto and pallas: the CUDA kernels; gather: the "
-                             "plain lookup; mxu: not in the port yet")
+                        help="auto and pallas: the CUDA kernels; mxu: "
+                             "one-hot matrix products, gather: plain "
+                             "gathers (no kernel, needed for "
+                             "multi-platform exports)")
     parser.add_argument("--platforms", nargs="*", default=None,
                         help="device types the program runs on (default: "
-                             "the export device's; no other is possible)")
+                             "the export device's), e.g. --platforms cuda "
+                             "cpu (needs --lookup_mode mxu)")
     parser.add_argument("--check", action="store_true",
                         help="reload the artifact and verify it matches the "
                              "live model on a random input")
     parser.add_argument("--device", default=None,
                         help="default: cuda (fails when absent)")
     args = parser.parse_args(argv)
-    if args.lookup_mode == "mxu":
-        parser.error("--lookup_mode mxu: the port has no MXU lookup yet "
-                     "(ROADMAP Queue 1, item 11)")
 
     import torch
 
     from .. import serving
     from ..models import build_model, resolve_device
-    from ..ops.corr import DCCLFused, dccl_level_lookup_plain
     from .demo_image import load_model_state
 
     device = resolve_device(args.device)
     model = build_model(device, state_dict=load_model_state(args.model),
                         mixed_precision=args.mixed_precision,
-                        precision="highest")
-    if args.lookup_mode == "gather":
-        model.dccl = DCCLFused(model.corr_levels,
-                               level_lookup=dccl_level_lookup_plain)
+                        precision="highest", lookup_mode=args.lookup_mode)
     state = model.state_dict()
 
     shape = (args.batch, args.size[0], args.size[1])

@@ -10,7 +10,19 @@ Presets (``scripts/train_*.sh``):
   EFT / City:  60k steps, batch 4, lr 1e-4, wdecay 1e-4
   FlowScape:   100k steps, batch 6, lr 1e-4, wdecay 1e-4
 
-One card only: ``--mesh`` takes ``auto`` or ``1x1``. ``--remat_policy``
+``--mesh`` as in the JAX CLI: ``auto`` trains data-parallel over every
+card (one process per card, ``parallel.make_mesh``): under ``torchrun``
+over its ranks, else by spawning one process per visible card, and on
+one card (or ``--device cpu``) without a mesh. ``DPxSP`` asks for DP
+data-parallel ranks, and fails unless DP x SP is the number visible
+(torchrun's world size, else the cards, or 1 with ``--device cpu``); SP
+above 1 (JAX's height sharding) is ROADMAP Queue 1, item 9b. On N cards:
+
+    torchrun --nproc_per_node=N -m prior_flow_tpu_torch.cli.train \
+        --mesh auto --stage EFT --preset --mixed_precision --data_root ...
+
+``--batch_size`` is the global batch; each rank trains on its share.
+``--remat_policy``
 picks what each GRU iteration keeps for the backward, as in the JAX CLI:
 ``dccl`` (the default) only its lookup results, ``dots`` also every
 convolution output; the rest is recomputed (``PriOrRAFT(remat_policy=)``).
@@ -24,6 +36,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import sys
 
 PRESETS = {
     "EFT": dict(num_steps=60000, batch_size=4, lr=1e-4, wdecay=1e-4),
@@ -81,9 +94,9 @@ def build_parser():
     parser.add_argument("--add_noise", action="store_true")
 
     parser.add_argument("--mesh", type=str, default="auto",
-                        help="'auto' or '1x1': the port trains on one card "
-                             "(data and space parallel meshes are ROADMAP "
-                             "Queue 1, item 9)")
+                        help="'auto' (data parallel over every visible card, "
+                             "or torchrun's ranks) or 'DPxSP' (e.g. 2x1); "
+                             "SP > 1 is ROADMAP Queue 1, item 9b")
     parser.add_argument("--save_path", type=str, default="./checkpoints")
     parser.add_argument("--data_root", type=str, default=None)
     parser.add_argument("--wandb", action="store_true")
@@ -109,17 +122,72 @@ def make_validators(args):
     }
 
 
-def main(argv=None):
-    """Train as the flags say; returns the ``Trainer``."""
+def mesh_ranks(spec: str, device=None):
+    """``--mesh`` -> (ranks, under_torchrun): the data-parallel ranks to
+    train on, and whether ``torchrun`` started them
+    (``prior_flow_tpu/cli/train.py:125-138``). Raises ``SystemExit`` with
+    the JAX CLI's messages."""
+    import torch
+
+    from ..parallel.mesh import SPACE_ITEM
+
+    world = os.environ.get("WORLD_SIZE")
+    if world is not None:
+        visible = int(world)
+    elif str(device) == "cpu":
+        visible = 1
+    else:
+        visible = torch.cuda.device_count()
+    if spec == "auto":
+        return max(visible, 1), world is not None
+    parts = spec.lower().split("x")
+    if len(parts) != 2 or not all(p.isdigit() for p in parts):
+        raise SystemExit(f"--mesh expects 'auto' or 'DPxSP' (e.g. 2x4); got "
+                         f"{spec!r}")
+    dp, sp = int(parts[0]), int(parts[1])
+    if sp != 1:
+        raise SystemExit(f"--mesh {spec}: {SPACE_ITEM}")
+    # JAX's rule; 1x1 on a host without a card reaches resolve_device's
+    # error instead
+    if dp * sp != visible and not (dp * sp == 1 and visible == 0):
+        raise SystemExit(f"--mesh {spec}: {dp}x{sp}={dp * sp} chips "
+                         f"requested but {visible} visible")
+    return dp, world is not None
+
+
+def _rank_main(mesh, argv):
+    """One spawned rank of ``main``."""
+    train(parse_args(argv), mesh)
+
+
+def parse_args(argv=None):
     args = build_parser().parse_args(argv)
     if args.preset and args.stage in PRESETS:
         for k, v in PRESETS[args.stage].items():
             setattr(args, k, v)
-    if args.mesh.lower() not in ("auto", "1x1"):
-        raise SystemExit(
-            f"--mesh {args.mesh}: the port trains on one card; data and "
-            f"space parallel meshes are ROADMAP Queue 1, item 9 (parallel)")
+    return args
 
+
+def main(argv=None):
+    """Train as the flags say; returns the ``Trainer`` (None where the
+    ranks were spawned processes)."""
+    args = parse_args(argv)
+    ranks, torchrun = mesh_ranks(args.mesh, args.device)
+    if ranks > 1 and not torchrun:
+        from ..parallel.dryrun import spawn
+        spawn(_rank_main, ranks, sys.argv[1:] if argv is None else argv,
+              device=args.device or "cuda", timeout_s=None)
+        return None
+    mesh = None
+    if ranks > 1:
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh(ranks, device=args.device)
+    return train(args, mesh)
+
+
+def train(args, mesh=None):
+    """``main``'s run on parsed flags, on ``mesh`` where given (this
+    rank's part; only rank 0 logs)."""
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)-8s [%(filename)s:%(lineno)d] %(message)s")
@@ -130,7 +198,7 @@ def main(argv=None):
     from ..train.trainer import Trainer, TrainerConfig
     from ..utils.logger import MetricLogger
 
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = TrainerConfig(
         name=args.name, stage=args.stage, lr=args.lr,
         num_steps=args.num_steps, batch_size=args.batch_size,
@@ -142,16 +210,19 @@ def main(argv=None):
         data_root=args.data_root, val_freq=args.val_freq,
         grad_mode=args.grad_mode, remat_policy=args.remat_policy,
     )
+    main_rank = mesh is None or mesh.rank == 0
     logger = MetricLogger.default(
         run_dir=os.path.join(args.save_path, "logs"), name=args.name,
-        project=args.project_name, config=vars(args), use_wandb=args.wandb)
+        project=args.project_name, config=vars(args),
+        use_wandb=args.wandb) if main_rank else None
     trainer = Trainer(cfg, device=device, logger=logger,
-                      validators=make_validators(args))
+                      validators=make_validators(args), mesh=mesh)
     loader = fetch_dataloader(args)
     try:
         trainer.run(loader)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return trainer
 
 

@@ -5,7 +5,9 @@
 shuffled by a generator keyed by (seed, epoch) alone, each shard its
 slice of that order, the last short batch dropped or kept, an infinite
 stream that resumes at any batch (``start_batch``), and each ``iter()``
-one epoch further. Underneath it is a ``torch.utils.data.DataLoader``: a
+one epoch further. A data-parallel rank's stream (``infinite(rank=,
+world=)``) holds its rows of each global batch; that split is not the
+shards', which are JAX's multi-host slices of each epoch. Underneath it is a ``torch.utils.data.DataLoader``: a
 batch sampler yields each batch's (epoch, index) pairs, worker processes
 read and augment the samples, and batches come back as tensors, in pinned
 memory when a card is present. The workers come from a fork server (a
@@ -60,12 +62,14 @@ class _EpochKeyed(Dataset):
 
 class _BatchKeys(Sampler):
     """Each batch's (epoch, index) keys from ``start_batch`` on, over
-    ``epochs`` epochs (-1: without end)."""
+    ``epochs`` epochs (-1: without end); of each batch only ``rows``."""
 
-    def __init__(self, loader: "DataLoader", start_batch: int, epochs: int):
+    def __init__(self, loader: "DataLoader", start_batch: int, epochs: int,
+                 rows: slice = slice(None)):
         self.loader = loader
         self.start_batch = start_batch
         self.epochs = epochs
+        self.rows = rows
 
     def __iter__(self):
         n, bs = len(self.loader), self.loader.batch_size
@@ -74,7 +78,8 @@ class _BatchKeys(Sampler):
         while end is None or e < end:
             idx = self.loader._epoch_indices(e)
             for i in range(first, n):
-                yield [(e, int(j)) for j in idx[i * bs:(i + 1) * bs]]
+                keys = [(e, int(j)) for j in idx[i * bs:(i + 1) * bs]]
+                yield keys[self.rows]
             first = 0
             e += 1
 
@@ -118,19 +123,27 @@ class DataLoader:
             idx = idx[self.shard_index * per:(self.shard_index + 1) * per]
         return idx
 
-    def _stream(self, epochs: int = 1, start_batch: int = 0) -> Iterator:
+    def _stream(self, epochs: int = 1, start_batch: int = 0, rank: int = 0,
+                world: int = 1) -> Iterator:
         """The batches of ``epochs`` epochs (-1: without end) from global
         batch ``start_batch`` on (epoch start_batch // len(self), batch
-        start_batch % len(self) within it)."""
+        start_batch % len(self) within it); of each, the rows of ``rank``
+        of ``world`` data-parallel ranks."""
         if len(self) == 0:
             raise ValueError(
                 f"DataLoader has 0 batches: dataset of {len(self.dataset)} "
                 f"samples, batch_size={self.batch_size}, "
                 f"drop_last={self.drop_last}")
+        if self.batch_size % world or not 0 <= rank < world:
+            raise ValueError(
+                f"a batch of {self.batch_size} does not split into rank "
+                f"{rank}'s rows of {world} equal parts")
+        b = self.batch_size // world
         workers = self.num_workers
         loader = torch.utils.data.DataLoader(
             _EpochKeyed(self.dataset),
-            batch_sampler=_BatchKeys(self, start_batch, epochs),
+            batch_sampler=_BatchKeys(self, start_batch, epochs,
+                                     slice(rank * b, (rank + 1) * b)),
             num_workers=workers, collate_fn=_stack_batch,
             pin_memory=torch.cuda.is_available(),
             prefetch_factor=self.prefetch if workers else None,
@@ -149,11 +162,15 @@ class DataLoader:
         self._epochs_started += 1
         return self._stream(epochs=1, start_batch=epoch * len(self))
 
-    def infinite(self, start_batch: int = 0) -> Iterator:
+    def infinite(self, start_batch: int = 0, rank: int = 0,
+                 world: int = 1) -> Iterator:
         """The stream without end, from global batch ``start_batch`` on: a
         run resumed at step k reads the batches an uninterrupted run read
-        from step k."""
-        return self._stream(epochs=-1, start_batch=start_batch)
+        from step k. With ``world`` data-parallel ranks, rank r's batch k
+        is rows [r b, (r + 1) b) of global batch k, b = batch_size /
+        world (which must divide), and only those samples are read."""
+        return self._stream(epochs=-1, start_batch=start_batch, rank=rank,
+                            world=world)
 
 
 def device_prefetch(iterator, device, size: int = 2):

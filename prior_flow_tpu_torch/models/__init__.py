@@ -28,7 +28,8 @@ def build_model(device=None, seed: int = 0, state_dict=None,
     to ``PriOrRAFT`` (e.g. ``mixed_precision=True``, ``precision="highest"``
     for full f32 convolutions and matmuls, ``corr_mode="onthefly"`` for
     inputs whose volumes outgrow the card, ``remat_policy="dots"`` or
-    ``remat=False`` for training).
+    ``remat=False`` for training, ``lookup_mode="mxu"`` for the lookup
+    without kernels).
     """
     dev = resolve_device(device)
     model = PriOrRAFT(**kwargs)

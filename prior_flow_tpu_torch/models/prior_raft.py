@@ -40,6 +40,16 @@ replays a lookup. The replay runs under the forward's autocast state;
 the caller keeps the precision flags (``train/trainer.py`` runs the
 backward inside ``precision_scope``).
 
+Lookup (``lookup_mode``, ``prior_raft.py:145-149,176-190``): ``"auto"``
+and ``"pallas"`` take ``DCCLFused``, the CUDA lookup kernels, on the card
+and their plain versions on the CPU; ``"mxu"`` (one-hot matrix products)
+and ``"gather"`` (plain gathers) take ``ops.corr.DCCL`` once per branch,
+no kernel, the route a program exported for several device types needs
+(``serving.export_forward(platforms=)``). JAX's ``"auto"`` is ``"mxu"``
+off the TPU; the port's stays the kernel route everywhere, the same
+function (ROADMAP Queue 3, "Kept on purpose"). ``corr_mode="onthefly"``
+takes precedence, as in JAX; the taped backward needs the kernel route.
+
 Dropout (``dropout`` > 0) acts in the encoders of the training forward
 only, in train mode, and draws from the ``generator`` the caller passes
 (the trainer keys one by (seed, step)); a training forward in train mode
@@ -65,7 +75,7 @@ from torch.nn import functional as F
 from ..geometry import grids as gridlib
 from ..nn.encoder import BasicEncoder
 from ..nn.update import BasicMultiUpdateBlock, BasicUpdateBlock
-from ..ops.corr import (DCCLFused, DCCLOnTheFly, all_pairs_correlation,
+from ..ops.corr import (DCCL, DCCLFused, DCCLOnTheFly, all_pairs_correlation,
                         build_pyramid, build_pyramid_lean, groupwise_corr)
 from ..ops.samplers import cycle_bilinear_sample
 from ..ops.warp import flo_rotate, img_rotate
@@ -78,6 +88,7 @@ from ..utils.precision import check_precision, precision_scope
 # cast on the device the JAX package sized it for
 LEAN_BUILD_QUERIES = 16384
 CORR_MODES = ("volume", "onthefly")
+LOOKUP_MODES = ("auto", "pallas", "mxu", "gather")
 REMAT_POLICIES = ("dccl", "dots")
 # the ops whose outputs the "dots" policy keeps: JAX's ``dots_saveable``
 # saves every dot_general and convolution (``prior_raft.py:469-479``)
@@ -141,17 +152,22 @@ class PriOrRAFT(nn.Module):
                  corr_levels: int = 4, corr_radius: int = 4,
                  dropout: float = 0.0, mixed_precision: bool = False,
                  precision: Optional[str] = None, corr_mode: str = "volume",
-                 remat: bool = True, remat_policy: str = "dccl"):
+                 remat: bool = True, remat_policy: str = "dccl",
+                 lookup_mode: str = "auto"):
         super().__init__()
         check_precision(precision)
         if corr_mode not in CORR_MODES:
             raise ValueError(f"corr_mode must be one of {CORR_MODES}, got "
                              f"{corr_mode!r}")
+        if lookup_mode not in LOOKUP_MODES:
+            raise ValueError(f"lookup_mode must be one of {LOOKUP_MODES}, "
+                             f"got {lookup_mode!r}")
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
                              f"got {remat_policy!r}")
         self.precision = precision
         self.corr_mode = corr_mode
+        self.lookup_mode = lookup_mode
         self.remat = remat
         self.remat_policy = remat_policy
         self.hidden_dim = hidden_dim
@@ -164,9 +180,12 @@ class PriOrRAFT(nn.Module):
                                  dropout=dropout)
         self.ODDC = BasicMultiUpdateBlock(hidden_dim, corr_planes)
         self.update_block = BasicUpdateBlock(hidden_dim, corr_planes)
-        self.dccl = (DCCLOnTheFly(corr_levels, corr_radius)
-                     if corr_mode == "onthefly"
-                     else DCCLFused(corr_levels, corr_radius))
+        if corr_mode == "onthefly":
+            self.dccl = DCCLOnTheFly(corr_levels, corr_radius)
+        elif lookup_mode in ("auto", "pallas"):
+            self.dccl = DCCLFused(corr_levels, corr_radius)
+        else:
+            self.dccl = DCCL(corr_levels, corr_radius, lookup_mode)
         self._grids = {}
 
     def _autocast(self, device):
@@ -338,9 +357,15 @@ class PriOrRAFT(nn.Module):
             coords1_B = coords1_B + flo_rotate(init_flow, g.a2b_w2c_8, g.a2b_8)
 
         def corr_fn(c_A, c_B):
-            own_A, cross_A, own_B, cross_B = self.dccl(
-                c_A, c_B, pyr_A, pyr_B, g.a2b_w2c_8, g.b2a_w2c_8, g.a2b_8,
-                g.b2a_8)
+            if isinstance(self.dccl, DCCL):      # one branch per call
+                own_A, cross_A = self.dccl(c_A, pyr_A, pyr_B, g.a2b_w2c_8,
+                                           g.b2a_8)
+                own_B, cross_B = self.dccl(c_B, pyr_B, pyr_A, g.b2a_w2c_8,
+                                           g.a2b_8)
+            else:
+                own_A, cross_A, own_B, cross_B = self.dccl(
+                    c_A, c_B, pyr_A, pyr_B, g.a2b_w2c_8, g.b2a_w2c_8,
+                    g.a2b_8, g.b2a_8)
             return own_A + cross_A, own_B + cross_B
 
         k = StepConsts(inp_A, inp_B, fmaps[0], fmaps[1], coords0, g)

@@ -43,7 +43,8 @@ class BasicEncoder(nn.Module):
     """7x7/2 stem, three stages of two ResidualBlocks (64, 96/2, 128/2) and a
     1x1 head: stride 8. A list input is concatenated on the batch axis,
     encoded in one pass and split back. NCHW in and out. Given a
-    ``generator``, dropout at rate ``dropout`` follows the head (the
+    ``generator`` (or a ``layers.RankDraws``, whose draws are the global
+    batch's), dropout at rate ``dropout`` follows the head (the
     training forward, ``prior_flow_tpu/nn/encoder.py:115-116``); without
     one the encoder is deterministic."""
 
@@ -62,6 +63,7 @@ class BasicEncoder(nn.Module):
 
     def forward(self, x, generator=None):
         is_list = isinstance(x, (tuple, list))
+        views = len(x) if is_list else 1
         if is_list:
             batch_dim = x[0].shape[0]
             x = torch.cat(list(x), dim=0)
@@ -69,7 +71,7 @@ class BasicEncoder(nn.Module):
         x = self.layer3(self.layer2(self.layer1(x)))
         x = self.conv2(x)
         if generator is not None and self.dropout > 0:
-            x = dropout(x, self.dropout, generator)
+            x = dropout(x, self.dropout, generator, views)
         if is_list:
             return tuple(torch.split(x, batch_dim, dim=0))
         return x

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch import nn
 
@@ -56,12 +58,41 @@ class FrozenBatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator):
-    """Elementwise dropout at rate ``p`` drawn from ``generator``: each
-    element kept with probability 1 - p and scaled by 1 / (1 - p), the
-    rest zero (flax ``nn.Dropout``'s rule, ``select(keep, x / (1 - p),
-    0)``)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+class RankDraws(NamedTuple):
+    """A generator whose batch-shaped draws are made at the global batch
+    of a data-parallel mesh of ``world`` ranks, of which this rank keeps
+    its rows (``draw_rows``): every rank then draws what one process
+    training on the global batch would."""
+
+    generator: torch.Generator
+    rank: int
+    world: int
+
+
+def draw_rows(sampler, shape, generator, device, views: int = 1):
+    """``sampler(shape, generator=, device=)`` (``torch.rand`` /
+    ``torch.randn``) for a tensor whose dim 0 is ``views`` blocks of batch
+    rows, view-major (the encoders' concatenated views). With a
+    ``RankDraws`` the draw is made for ``views`` blocks of ``world`` times
+    the rows and each block's rows of this rank are kept; with a plain
+    generator (or ``world == 1``) it is the plain draw."""
+    if not isinstance(generator, RankDraws):
+        return sampler(shape, generator=generator, device=device)
+    g, rank, world = generator
+    shape = tuple(shape)
+    per = shape[0] // views
+    full = sampler((views * world * per, *shape[1:]), generator=g,
+                   device=device)
+    return full.view(views, world, per, *shape[1:])[:, rank].reshape(shape)
+
+
+def dropout(x: torch.Tensor, p: float, generator, views: int = 1):
+    """Elementwise dropout at rate ``p`` drawn from ``generator`` (a
+    ``torch.Generator`` or ``RankDraws``; ``views`` as ``draw_rows``
+    reads it): each element kept with probability 1 - p and scaled by
+    1 / (1 - p), the rest zero (flax ``nn.Dropout``'s rule,
+    ``select(keep, x / (1 - p), 0)``)."""
+    keep = draw_rows(torch.rand, x.shape, generator, x.device, views) >= p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

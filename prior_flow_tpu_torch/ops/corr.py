@@ -18,7 +18,9 @@ differentiable forms are ``DCCLAllLevelsLookup`` (every level of the grid
 route, the custom VJPs of ``dccl_packed_lookup_grid`` and
 ``dccl_packed_lookup_grid_all``) and ``DCCLLevelLookupCoords`` (of
 ``dccl_packed_lookup_planes``); ``DCCLFused.record`` serves the taped
-backward, which scatters all iterations at once.
+backward, which scatters all iterations at once. ``DCCL`` (``mxu``,
+``gather``) is the JAX package's one-branch lookup without a kernel,
+differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -31,13 +33,16 @@ import torch
 
 # importing ops.kernels registers the priorflow:: ops the lookups call
 from .kernels.dccl_lookup import (NTAP, RADIUS, dccl_level_lookup,
-                                  dccl_level_lookup_plain, window_delta)
+                                  dccl_level_lookup_plain,
+                                  sample_volume_level, window_delta)
 from .kernels.dccl_scatter import dccl_level_scatter, dccl_level_scatter_grid
-from .samplers import bilinear_corners
+from .samplers import bilinear_corners, cycle_bilinear_sample
 from .static_resample import resample_static
 
 __all__ = ["all_pairs_correlation", "avg_pool2", "build_pyramid",
-           "build_pyramid_lean", "groupwise_corr", "DCCLFused",
+           "build_pyramid_lean", "groupwise_corr", "DCCL", "DCCLFused",
+           "lookup_window_mxu", "sample_image_window_mxu",
+           "sample_volume_level", "sample_volume_level_mxu",
            "DCCLOnTheFly", "OnTheFlyTaps", "tap_values",
            "DCCLLevelLookupCoords", "DCCLAllLevelsLookup",
            "window_delta", "dccl_level_lookup", "dccl_level_lookup_plain"]
@@ -339,6 +344,160 @@ def _concat(levels):
     """Per-level (own_A, cross_A, own_B, cross_B) -> the four (B, Q, L*81)
     fields."""
     return [torch.cat([lv[j] for lv in levels], dim=-1) for j in range(4)]
+
+
+# -- the one-hot and gather lookups (lookup_mode 'mxu' / 'gather') ------------
+
+def _window_weights(centers, extent: int, radius: int, wrap: bool):
+    """Separable one-hot bilinear weights of a (2r+1)-tap window
+    (``prior_flow_tpu/ops/corr.py:126-168``): for a 1-D coordinate t and
+    offset d in [-r, r], corners floor(t_d) and floor(t_d) + 1 with weights
+    (1 - frac, frac), t_d = (t + d) mod extent with ``wrap``; a corner
+    outside [0, extent - 1] weighs zero (floor(t_d) + 1 == extent too: the
+    seam quirk). centers: (...) f32 -> (..., 2r+1, extent) f32 with
+    out[tap] = sum_c w[tap, c] * v[c]."""
+    n = 2 * radius + 1
+    t = torch.remainder(centers, extent) if wrap else centers
+    t0 = torch.floor(t)
+    frac = (t - t0)[..., None, None]
+    d = torch.arange(n, dtype=torch.float32, device=t.device) - radius
+    base = t0[..., None] + d
+    if wrap:
+        base = torch.remainder(base, extent)
+    cols = torch.arange(extent, dtype=torch.float32, device=t.device)
+    base = base[..., None]
+    return (torch.where(cols == base, 1.0 - frac, 0.0)
+            + torch.where(cols == base + 1.0, frac, 0.0))
+
+
+def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum(..., preferred_element_type=float32)``: the operands'
+    values (bf16 exactly representable) multiplied and summed in f32."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def lookup_window_mxu(vol_l: torch.Tensor, coords: torch.Tensor,
+                      radius: int = RADIUS) -> torch.Tensor:
+    """Own-branch window lookup as two one-hot contractions
+    (``prior_flow_tpu/ops/corr.py:171``). vol_l: (B, Q, Hl, Wl); coords:
+    (B, Q, 2) level-scaled centres -> (B, Q, K) f32, tap k = i*(2r+1)+j
+    with x-offset i-r, y-offset j-r. The weights are in the volume's
+    dtype, each contraction sums in f32, and the first is rounded to the
+    volume's dtype before the second, as in JAX."""
+    B, Q, Hl, Wl = vol_l.shape
+    n = 2 * radius + 1
+    dt = vol_l.dtype
+    wy = _window_weights(coords[..., 1], Hl, radius, wrap=False).to(dt)
+    wx = _window_weights(coords[..., 0], Wl, radius, wrap=True).to(dt)
+    tmp = _einsum_f32("bqic,bqrc->bqir", wx, vol_l)
+    out = _einsum_f32("bqir,bqjr->bqij", tmp.to(dt), wy)
+    return out.reshape(B, Q, n * n)
+
+
+def sample_image_window_mxu(img: torch.Tensor, coords: torch.Tensor,
+                            radius: int = RADIUS) -> torch.Tensor:
+    """Window lookup into a shared image (B, H, W, C) at per-query centres
+    (B, Q, 2) -> (B, Q, K, C) f32, as one-hot contractions, rows first
+    (``prior_flow_tpu/ops/corr.py:198``): the cross tap coords from the
+    1/8 rotation grid."""
+    B, H, W, C = img.shape
+    Q = coords.shape[1]
+    n = 2 * radius + 1
+    wy = _window_weights(coords[..., 1], H, radius, wrap=False)
+    wx = _window_weights(coords[..., 0], W, radius, wrap=True)
+    tmp = _einsum_f32("bqjr,brcd->bqjcd", wy, img)
+    out = _einsum_f32("bqjcd,bqic->bqijd", tmp, wx)
+    return out.reshape(B, Q, n * n, C)
+
+
+# the (B, Q, k, Hl) f32 intermediate of ``sample_volume_level_mxu`` is held
+# under this many bytes by chunking the taps (``ops/corr.py:274-280``)
+MXU_TAP_BUDGET = 256 * 1024 * 1024
+
+
+def sample_volume_level_mxu(vol_l: torch.Tensor,
+                            coords: torch.Tensor) -> torch.Tensor:
+    """``sample_volume_level`` at arbitrary per-tap coords (B, Q, K, 2) as
+    one-hot contractions, each tap a radius-0 weight row over rows and
+    columns (``prior_flow_tpu/ops/corr.py:261``) -> (B, Q, K) f32. The
+    taps go in chunks as large as keep the (B, Q, k, Hl) f32 intermediate
+    within ``MXU_TAP_BUDGET``."""
+    B, Q, Hl, Wl = vol_l.shape
+    K = coords.shape[2]
+    tap_chunk = max(1, min(K, MXU_TAP_BUDGET // 4 // max(B * Q * Hl, 1)))
+    dt = vol_l.dtype
+    outs = []
+    for k0 in range(0, K, tap_chunk):
+        c = coords[:, :, k0:k0 + tap_chunk]
+        wy = _window_weights(c[..., 1], Hl, 0, wrap=False)[..., 0, :].to(dt)
+        wx = _window_weights(c[..., 0], Wl, 0, wrap=True)[..., 0, :].to(dt)
+        tmp = _einsum_f32("bqkc,bqrc->bqkr", wx, vol_l)
+        outs.append(_einsum_f32("bqkr,bqkr->bqk", tmp.to(dt), wy))
+    return torch.cat(outs, dim=-1)
+
+
+class DCCL:
+    """One branch's DCCL over all levels without a kernel (counterpart of
+    ``prior_flow_tpu/ops/corr.py:294-370``), what the JAX model runs off
+    the TPU. ``lookup_mode``: ``"mxu"``, windowed one-hot contractions
+    (matrix products); ``"gather"``, the plain bilinear gathers of the
+    reference's grid_sample chain. The two compute the same function.
+
+    ``__call__(coords, pyr_own, pyr_other, grid_w2c_8, grid_back_8)``:
+    coords (B, h1, w1, 2), the branch's 1/8 coords; ``grid_w2c_8`` maps
+    query-frame coords into the other branch's frame (sampled at the
+    level-scaled window, not rescaled for levels above 0); ``grid_back_8``
+    rotates the cross field back into the query frame, by
+    ``resample_static`` for a batch-invariant (h8, w8, 2) grid, by
+    ``cycle_bilinear_sample`` for a per-batch one, once over all levels'
+    channels. Returns ``(own,
+    cross)``, each (B, h1, w1, L*(2r+1)^2) f32. Differentiable in the
+    volumes by autograd.
+    """
+
+    MODES = ("mxu", "gather")
+
+    def __init__(self, num_levels: int = 4, radius: int = RADIUS,
+                 lookup_mode: str = "mxu"):
+        if lookup_mode not in self.MODES:
+            raise ValueError(f"DCCL lookup_mode must be one of {self.MODES}, "
+                             f"got {lookup_mode!r}")
+        self.num_levels = num_levels
+        self.radius = radius
+        self.lookup_mode = lookup_mode
+
+    def __call__(self, coords, pyr_own: Sequence, pyr_other: Sequence,
+                 grid_w2c_8, grid_back_8):
+        B, h1, w1, _ = coords.shape
+        Q = h1 * w1
+        delta = window_delta(self.radius, coords.device)
+        K = delta.shape[0]
+        cq = coords.reshape(B, Q, 2)
+        if grid_w2c_8.dim() == 3:
+            grid_w2c_8 = grid_w2c_8.expand(B, *grid_w2c_8.shape)
+        if grid_back_8.dim() == 3:
+            back_rot = resample_static
+        else:
+            back_rot = cycle_bilinear_sample
+        own_out, cross_out = [], []
+        for i in range(self.num_levels):
+            centers = cq / (2.0 ** i)
+            if self.lookup_mode == "mxu":
+                own = lookup_window_mxu(pyr_own[i], centers, self.radius)
+                coords_other = sample_image_window_mxu(grid_w2c_8, centers,
+                                                       self.radius)
+                cross = sample_volume_level_mxu(pyr_other[i], coords_other)
+            else:
+                coords_lvl = centers[:, :, None, :] + delta
+                own = sample_volume_level(pyr_own[i], coords_lvl)
+                coords_other = cycle_bilinear_sample(grid_w2c_8, coords_lvl)
+                cross = sample_volume_level(pyr_other[i], coords_other)
+            own_out.append(own.reshape(B, h1, w1, K))
+            cross_out.append(cross.reshape(B, h1, w1, K))
+        # one back-rotation over the levels' channels: resampling is
+        # channelwise, so this is JAX's per-level rotation, bitwise
+        cross = back_rot(torch.cat(cross_out, dim=-1), grid_back_8)
+        return torch.cat(own_out, dim=-1).float(), cross.float()
 
 
 # -- on-the-fly correlation (corr_mode='onthefly') -----------------------------

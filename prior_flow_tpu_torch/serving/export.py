@@ -27,11 +27,15 @@ upsampled branch-A flow (B, H, W, 2).
 
 Portability:
 
-- An artifact is bound to the device type it was exported on, the card
-  unless ``device="cpu"`` is given. JAX's multi-platform artifacts need its
-  pure-XLA lookup (``lookup_mode='mxu'``), which the port does not have
-  (ROADMAP Queue 1, item 11), so ``platforms`` other than the export
-  device raise.
+- An artifact is exported on one device, the card unless ``device="cpu"``
+  is given. ``platforms`` lists the device types the saved program runs
+  on (``"cpu"``, ``"cuda"``; default the export device's). As in JAX,
+  more than the export device needs a model without the lookup kernels
+  (``lookup_mode='mxu'`` or ``'gather'``): ``load_exported`` then moves
+  the program to the device of the images it is called with
+  (``torch.export.passes.move_to_device_pass``). With the kernel route
+  other platforms raise. The instance-norm sums op runs in every program:
+  its CPU implementation is the kernel's plain version.
 - Shapes are static: one artifact per (batch, H, W, iters). AOTInductor
   does not refuse an input of another shape (it resizes its output), so
   the package's callable checks every input against the compiled
@@ -104,12 +108,24 @@ class _Forward(torch.nn.Module):
         return self._fn(state, image1, image2)
 
 
-def _check_platforms(platforms, dev: torch.device) -> None:
-    if platforms is not None and list(platforms) != [dev.type]:
+PLATFORMS = ("cpu", "cuda")
+
+
+def _platforms(platforms, dev: torch.device, model) -> list:
+    """The artifact's device types (JAX's rule,
+    ``prior_flow_tpu/serving/export.py:28-31,84-93``)."""
+    if platforms is None:
+        return [dev.type]
+    platforms = sorted(set(platforms))
+    if not platforms or set(platforms) - set(PLATFORMS):
+        raise ValueError(f"platforms {platforms}: choose from {PLATFORMS}")
+    if platforms != [dev.type] and \
+            getattr(model, "lookup_mode", None) not in ("mxu", "gather"):
         raise ValueError(
-            f"platforms {list(platforms)}: an exported program runs on the "
-            f"device type it was exported on ({dev.type}); multi-platform "
-            f"artifacts need lookup_mode='mxu', ROADMAP Queue 1, item 11")
+            f"platforms {platforms}: a program with the lookup kernels runs "
+            f"on the device type it was exported on ({dev.type}); "
+            f"multi-platform artifacts need lookup_mode='mxu'")
+    return platforms
 
 
 def export_forward(model, state, input_shape: Sequence[int],
@@ -120,12 +136,13 @@ def export_forward(model, state, input_shape: Sequence[int],
 
     ``state``: the weights (name -> tensor) on ``device``, which defaults
     to the card. ``platforms``: the device types the artifact should run
-    on; only the export device's is possible.
+    on (default the export device's); others than the export device need
+    ``model.lookup_mode`` ``"mxu"`` or ``"gather"``.
     """
     from ..models import resolve_device   # the caller holds a model
 
     dev = resolve_device(device)
-    _check_platforms(platforms, dev)
+    platforms = _platforms(platforms, dev, model)
     b, h, w = input_shape
     # every example input its own tensor: the tracer takes one tensor
     # passed twice for one input, so the program would read image1 as
@@ -140,7 +157,7 @@ def export_forward(model, state, input_shape: Sequence[int],
                                    strict=False)
     exported.graph_module.meta[META_KEY] = {
         "precision": model.precision, "iters": iters,
-        "state_keys": list(state)}
+        "state_keys": list(state), "platforms": platforms}
     return exported
 
 
@@ -162,17 +179,41 @@ def _ordered(state, keys):
     return {k: state[k] for k in keys}
 
 
-def load_exported(path: str):
-    """Load a saved program; returns ``fn(state, image1, image2) -> flow``,
-    run under the recorded precision, with ``fn.exported`` (the
-    ``ExportedProgram``) for introspection. Imports no model code."""
+def _load(path: str):
     extra = {META_FILE: ""}
     exported = torch.export.load(path, extra_files=extra)
     meta = json.loads(extra[META_FILE])
     exported.graph_module.meta[META_KEY] = meta
-    module = exported.module()
+    return exported, meta
+
+
+def load_exported(path: str):
+    """Load a saved program; returns ``fn(state, image1, image2) -> flow``,
+    run under the recorded precision on the device of ``image1``, which
+    must be of one of the recorded platforms (a program exported on
+    another device type is loaded again and moved there, once per
+    device), with ``fn.exported`` (the ``ExportedProgram`` as exported)
+    for introspection. Imports no model code."""
+    exported, meta = _load(path)
+    home = _user_inputs(exported)[-1].device
+    platforms = meta.get("platforms", [home.type])
+    modules = {}
+
+    def module_on(device: torch.device):
+        if device.type not in platforms:
+            raise ValueError(f"the program runs on {platforms}, not on "
+                             f"{device}")
+        if device not in modules:
+            if device.type == home.type:
+                modules[device] = exported.module()
+            else:
+                from torch.export.passes import move_to_device_pass
+                moved = move_to_device_pass(_load(path)[0], device)
+                modules[device] = moved.module()
+        return modules[device]
 
     def fn(state, image1, image2):
+        module = module_on(image1.device)
         with precision_scope(meta["precision"]), torch.no_grad():
             return module(_ordered(state, meta["state_keys"]), image1,
                           image2)
@@ -199,12 +240,14 @@ def exported_summary(exported) -> dict:
     inputs = _user_inputs(exported)
     out = next(n for n in exported.graph.nodes if n.op == "output")
     outs = [a.meta["val"] for a in out.args[0]]
+    meta = exported.graph_module.meta[META_KEY]
     return {
-        "platforms": sorted({t.device.type for t in inputs}),
+        "platforms": meta.get("platforms",
+                              sorted({t.device.type for t in inputs})),
         "in_avals": [_aval(t) for t in inputs[-2:]],
         "out_avals": [_aval(t) for t in outs],
         "num_weight_leaves": len(inputs) - 2,
-        "precision": exported.graph_module.meta[META_KEY]["precision"],
+        "precision": meta["precision"],
     }
 
 

@@ -16,12 +16,26 @@ from ..eval.metrics import spherical_mask
 MAX_FLOW = 400.0
 
 
+METRICS = ("epe", "1px", "3px", "5px")
+
+
 def uniform_sequence_loss(flow_preds, flow_gt, valid, gamma: float = 0.8,
                           max_flow: float = MAX_FLOW, prefix: str = ""):
     """flow_preds: (iters, B, H, W, 2); flow_gt: (B, H, W, 2); valid:
     (B, H, W). Returns (loss, metrics) with the metrics epe, 1px, 3px and
     5px of the final prediction over valid pixels, as 0-dim tensors (read
     them on the host only where needed: each read waits for the card)."""
+    loss, sums = sequence_loss_sums(flow_preds, flow_gt, valid, gamma,
+                                    max_flow)
+    return loss, metric_ratios(sums, prefix)
+
+
+def sequence_loss_sums(flow_preds, flow_gt, valid, gamma: float = 0.8,
+                       max_flow: float = MAX_FLOW):
+    """``uniform_sequence_loss``'s loss and, in place of its metrics, their
+    numerators and the valid pixel count: ``{"epe": f32 sum of the error,
+    "1px" / "3px" / "5px": int64 counts, "valid": int64}``, which sum over
+    the ranks of a data-parallel step (``parallel.all_reduce_sums``)."""
     n, _, H, W, _ = flow_preds.shape
     weights = torch.from_numpy(spherical_mask(H, W).copy()).to(
         flow_preds.device)[None]
@@ -36,11 +50,16 @@ def uniform_sequence_loss(flow_preds, flow_gt, valid, gamma: float = 0.8,
 
     with torch.no_grad():
         err = torch.sqrt(torch.sum((flow_preds[-1] - flow_gt) ** 2, dim=-1))
-        denom = torch.clamp_min(valid.sum(), 1)
-        metrics = {
-            prefix + "epe": torch.where(valid, err, 0.0).sum() / denom,
-            prefix + "1px": ((err < 1) & valid).sum() / denom,
-            prefix + "3px": ((err < 3) & valid).sum() / denom,
-            prefix + "5px": ((err < 5) & valid).sum() / denom,
-        }
-    return loss, metrics
+        sums = {"epe": torch.where(valid, err, 0.0).sum(),
+                "1px": ((err < 1) & valid).sum(),
+                "3px": ((err < 3) & valid).sum(),
+                "5px": ((err < 5) & valid).sum(),
+                "valid": valid.sum()}
+    return loss, sums
+
+
+def metric_ratios(sums, prefix: str = ""):
+    """``sequence_loss_sums``' sums -> the metrics, each over the valid
+    pixels (at least one)."""
+    denom = torch.clamp_min(sums["valid"], 1)
+    return {prefix + k: sums[k] / denom for k in METRICS}

@@ -16,6 +16,9 @@
   images (``trainer.py:230-237``), drawn from a generator keyed by
   (seed, step), as the encoders' dropout draws are: a resumed run draws
   what an uninterrupted one would.
+- ``mesh`` (``parallel.make_mesh``): the data-parallel step and loop,
+  one process per device, the gradients summed over the ranks before the
+  clip (``trainer.py:299-305,369-392,414-420``).
 - ``Trainer``: the loop of ``trainer.py:398-460``: ``num_steps + 1``
   updates; every 100 steps the metrics with ``train/steps_per_sec`` and
   ``train/learning_rate``; image panels every ``IMAGE_LOG_FREQ``; a
@@ -51,10 +54,14 @@ from ..checkpoint.convert import (ORBAX_HINT, convert_things_ckpt, load_pth,
                                   write_pth)
 from ..data.loader import device_prefetch
 from ..models import build_model, precision_scope
+from ..nn.layers import RankDraws, draw_rows
+from ..ops.corr import DCCLFused
 from ..ops.kernels.dccl_scatter import dccl_level_scatter_grid
 from ..ops.static_resample import resample_static_transpose
 from ..ops.warp import flo_a2b
-from .loss import uniform_sequence_loss
+from ..parallel.mesh import (all_reduce_grads, all_reduce_sums,
+                             batch_sharding, replicated)
+from .loss import metric_ratios, sequence_loss_sums
 from .optim import clip_by_global_norm_, global_norm, make_optimizer
 
 VAL_FREQ = 5000
@@ -73,12 +80,15 @@ def step_generator(seed: int, step: int, stream: int, device) -> torch.Generator
     return torch.Generator(device=device).manual_seed(int(state) >> 1)
 
 
-def draw_noise(image: torch.Tensor, generator: torch.Generator):
+def draw_noise(image: torch.Tensor, generator):
     """One step's noise draws: stdv ~ U(0, 5), and N(0, 1) per element of
-    each image of the pair."""
-    kw = dict(generator=generator, device=image.device)
-    stdv = torch.rand((), **kw) * 5.0
-    return stdv, torch.randn(image.shape, **kw), torch.randn(image.shape, **kw)
+    each image of the pair. With a ``RankDraws`` (a data-parallel step)
+    the per-element draws are the global batch's, of which this rank's
+    rows are kept."""
+    g = generator.generator if isinstance(generator, RankDraws) else generator
+    stdv = torch.rand((), generator=g, device=image.device) * 5.0
+    return stdv, *(draw_rows(torch.randn, image.shape, generator,
+                             image.device) for _ in range(2))
 
 
 def add_noise(image1, image2, stdv, noise1, noise2):
@@ -89,13 +99,21 @@ def add_noise(image1, image2, stdv, noise1, noise2):
 
 
 def dual_loss(preds_A, preds_B, flow_gt, valid, flow_gt_B, valid_B,
-              gamma: float):
-    """loss A + loss B and both branches' metrics (``trainer.py:156-161``)."""
-    loss_A, m_A = uniform_sequence_loss(preds_A, flow_gt, valid, gamma=gamma,
-                                        prefix="A-")
-    loss_B, m_B = uniform_sequence_loss(preds_B, flow_gt_B, valid_B,
-                                        gamma=gamma, prefix="B-")
-    return loss_A + loss_B, {**m_A, **m_B}
+              gamma: float, mesh=None):
+    """loss A + loss B and both branches' metrics (``trainer.py:156-161``).
+    With a ``mesh`` the metrics are the global batch's: their numerators
+    and valid counts are summed over the ranks first. The loss stays this
+    rank's (its backward gives this rank's share of the gradients)."""
+    loss_A, s_A = sequence_loss_sums(preds_A, flow_gt, valid, gamma=gamma)
+    loss_B, s_B = sequence_loss_sums(preds_B, flow_gt_B, valid_B,
+                                     gamma=gamma)
+    if mesh is not None:
+        keys = list(s_A)
+        sums = all_reduce_sums([s_A[k] for k in keys]
+                               + [s_B[k] for k in keys], mesh)
+        s_A, s_B = dict(zip(keys, sums)), dict(zip(keys, sums[len(keys):]))
+    return loss_A + loss_B, {**metric_ratios(s_A, "A-"),
+                             **metric_ratios(s_B, "B-")}
 
 
 def _leaf(t: torch.Tensor) -> torch.Tensor:
@@ -103,7 +121,8 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
 
 
 def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
-                         valid_B, iters: int, gamma: float, generator=None):
+                         valid_B, iters: int, gamma: float, generator=None,
+                         mesh=None):
     """Loss and gradients by the single-forward taped path; the gradients
     are ACCUMULATED into the parameters' ``.grad``. Returns
     (loss, metrics).
@@ -118,12 +137,19 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
     branch's cross tap coords itself (``dccl_gather.py::_rebind_bwd``); (e)
     backward through the pyramid
     build, then through the encoder with the leaves' gradients.
-    ``generator``: the encoders' dropout draws. Refuses
-    ``corr_mode="onthefly"`` (``prior_flow_tpu/train/trainer.py:102-103``):
-    the stacked scatter needs volumes.
+    ``generator``: the encoders' dropout draws; ``mesh``: as ``dual_loss``
+    reads it. Refuses ``corr_mode="onthefly"``
+    (``prior_flow_tpu/train/trainer.py:102-103``): the stacked scatter
+    needs volumes; and the ``mxu`` / ``gather`` lookups, which have no
+    ``DCCLFused.record`` (the JAX CLI pins ``pallas`` for the taped mode,
+    ``prior_flow_tpu/cli/train.py:116-121``).
     """
     if model.corr_mode == "onthefly":
         raise ValueError("taped gradients require corr_mode='volume'")
+    if not isinstance(model.dccl, DCCLFused):
+        raise ValueError(f"taped gradients require the kernel lookup "
+                         f"(lookup_mode 'auto' or 'pallas'), not "
+                         f"{model.lookup_mode!r}")
     B, H, W, _ = image1.shape
     g = model.rotation_grids(H, W, image1.device)
     enc = model.encode(image1, image2, g,
@@ -136,7 +162,7 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
         model.iterate_taped(net_A, net_B, inp_A, inp_B, fmaps[0], fmaps[1],
                             pyr_A, pyr_B, iters)                  # (c)
     loss, metrics = dual_loss(preds_A, preds_B, flow_gt, valid, flow_gt_B,
-                              valid_B, gamma)
+                              valid_B, gamma, mesh)
     loss.backward()
 
     with torch.no_grad():                                         # (d)
@@ -180,7 +206,7 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
 def make_train_step(model, optimizer, schedule: Callable[[int], float],
                     iters: int = 12, gamma: float = 0.8,
                     grad_mode: str = "standard", clip: float = 1.0,
-                    noise: bool = False, seed: int = 0):
+                    noise: bool = False, seed: int = 0, mesh=None):
     """step(batch, step_index) -> metrics; updates ``model`` and
     ``optimizer`` in place. batch = (image1, image2, flow_gt, valid),
     channels-last f32 on the model's device. Update k runs at
@@ -189,10 +215,24 @@ def make_train_step(model, optimizer, schedule: Callable[[int], float],
     k). Metrics are 0-dim tensors,
     ``train/loss`` and ``train/grad_norm`` (before the clip) among them.
     The forward and the backward run at ``model.precision``
-    (``trainer.py:125-126``)."""
+    (``trainer.py:125-126``).
+
+    With a ``mesh`` (``parallel.make_mesh``) the step is one rank's share
+    of the step on the global batch, as JAX's SPMD step is
+    (``trainer.py:369-392``): ``batch`` holds this rank's rows, the noise
+    and dropout draws are the global batch's rows of this rank
+    (``nn.layers.RankDraws``), the gradients are summed over the ranks in
+    one flat bucket after the backward and before the norm and the clip,
+    and ``train/loss`` and the metrics are the global batch's. Every rank
+    then takes the same update. A clip of ``inf`` leaves ``.grad`` as the
+    gradients before the clip."""
     if grad_mode not in ("standard", "taped"):
         raise ValueError(f"unknown grad_mode {grad_mode!r}")
     params = [p for p in model.parameters() if p.requires_grad]
+
+    def draws(generator):
+        return (generator if mesh is None
+                else RankDraws(generator, mesh.rank, mesh.size))
 
     def train_step(batch, step: int) -> Dict[str, torch.Tensor]:
         image1, image2, flow_gt, valid = batch
@@ -206,26 +246,30 @@ def make_train_step(model, optimizer, schedule: Callable[[int], float],
             if noise:
                 image1, image2 = add_noise(
                     image1, image2, *draw_noise(
-                        image1, step_generator(seed, step, NOISE, dev)))
-        gen = (step_generator(seed, step, DROPOUT, dev)
+                        image1, draws(step_generator(seed, step, NOISE,
+                                                     dev))))
+        gen = (draws(step_generator(seed, step, DROPOUT, dev))
                if model.dropout > 0 else None)
         optimizer.zero_grad(set_to_none=True)
         with precision_scope(model.precision):
             if grad_mode == "taped":
                 loss, metrics = taped_value_and_grad(
                     model, image1, image2, flow_gt, valid, flow_gt_B,
-                    valid_B, iters, gamma, generator=gen)
+                    valid_B, iters, gamma, generator=gen, mesh=mesh)
             else:
                 preds_A, preds_B = model(image1, image2, iters=iters,
                                          test_mode=False, generator=gen)
                 loss, metrics = dual_loss(preds_A, preds_B, flow_gt, valid,
-                                          flow_gt_B, valid_B, gamma)
+                                          flow_gt_B, valid_B, gamma, mesh)
                 loss.backward()
                 loss = loss.detach()
         for p in params:           # optax updates every parameter
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        if mesh is not None:
+            all_reduce_grads(grads, mesh)
+            (loss,) = all_reduce_sums([loss], mesh)
         norm = global_norm(grads)
         clip_by_global_norm_(grads, norm, clip)
         for group in optimizer.param_groups:
@@ -283,12 +327,31 @@ class Trainer:
     lives on ``device`` (default: the card). ``logger(metrics, step)``
     gets host floats (and ``log_images(panels, step)`` where it has one);
     ``validators`` maps a name of ``cfg.validation`` to a function of the
-    model that returns metrics."""
+    model that returns metrics.
+
+    With a ``mesh`` (``parallel.make_mesh``; JAX's ``Trainer(mesh=)``,
+    ``trainer.py:299-305,414-420``) every rank builds and restores the
+    model on ``mesh.device``, then takes rank 0's weights
+    (``parallel.replicated``); each step is the data-parallel step of
+    ``make_train_step(mesh=)`` on this rank's rows of each global batch
+    of ``cfg.batch_size``. Only rank 0 logs, draws panels, writes
+    checkpoints and validates; every rank waits for each checkpoint, so a
+    ``restore("auto")`` on any rank finds it."""
 
     def __init__(self, cfg: TrainerConfig, device=None, state_dict=None,
                  logger: Optional[Callable[[Dict, int], None]] = None,
-                 validators: Optional[Dict[str, Callable]] = None):
+                 validators: Optional[Dict[str, Callable]] = None,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            d = torch.device(device if device is not None else
+                             mesh.device)
+            if d.type != mesh.device.type or \
+                    d.index not in (None, mesh.device.index):
+                raise ValueError(f"device {device} is not the mesh rank's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.model = build_model(device, seed=cfg.seed, state_dict=state_dict,
                                  mixed_precision=cfg.mixed_precision,
                                  dropout=cfg.dropout,
@@ -302,15 +365,25 @@ class Trainer:
         self.clock = LoopClock(self.device)
         if cfg.restore_ckpt:
             self.restore(cfg.restore_ckpt)
+        elif mesh is not None:
+            replicated(mesh, self.model)
         self._step_fn = make_train_step(
             self.model, self.optimizer, self.schedule, cfg.iters, cfg.gamma,
-            cfg.grad_mode, cfg.clip, noise=cfg.add_noise, seed=cfg.seed)
+            cfg.grad_mode, cfg.clip, noise=cfg.add_noise, seed=cfg.seed,
+            mesh=mesh)
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    @property
+    def is_main(self) -> bool:
+        """True where this process logs and writes: without a mesh, or on
+        rank 0."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
+        """One update on ``batch`` (with a mesh: this rank's rows)."""
         dev = self.device
         metrics = self._step_fn(tuple(t.to(dev) for t in batch), self.step)
         self.step += 1
@@ -323,12 +396,23 @@ class Trainer:
         infinite stream, resumed at ``self.step``) or any iterable of
         (image1, image2, flow_gt, valid, ...) batches, which ends the run
         early when it runs out. Batch k+1 is copied to the device while
-        step k runs. Returns the last step's metrics."""
+        step k runs. With a mesh each rank reads only its rows of each
+        global batch: a ``DataLoader`` decodes only this rank's samples,
+        and of another iterable's batches the rank keeps its rows. Returns
+        the last step's metrics."""
         cfg = self.cfg
         total = self.step
-        source = (loader.infinite(start_batch=total)
-                  if hasattr(loader, "infinite") else iter(loader))
-        it = device_prefetch((tuple(b[:4]) for b in source), self.device)
+        mesh = self.mesh
+        if hasattr(loader, "infinite"):
+            rows = {} if mesh is None else dict(rank=mesh.rank,
+                                                world=mesh.size)
+            source = loader.infinite(start_batch=total, **rows)
+            batches = (tuple(b[:4]) for b in source)
+        else:
+            source = iter(loader)
+            shard = (lambda x: x) if mesh is None else batch_sharding(mesh)
+            batches = (tuple(shard(x) for x in b[:4]) for b in source)
+        it = device_prefetch(batches, self.device)
         clock = self.clock = LoopClock(self.device)
         metrics = {}
         try:
@@ -337,7 +421,7 @@ class Trainer:
             while batch is not None and total <= cfg.num_steps:
                 with clock.step():
                     metrics = self.train_step(batch)
-                if total % LOG_FREQ == 0:
+                if total % LOG_FREQ == 0 and self.is_main:
                     host = {k: float(v) for k, v in metrics.items()}
                     t_now = time.perf_counter()
                     host["train/steps_per_sec"] = LOG_FREQ / max(
@@ -345,12 +429,12 @@ class Trainer:
                     host["train/learning_rate"] = float(self.schedule(total))
                     t_last = t_now
                     self.logger(host, total)
-                if total % IMAGE_LOG_FREQ == 0 and \
+                if total % IMAGE_LOG_FREQ == 0 and self.is_main and \
                         hasattr(self.logger, "log_images"):
                     self._log_image_panels(batch, total)
                 if total % cfg.val_freq == cfg.val_freq - 1:
                     self.save(total + 1)
-                    results = self.validate()
+                    results = self.validate() if self.is_main else {}
                     if results:
                         self.logger(results, total)
                 total += 1
@@ -412,12 +496,17 @@ class Trainer:
     def save(self, tag) -> str:
         """The checkpoint ``<save_path>/<tag>/``: ``model.pth`` in the
         reference layout (``cli.evaluate --model`` takes it) and
-        ``train_state.pt`` with the optimizer state and the step."""
+        ``train_state.pt`` with the optimizer state and the step. With a
+        mesh every rank calls it, rank 0 writes, and all return once the
+        files are written."""
         path = os.path.join(os.path.abspath(self.cfg.save_path), str(tag))
-        os.makedirs(path, exist_ok=True)
-        write_pth(self.model.state_dict(), os.path.join(path, MODEL_FILE))
-        torch.save({"optimizer": self.optimizer.state_dict(),
-                    "step": self.step}, os.path.join(path, STATE_FILE))
+        if self.is_main:
+            os.makedirs(path, exist_ok=True)
+            write_pth(self.model.state_dict(), os.path.join(path, MODEL_FILE))
+            torch.save({"optimizer": self.optimizer.state_dict(),
+                        "step": self.step}, os.path.join(path, STATE_FILE))
+        if self.mesh is not None:
+            self.mesh.barrier()
         return path
 
     def latest_checkpoint(self) -> Optional[str]:
@@ -437,7 +526,13 @@ class Trainer:
         step; a reference ``.pth`` (with or without the ``module.`` prefix)
         loads strictly where its names and shapes are the model's, and
         through the FlyingThings graft where they are not; ``"auto"`` takes
-        ``latest_checkpoint()`` (nothing when there is none)."""
+        ``latest_checkpoint()`` (nothing when there is none). With a mesh
+        every rank restores, then takes rank 0's weights."""
+        self._restore(path)
+        if self.mesh is not None:
+            replicated(self.mesh, self.model)
+
+    def _restore(self, path: str) -> None:
         if path == "auto":
             path = self.latest_checkpoint()
             if path is None:

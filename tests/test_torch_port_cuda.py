@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, the DCCL routes
 against each other, a forward and a train step on the card against the
-CPU, and the memory-scale modes on the card (the on-the-fly taps and
-forward, rematerialised train steps).
+CPU, the memory-scale modes on the card (the on-the-fly taps and
+forward, rematerialised train steps), a one-rank NCCL step and the mxu
+lookup on the card (its forward and a program exported on the CPU).
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports no JAX, so it runs as it is on a machine with the card:
@@ -995,3 +996,74 @@ def test_remat_step_on_card_matches_no_remat(dev, grad_mode, policy):
         err = (grads[n] - ref).norm() / max(ref.norm(),
                                             (1e-2 if zero else 1e-6) * total)
         assert err <= 1e-3, (n, float(err))
+
+
+def test_world1_nccl_step_is_the_meshless_step(dev, tmp_path):
+    """A one-rank NCCL mesh's step (64x128, batch 2, 2 iterations, f32)
+    against the step without a mesh: bitwise, or, where two steps without
+    a mesh differ (the scatter's atomics), within twice their distance;
+    the same launches."""
+    from prior_flow_tpu_torch.parallel import close_mesh, make_mesh
+    from prior_flow_tpu_torch.parallel.dryrun import (synthetic_batch,
+                                                      train_once)
+    batch = synthetic_batch(8, 2, 64, 128)
+    case = dict(grad_mode="standard", iters=2)
+    ref, again = (train_once(None, dev, case, batch) for _ in range(2))
+    mesh = make_mesh(1, device=dev, backend="nccl", rank=0,
+                     init_method=f"file://{tmp_path / 'store'}")
+    try:
+        got = train_once(mesh, dev, case, batch)
+    finally:
+        close_mesh(mesh)
+    assert got["launches"] == ref["launches"]
+    flat = {k: torch.cat([t.reshape(-1) for t in r["grads"].values()])
+            for k, r in (("ref", ref), ("again", again), ("got", got))}
+    spread = (flat["again"] - flat["ref"]).norm().item()
+    dist = (flat["got"] - flat["ref"]).norm().item()
+    if spread == 0.0:
+        assert dist == 0.0 and got["metrics"] == ref["metrics"]
+    else:
+        assert dist <= 2.0 * spread
+
+
+def test_mxu_forward_on_card_matches_cpu(dev):
+    """``lookup_mode="mxu"`` on the card, 64x128, 3 iterations, fp32
+    ``precision="highest"``, against the CPU within the card-vs-CPU gate
+    (1e-3 x flow scale); no lookup kernel, the encoders' 15 sums."""
+    g = torch.Generator().manual_seed(12)
+    i1, i2 = (torch.rand(1, 64, 128, 3, generator=g) * 255 for _ in range(2))
+    ref = build_model("cpu", seed=2, precision="highest",
+                      lookup_mode="mxu")(i1, i2, iters=3)
+    model = build_model(dev, seed=2, precision="highest", lookup_mode="mxu")
+    reset_launch_counts()
+    out = model(i1.to(dev), i2.to(dev), iters=3)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(instance_norm_sums=15)
+    scale = ref.abs().max().item()
+    assert (out.cpu() - ref).abs().max().item() <= 1e-3 * scale
+
+
+def test_mxu_program_exported_on_cpu_runs_on_card(dev, tmp_path):
+    """An mxu program exported on the CPU for ("cpu", "cuda") at 32x64,
+    one iteration, loaded and moved to the card: within 1e-5 of the
+    card's eager forward, its launches the sums'."""
+    from prior_flow_tpu_torch import serving
+    model = build_model("cpu", seed=3, precision="highest", lookup_mode="mxu")
+    state = model.state_dict()
+    exported = serving.export_forward(model, state, (1, 32, 64), 1,
+                                      platforms=["cpu", "cuda"], device="cpu")
+    path = str(tmp_path / "mxu.pt2")
+    serving.save_exported(exported, path)
+    fn = serving.load_exported(path)
+    g = torch.Generator().manual_seed(13)
+    i1, i2 = (torch.rand(1, 32, 64, 3, generator=g).to(dev) * 255
+              for _ in range(2))
+    st = {k: v.to(dev) for k, v in state.items()}
+    reset_launch_counts()
+    got = fn(st, i1, i2)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert launch_counts() == _counts(instance_norm_sums=15)
+    card = build_model(dev, seed=3, precision="highest", lookup_mode="mxu")
+    want = serving.make_forward(card, 1)(st, i1, i2)
+    assert (got - want).abs().max().item() <= 1e-5

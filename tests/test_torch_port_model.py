@@ -324,6 +324,8 @@ def test_no_jax_imports_in_port_sources():
     for root, _, names in os.walk(os.path.join(REPO, "prior_flow_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    assert os.path.join(REPO, "prior_flow_tpu_torch", "parallel",
+                        "mesh.py") in files
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f

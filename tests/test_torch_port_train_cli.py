@@ -386,15 +386,18 @@ def _flags(parser):
 
 def test_cli_flags_and_presets_match_jax(tmp_path, monkeypatch):
     """JAX's flags with their defaults, plus ``--device``; the presets;
-    ``--mesh`` other than auto or 1x1 exits; without ``--device`` the CLI
-    wants the card."""
+    ``--mesh DPxSP`` exits with JAX's message where DP x SP is not the
+    number of visible cards, and names ROADMAP item 9b for SP > 1; without
+    ``--device`` the CLI wants the card."""
     ours, ref = _flags(tcli.build_parser()), _flags(jcli.build_parser())
     assert set(ours) - set(ref) == {"device"}
     for k, v in ref.items():
         assert ours[k] == v, k
     assert tcli.PRESETS == jcli.PRESETS
-    with pytest.raises(SystemExit, match="item 9"):
+    with pytest.raises(SystemExit, match="chips requested but"):
         tcli.main(["--stage", "EFT", "--mesh", "2x1"])
+    with pytest.raises(SystemExit, match="item 9b"):
+        tcli.main(["--stage", "EFT", "--mesh", "1x2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(["--stage", "EFT", "--save_path", str(tmp_path)])
