@@ -178,6 +178,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    route at 1 and 3 iterations (1e-4 x flow scale + 1e-4), 12 reported,
    ms/pair and peak GB; the mxu model exported on the card for cuda and
    cpu at 64x128, 2 iterations, run on both within 1e-5 of eager.
+24. (a) deferred volume gradients (``PriOrRAFT(deferred_vol_grad=True)``,
+   standard grad mode) at phase 9's EFT recipe, weights and batches: 48
+   lookups (the recording pass), 30 sums and 8 stacked scatters per step,
+   no per-iteration scatter; the first step's loss against phase 9's
+   standard step, its gradients against phase 9's taped step (the same
+   stacked scatter: within twice the distance of two taped steps plus
+   1e-5 of each norm) and its standard step (phase 9's standard-vs-taped
+   gate; the distance of two standard steps reported); median ms/step of
+   5 after a warm-up and peak GB beside phase 9's; one fp32
+   ``precision="highest"`` step at 128x256, 2 iterations, against the
+   port's CPU deferred step (phase 10's gates); (b) the legacy ``RAFT``,
+   basic (hidden 128, context 128, fnet 256) and small (96 / 64 / 128),
+   4 levels, radius 4, a 440x1024 pair (a Sintel frame padded to /8),
+   batch 1, 12 iterations: fp32 ``precision="highest"`` against the
+   port's CPU within 1e-4 x max|flow|, the sums' launches per forward (15
+   basic, 21 small) and nothing else, fp32 and bf16 ms/pair; (c)
+   ``bn_running_average=False`` (PriOrRAFT, basic RAFT), a 64x128
+   forward on the card against the CPU: the flow and the context
+   encoder's updated running statistics. Each phase prints its seconds.
 The launches of phases 15-17 are the tools' measurement runs (path
 "tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
@@ -2756,9 +2775,9 @@ SCALE_FIELD_RTOL = 1e-5
 # JAX's contract (tests/test_model.py:100-115), x flow scale + absolute
 OTF_FLOW_RTOL = OTF_FLOW_ATOL = 1e-4
 # a host time per pair above this many seconds is taken once after the
-# warm-up instead of as the median of three
+# warm-up instead of as the median of SCALE_RUNS
 SLOW_PAIR_S = 30.0
-SCALE_RUNS = 3
+SCALE_RUNS = 1      # was 3: cut to pay for phase 24
 # rematerialisation against no remat at the first step: each gradient
 # tensor within this multiple of the distance between two no-remat steps
 # (the scatter's float atomics) plus JAX's remat rtol
@@ -2767,7 +2786,7 @@ SCALE_RUNS = 3
 # H100) where two no-remat steps agree bitwise
 REMAT_SPREAD_X = 2.0
 REMAT_RTOL = 2e-4
-REMAT_STEPS = 5
+REMAT_STEPS = 3     # was 5: cut to pay for phase 24
 # the on-the-fly training step against the volume route's, 12 iterations:
 # the random-weight recurrence amplifies any rounding (phase 20), so the
 # reference distance is the one the volume route's step moves when its
@@ -3713,6 +3732,276 @@ def phase_lookup_modes(dev, grids):
                 export=mode_export(dev))
 
 
+# -- phase 24: deferred volume gradients, the legacy RAFT, batch statistics -----
+
+DEFERRED_STEPS = TRAIN_STEPS   # timed after one warm-up, as phase 9
+# (a) the deferred step's gradients against the taped step's (both turn
+# the same field cotangents into volume cotangents with one stacked scatter
+# per level and volume; bitwise on the CPU): each tensor within this
+# multiple of the distance between two taped steps (phase 22's rule: the
+# scatter's f32 atomics) plus DEFERRED_RTOL of its norm (floored as
+# grad_floor); against the standard step, phase 9's MODE_GRAD_RTOL (the
+# standard step sums 12 per-iteration bf16 volume cotangents)
+DEFERRED_SPREAD_X = 2.0
+DEFERRED_RTOL = 1e-5
+RAFT_H, RAFT_W = 440, 1024     # (b): a Sintel frame (436x1024) padded to /8
+RAFT_TOL = 1e-4                # (b): card vs CPU, fp32, x max|flow|
+RAFT_SUMS = {False: 15, True: 21}   # the fnet's instance norms per forward
+BN_H, BN_W, BN_ITERS = 64, 128, 4   # (c)
+BN_STATS_RTOL = 1e-4           # (c): each statistic, of its max|value|
+
+
+def deferred_eft(dev, train):
+    """(a) The EFT recipe with ``deferred_vol_grad=True``, standard grad
+    mode, on phase 9's seeded weights and batches: launches per step,
+    median ms/step and peak GB; the first step's loss against phase 9's
+    standard step, its gradients against phase 9's taped step (within
+    DEFERRED_SPREAD_X times the distance of a second taped step plus
+    DEFERRED_RTOL of each norm) and its standard step (MODE_GRAD_RTOL),
+    the distance of a second standard step reported."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    batches = [train_batch(10 + i, TRAIN_B, H, W, dev)
+               for i in range(DEFERRED_STEPS + 1)]
+    want = forward_counts(dccl_level_lookup=LEVELS * ITERS,
+                          instance_norm_sums=30,
+                          dccl_level_scatter_grid=2 * LEVELS)
+    again = {}
+    for mode in ("standard", "taped"):
+        model, step = make_trainer(dev, mode, True, ITERS)
+        step(batches[0], 0)
+        again[mode] = grads_of(model)
+        del model, step
+        torch.cuda.empty_cache()
+    model, step = make_trainer(dev, "standard", True, ITERS,
+                               deferred_vol_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, first = [], None
+    for i, batch in enumerate(batches):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(batch, i)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        if counts != want:
+            fail(f"deferred step {i}: launch counts {counts}, expected "
+                 f"{want}")
+        loss = float(m["train/loss"])
+        if not math.isfinite(loss):
+            fail(f"deferred step {i}: loss {loss}")
+        if i == 0:
+            first = (loss, grads_of(model))
+        else:
+            times.append(dt)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, step
+    torch.cuda.empty_cache()
+
+    loss, g = first
+    l_std, g_std = train["standard_first"]
+    l_tap, g_tap = train["taped_first"]
+    if abs(loss - l_std) > STEP_LOSS_RTOL * abs(l_std):
+        fail(f"deferred loss {loss} vs standard {l_std}")
+    total = math.sqrt(sum(float((a.double() ** 2).sum())
+                          for a in g_std.values()))
+    worst = {"taped": (0.0, ""), "standard": (0.0, "")}
+    ratio_std = 0.0
+    for n, ref in g_tap.items():
+        d = (g[n] - ref).norm().item()
+        spread = (again["taped"][n] - ref).norm().item()
+        gate = (DEFERRED_SPREAD_X * spread + DEFERRED_RTOL
+                * max(ref.norm().item(), grad_floor(n, total)))
+        if d > gate:
+            fail(f"deferred gradient {n} {d:.3e} from the taped step's, "
+                 f"gate {gate:.3e} (two taped steps {spread:.3e} apart)")
+        worst["taped"] = max(worst["taped"], (d / gate, n))
+        s = g_std[n]
+        rel = ((g[n] - s).norm()
+               / max(s.norm().item(), grad_floor(n, total))).item()
+        if rel > MODE_GRAD_RTOL:
+            fail(f"deferred and standard gradients differ on {n}: "
+                 f"{rel:.3e}")
+        worst["standard"] = max(worst["standard"], (rel, n))
+        s_spread = (again["standard"][n] - s).norm().item()
+        if s_spread > 0:
+            ratio_std = max(ratio_std, (g[n] - s).norm().item() / s_spread)
+    med = statistics.median(times)
+    print(f"  (a) deferred {H}x{W} batch {TRAIN_B} iters {ITERS} bf16: "
+          f"launches/step {counts}; median {med:.1f} ms/step over "
+          f"{len(times)} after one warm-up (min {min(times):.1f}, max "
+          f"{max(times):.1f}); peak {peak:.2f} GB; phase 9: standard "
+          f"{train['standard']['ms']:.1f} ms {train['standard']['peak_gb']:.2f}"
+          f" GB, taped {train['taped']['ms']:.1f} ms "
+          f"{train['taped']['peak_gb']:.2f} GB", flush=True)
+    print(f"  (a) first step: loss {loss:.6f} vs standard {l_std:.6f}, "
+          f"taped {l_tap:.6f}; gradients: worst tensor at "
+          f"{worst['taped'][0]:.3f} of its gate against the taped step "
+          f"({worst['taped'][1]}); against the standard step worst rel L2 "
+          f"{worst['standard'][0]:.3e} ({worst['standard'][1]}, gate "
+          f"{MODE_GRAD_RTOL}), at most {ratio_std:.1f}x the distance of two "
+          f"standard steps", flush=True)
+    return dict(ms=med, peak_gb=peak, counts=counts, loss=loss,
+                loss_standard=l_std, worst_of_gate_vs_taped=worst["taped"][0],
+                worst_rel_vs_standard=worst["standard"][0],
+                max_x_standard_spread=ratio_std)
+
+
+def deferred_card_vs_cpu(dev):
+    """(a) One deferred step, fp32 ``precision="highest"``, 128x256, batch
+    1, 2 iterations, on the card against the port's CPU deferred step
+    (phase 10's gates)."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    res = []
+    for d in (torch.device("cpu"), dev):
+        model, step = make_trainer(d, "standard", False, 2, seed=3,
+                                   deferred_vol_grad=True,
+                                   precision="highest")
+        reset_launch_counts()
+        m = step(train_batch(5, 1, 128, 256, d), 0)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        res.append((float(m["train/loss"]),
+                    {n: p.grad.detach().cpu()
+                     for n, p in model.named_parameters()}))
+    want = forward_counts(dccl_level_lookup=2 * LEVELS, instance_norm_sums=30,
+                          dccl_level_scatter_grid=2 * LEVELS)
+    if counts != want:
+        fail(f"deferred fp32 step: launch counts {counts}, expected {want}")
+    (l_c, g_c), (l_g, g_g) = res
+    if abs(l_g - l_c) > STEP_LOSS_RTOL * abs(l_c):
+        fail(f"deferred fp32 step: card loss {l_g} vs CPU {l_c}")
+    total = math.sqrt(sum(float((t.double() ** 2).sum())
+                          for t in g_c.values()))
+    worst = (0.0, "")
+    for n, ref in g_c.items():
+        rel = ((g_g[n] - ref).norm()
+               / max(ref.norm().item(), grad_floor(n, total))).item()
+        if rel > CARD_CPU_GRAD_RTOL:
+            fail(f"deferred fp32 step: card and CPU gradients differ on {n}: "
+                 f"{rel:.3e}")
+        worst = max(worst, (rel, n))
+    print(f"  (a) deferred 128x256 iters 2 fp32 highest: loss card {l_g:.6f} "
+          f"CPU {l_c:.6f}; worst gradient rel L2 {worst[0]:.3e} ({worst[1]};"
+          f" gate {CARD_CPU_GRAD_RTOL})", flush=True)
+    return worst[0]
+
+
+def raft_forwards(dev):
+    """(b) ``RAFT`` basic and small at their published widths, a 440x1024
+    pair, batch 1, 12 iterations: fp32 ``precision="highest"`` on the card
+    against the port's CPU within RAFT_TOL x max|flow|; the sums' launches
+    per forward (the only kernel on this path) and nothing else; fp32 and
+    bf16 ms/pair (median of 7 after a warm-up)."""
+    import torch
+    from prior_flow_tpu_torch.models import build_raft
+    from prior_flow_tpu_torch.ops.kernels import (launch_counts,
+                                                  reset_launch_counts)
+    c1, c2 = images(24, RAFT_H, RAFT_W)
+    g1, g2 = c1.to(dev), c2.to(dev)
+    out = {}
+    for small in (False, True):
+        tag = "small" if small else "basic"
+        t0 = time.perf_counter()
+        ref = build_raft("cpu", seed=0, small=small, precision="highest")(
+            c1, c2, iters=ITERS)
+        cpu_s = time.perf_counter() - t0
+        model = build_raft(dev, seed=0, small=small, precision="highest")
+        reset_launch_counts()
+        flow = model(g1, g2, iters=ITERS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = forward_counts(instance_norm_sums=RAFT_SUMS[small])
+        if counts != want:
+            fail(f"RAFT {tag}: launch counts {counts}, expected {want}")
+        err = (flow.cpu() - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if not (torch.isfinite(flow).all() and err <= RAFT_TOL * scale):
+            fail(f"RAFT {tag}: card and CPU differ by {err:.3e}, flow scale "
+                 f"{scale:.3f}")
+        ms32 = pair_ms(lambda: model(g1, g2, iters=ITERS))
+        model16 = build_raft(dev, seed=0, small=small, mixed_precision=True)
+        flow16 = model16(g1, g2, iters=ITERS)
+        if not torch.isfinite(flow16).all():
+            fail(f"RAFT {tag} bf16: flow not finite")
+        ms16 = pair_ms(lambda: model16(g1, g2, iters=ITERS))
+        out[tag] = dict(ratio=err / scale, scale=scale, ms_fp32=ms32,
+                        ms_bf16=ms16, counts=counts, cpu_s=cpu_s,
+                        bf16_vs_fp32=(flow16 - flow).abs().max().item() / scale)
+        print(f"  (b) RAFT {tag} {RAFT_H}x{RAFT_W} iters {ITERS}: card vs CPU "
+              f"fp32 max err {err:.3e}, flow scale {scale:.3f}, ratio "
+              f"{err / scale:.3e} (gate {RAFT_TOL}); {ms32:.1f} ms/pair fp32, "
+              f"{ms16:.1f} bf16 (bf16 vs fp32 {out[tag]['bf16_vs_fp32']:.3e} "
+              f"x scale, reported); launches {counts}; CPU forward "
+              f"{cpu_s:.1f} s", flush=True)
+        del model, model16
+        torch.cuda.empty_cache()
+    return out
+
+
+def bn_batch_statistics(dev):
+    """(c) ``bn_running_average=False`` (PriOrRAFT, and the basic RAFT),
+    a 64x128 test-mode forward, 4 iterations, fp32 ``precision=
+    "highest"``: flow card vs CPU (CARD_CPU_TOL x flow scale) and the
+    context encoder's updated running statistics (BN_STATS_RTOL of each
+    tensor's max|value|)."""
+    import torch
+    from prior_flow_tpu_torch import build_model
+    from prior_flow_tpu_torch.models import build_raft
+    c1, c2 = images(25, BN_H, BN_W)
+    out = {}
+    for tag, build in (("prior_raft", build_model), ("raft", build_raft)):
+        res = []
+        for d in (torch.device("cpu"), dev):
+            model = build(d, seed=1, precision="highest",
+                          bn_running_average=False)
+            flow = model(c1.to(d), c2.to(d), iters=BN_ITERS).cpu()
+            res.append((flow, {k: v.cpu() for k, v in
+                               model.cnet.state_dict().items()
+                               if k.endswith(("running_mean",
+                                              "running_var"))}))
+        (f_c, s_c), (f_g, s_g) = res
+        scale = f_c.abs().max().item()
+        err = (f_g - f_c).abs().max().item()
+        if not err <= CARD_CPU_TOL * scale:
+            fail(f"bn_running_average=False {tag}: card and CPU flows differ "
+                 f"by {err:.3e} (scale {scale:.3f})")
+        worst = 0.0
+        for k, ref in s_c.items():
+            rel = ((s_g[k] - ref).abs().max() / ref.abs().max()).item()
+            if rel > BN_STATS_RTOL:
+                fail(f"bn_running_average=False {tag}: statistic {k} "
+                     f"{rel:.3e} from the CPU's")
+            worst = max(worst, rel)
+        out[tag] = dict(flow_ratio=err / scale, stats_rel=worst,
+                        n_stats=len(s_c))
+        print(f"  (c) bn_running_average=False {tag} {BN_H}x{BN_W}: flow "
+              f"card vs CPU {err / scale:.3e} x scale (gate {CARD_CPU_TOL}); "
+              f"{len(s_c)} running statistics, worst {worst:.3e} of max "
+              f"(gate {BN_STATS_RTOL})", flush=True)
+    return out
+
+
+def phase_deferred_raft(dev, train):
+    """Phase 24: (a) deferred volume gradients, (b) the legacy RAFT, (c)
+    batch-statistics BatchNorm."""
+    t0 = time.perf_counter()
+    out = dict(deferred=deferred_eft(dev, train))
+    out["deferred"]["card_vs_cpu_worst"] = deferred_card_vs_cpu(dev)
+    t1 = time.perf_counter()
+    out["raft"] = raft_forwards(dev)
+    t2 = time.perf_counter()
+    out["bn"] = bn_batch_statistics(dev)
+    out["s"] = time.perf_counter() - t0
+    print(f"  phase 24: {out['s']:.1f} s ((a) {t1 - t0:.1f} s, (b) "
+          f"{t2 - t1:.1f} s, (c) {out['s'] - (t2 - t0):.1f} s)", flush=True)
+    return out
+
+
 # -- --multichip: data parallel over the host's cards ----------------------------
 
 MULTICHIP_TIMEOUT_S = 900
@@ -3819,6 +4108,24 @@ def multichip_main(name: str) -> None:
                                              "count": n}}))
 
 
+class PhaseClock:
+    """Prints each phase's header and, at the next one, the seconds the
+    phase took."""
+
+    def __init__(self):
+        self.name, self.t = "", 0.0
+
+    def __call__(self, header: str = "") -> None:
+        """Close the running phase; then print ``header`` (none: the last
+        phase ended) and start timing the phase it names."""
+        now = time.perf_counter()
+        if self.name:
+            print(f"  {self.name}: {now - self.t:.1f} s", flush=True)
+        self.name, self.t = " ".join(header.split()[:2]), now
+        if header:
+            print(header, flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3852,21 +4159,21 @@ def main(argv=None) -> None:
         return
 
     t_start = t0 = time.perf_counter()
+    phase = PhaseClock()
     lib = _build.load_library()
-    print(f"phase 1 build: {lib.build_seconds:.1f} s "
-          f"({time.perf_counter() - t0:.1f} s with load) -> {lib.path.name}",
-          flush=True)
+    phase(f"phase 1 build: {lib.build_seconds:.1f} s "
+          f"({time.perf_counter() - t0:.1f} s with load) -> {lib.path.name}")
     for line in lib.compiler_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"  {line.strip()}")
 
     grids = rotation_grids(H, W).to_device(dev)
-    print("phase 2 dccl lookup kernel vs plain", flush=True)
+    phase("phase 2 dccl lookup kernel vs plain")
     lookup = phase_lookup(dev, grids, peaks)
-    print("phase 3 instance-norm sums kernel vs plain", flush=True)
+    phase("phase 3 instance-norm sums kernel vs plain")
     sums = phase_sums(dev, peaks)
 
-    print("phase 4 forward", flush=True)
+    phase("phase 4 forward")
     i1, i2 = (t.to(dev) for t in images(0, H, W))
     model32, flow32, counts, ms32, _ = phase_forward(dev, False, i1, i2)
     model16, flow16, counts16, ms16, _ = phase_forward(dev, True, i1, i2)
@@ -3880,7 +4187,7 @@ def main(argv=None) -> None:
         profile_forward(model16, i1, i2, "bf16")
     del model16, flow16
 
-    print("phase 5 card vs CPU, 128x256, 4 iterations, f32", flush=True)
+    phase("phase 5 card vs CPU, 128x256, 4 iterations, f32")
     from prior_flow_tpu_torch import build_model
     c1, c2 = images(1, 128, 256)
     ref = build_model("cpu", seed=0)(c1, c2, iters=4)
@@ -3895,17 +4202,16 @@ def main(argv=None) -> None:
     print(json.dumps({"card_vs_cpu_ratio_at_torch_defaults": precision}))
 
     grids2 = rotation_grids(H2, W2).to_device(dev)
-    print(f"phase 6 cross-tap-coords kernel vs plain, {H2}x{W2} planes route",
-          flush=True)
+    phase(f"phase 6 cross-tap-coords kernel vs plain, {H2}x{W2} planes route")
     coords = phase_coords(dev, grids, grids2, peaks)
-    print("phase 7 volume-scatter kernel vs plain", flush=True)
+    phase("phase 7 volume-scatter kernel vs plain")
     scatter = phase_scatter(dev, grids, peaks)
-    print("phase 8 instance-norm sums of a train step", flush=True)
+    phase("phase 8 instance-norm sums of a train step")
     sums_train = phase_sums_backward(dev, peaks)
     del model32
     torch.cuda.empty_cache()
-    print(f"phase 9 train step, {H}x{W}, batch {TRAIN_B}, {ITERS} iterations, "
-          f"bf16", flush=True)
+    phase(f"phase 9 train step, {H}x{W}, batch {TRAIN_B}, {ITERS} iterations, "
+          f"bf16")
     train = phase_train(dev)
     print(json.dumps({"train_ms_per_step": {m: train[m]["ms"] for m in
                                             ("standard", "taped")},
@@ -3914,20 +4220,17 @@ def main(argv=None) -> None:
     if args.profile:
         for mode in ("standard", "taped"):
             profile_train_step(dev, mode)
-    print("phase 10 train step, card vs CPU, 128x256, 2 iterations, f32",
-          flush=True)
+    phase("phase 10 train step, card vs CPU, 128x256, 2 iterations, f32")
     _, planes_counts = phase_train_card_vs_cpu(dev)
 
-    print(f"phase 11 lookup at given cross coords vs plain and kernel 1, "
-          f"{H2}x{W2}", flush=True)
+    phase(f"phase 11 lookup at given cross coords vs plain and kernel 1, "
+          f"{H2}x{W2}")
     lookup_coords = phase_lookup_coords(dev, grids2, peaks)
-    print("phase 12 all levels in one launch vs per-level launches",
-          flush=True)
+    phase("phase 12 all levels in one launch vs per-level launches")
     all_levels = phase_all_levels(dev, grids, peaks)
-    print("phase 13 chunked pyramid build vs dense", flush=True)
+    phase("phase 13 chunked pyramid build vs dense")
     pyramids = phase_pyramid_lean(dev)
-    print(f"phase 14 forward {H2}x{W2}; forced routes vs CPU; fused levels",
-          flush=True)
+    phase(f"phase 14 forward {H2}x{W2}; forced routes vs CPU; fused levels")
     hr = phase_forward_hr(dev, ref, flow32, c1, c2, i1, i2)
     print(json.dumps({"forward_1024x2048_ms_per_pair": {
         m: hr[m]["ms"] for m in ("fp32", "bf16")},
@@ -3944,17 +4247,17 @@ def main(argv=None) -> None:
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_hz = max_sm_clock_hz()
-    print(f"phase 15 primitive-rate anchors ({sms} SMs, max SM clock "
-          f"{clock_hz / 1e6:.0f} MHz)", flush=True)
+    phase(f"phase 15 primitive-rate anchors ({sms} SMs, max SM clock "
+          f"{clock_hz / 1e6:.0f} MHz)")
     chain, plan, copy, tool_anchor = phase_anchors(dev, peaks, sms, clock_hz)
-    print(f"phase 16 DCCL stage split, {H}x{W}, batch 1", flush=True)
+    phase(f"phase 16 DCCL stage split, {H}x{W}, batch 1")
     stages, tool_split = phase_stage_split(dev, peaks)
-    print("phase 17 grid-window variants", flush=True)
+    phase("phase 17 grid-window variants")
     variant, pair, one_branch, tool_gridwin = phase_gridwin(dev, peaks)
     tool = {k: tool_anchor[k] + tool_split[k] + tool_gridwin[k]
             for k in tool_anchor}
-    print(f"phase 18 evaluation path, {H}x{W}: cli.evaluate, cli.video, "
-          f"cli.demo_image", flush=True)
+    phase(f"phase 18 evaluation path, {H}x{W}: cli.evaluate, cli.video, "
+          f"cli.demo_image")
     ev = phase_eval(dev, ms32)
     print(json.dumps({"eval_ms_per_pair": ev["ms_per_pair"],
                       "forward_ms_per_pair_fp32": ms32,
@@ -3963,13 +4266,13 @@ def main(argv=None) -> None:
                       "eval_card_vs_cpu_rel": ev["card_vs_cpu_rel"],
                       "eval_batch2_rel": ev["batch_rel"]}))
 
-    print(f"phase 19 training CLI, {H}x{W}, batch {TRAIN_B}, {ITERS} "
-          f"iterations, bf16", flush=True)
+    phase(f"phase 19 training CLI, {H}x{W}, batch {TRAIN_B}, {ITERS} "
+          f"iterations, bf16")
     tc = phase_train_cli(dev, train)
     print(json.dumps({k: v for k, v in tc.items() if k != "counts"}))
 
-    print(f"phase 20 serving, {H}x{W} and {H2}x{W2}: torch.library ops, "
-          f"exported programs, AOTInductor packages, cli.export", flush=True)
+    phase(f"phase 20 serving, {H}x{W} and {H2}x{W2}: torch.library ops, "
+          f"exported programs, AOTInductor packages, cli.export")
     sv = phase_serving(dev, grids, grids2)
     print(json.dumps({"serving_ms_per_pair": {
         tag: sv[tag]["ms"] for tag in ("fp32", "bf16")},
@@ -3993,9 +4296,9 @@ def main(argv=None) -> None:
                                for tag in ("fp32", "bf16")},
         "serving_cli_check_err": sv["cli_check_err"]}))
 
-    print(f"phase 21 memory-scale modes: on-the-fly correlation ({H2}x{W2} "
+    phase(f"phase 21 memory-scale modes: on-the-fly correlation ({H2}x{W2} "
           f"against the volume route, {H3}x{W3} bf16), rematerialisation at "
-          f"the EFT recipe, on-the-fly training", flush=True)
+          f"the EFT recipe, on-the-fly training")
     sc = phase_scale(dev, peaks)
     print(json.dumps({
         "onthefly_field_rel_1024x2048": sc["field_rel"],
@@ -4016,9 +4319,9 @@ def main(argv=None) -> None:
             **{f"{k}_{q}": v[q] for k, v in sc["train_otf"]["res"].items()
                for q in ("ms", "peak_gb")}}}))
 
-    print(f"phase 22 data parallel on one card: a one-rank NCCL mesh at the "
+    phase(f"phase 22 data parallel on one card: a one-rank NCCL mesh at the "
           f"EFT recipe, {DP_RANKS} gloo ranks sharing the card, NCCL refusing "
-          f"them, dryrun_multichip({DP_RANKS})", flush=True)
+          f"them, dryrun_multichip({DP_RANKS})")
     dp = phase_parallel(dev)
     print(json.dumps({
         "dp_world1_nccl": dp["world1"],
@@ -4028,17 +4331,27 @@ def main(argv=None) -> None:
         "dp_nccl_two_ranks_one_card": dp["nccl_shared"],
         "dryrun_multichip": dp["dryrun"]}))
 
-    print(f"phase 23 lookup modes mxu and gather, {H}x{W}, against the kernel "
-          f"route; the mxu program on cuda and cpu", flush=True)
-    t0 = time.perf_counter()
+    phase(f"phase 23 lookup modes mxu and gather, {H}x{W}, against the kernel "
+          f"route; the mxu program on cuda and cpu")
     lm = phase_lookup_modes(dev, grids)
-    print(f"  phase 23: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"lookup_mode_fields": lm["fields"],
                       "lookup_mode_forward": {
                           m: {k: v for k, v in r.items() if k != "counts"}
                           for m, r in lm["forward"].items()},
                       "lookup_mode_export": lm["export"]}))
 
+    phase(f"phase 24 deferred volume gradients at the EFT recipe; RAFT basic "
+          f"and small, {RAFT_H}x{RAFT_W}; batch-statistics BatchNorm")
+    p24 = phase_deferred_raft(dev, train)
+    d24 = p24["deferred"]
+    print(json.dumps({
+        "train_deferred": {k: v for k, v in d24.items() if k != "counts"},
+        "train_ms_per_step_phase9": {m: train[m]["ms"] for m in
+                                     ("standard", "taped")},
+        "raft_440x1024": {tag: {k: v for k, v in r.items() if k != "counts"}
+                          for tag, r in p24["raft"].items()},
+        "bn_batch_statistics": p24["bn"]}))
+    phase()
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     try:
@@ -4075,7 +4388,13 @@ def main(argv=None) -> None:
                 "global 4, 12 iterations, fp32); "
                 "launches_forward_mxu_512x1024: one 512x1024 fp32 forward "
                 "with lookup_mode='mxu' (phase 23: no lookup kernel, the "
-                "encoders' sums)")
+                "encoders' sums); launches_train_deferred: one standard "
+                "step with deferred_vol_grad=True (phase 24: 512x1024, batch "
+                "4, 12 iterations, bf16; the lookups in the recording pass, "
+                "one stacked scatter per level and volume); "
+                "launches_raft_basic_440x1024 / _small_: one 440x1024 fp32 "
+                "forward of the legacy RAFT, 12 iterations (phase 24: the "
+                "feature encoder's sums)")
 
     def row(name, src, replaces, d, work, err, path="train"):
         paths = {"train": std, "forward_1024x2048": hr_counts,
@@ -4098,6 +4417,11 @@ def main(argv=None) -> None:
                     dp["two_ranks"]["standard"]["launches"].get(name, 0),
                 "launches_forward_mxu_512x1024":
                     lm["forward"]["mxu"]["counts"][name],
+                "launches_train_deferred": d24["counts"][name],
+                "launches_raft_basic_440x1024":
+                    p24["raft"]["basic"]["counts"][name],
+                "launches_raft_small_440x1024":
+                    p24["raft"]["small"]["counts"][name],
                 "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
                 "library_ms": d["library_ms"], "work": work + "; " + per_path,

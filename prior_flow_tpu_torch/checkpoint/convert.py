@@ -12,6 +12,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from ..nn.layers import FrozenBatchNorm, GroupNorm
+
 
 def strip_module_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     """Drop the DataParallel ``module.`` prefix."""
@@ -39,8 +41,11 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
 
     Conv kernels HWIO -> OIHW, ``scale`` -> ``weight``, ``mean``/``var`` ->
     ``running_mean``/``running_var``, ``layer1_0`` -> ``layer1.0``,
-    ``mask_0`` -> ``mask.0``, and each strided block's ``norm3`` re-emitted
-    as its ``downsample.1`` alias (``convert.py:217-270``).
+    ``mask_0`` -> ``mask.0`` (GroupNorm's ``scale`` too -> ``weight``),
+    and each strided block's downsample norm re-emitted as its
+    ``downsample.1`` alias (``convert.py:217-270``): a ``ResidualBlock``'s
+    ``norm3``, a ``BottleneckBlock``'s ``norm4`` (upstream
+    ``extractor.py``'s registration).
     """
     out: Dict[str, torch.Tensor] = {}
 
@@ -70,8 +75,10 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     for key in [k for k in out if ".downsample.0." in k
                 or k.startswith("downsample.0.")]:
         block = key.split("downsample.0.")[0]
-        for k2 in [k for k in out if k.startswith(f"{block}norm3.")]:
-            out[k2.replace("norm3.", "downsample.1.", 1)] = out[k2]
+        norm = ("norm4." if any(k.startswith(f"{block}norm4.") for k in out)
+                else "norm3.")
+        for k2 in [k for k in out if k.startswith(block + norm)]:
+            out[k2.replace(norm, "downsample.1.", 1)] = out[k2]
     return out
 
 
@@ -134,8 +141,10 @@ def convert_things_ckpt(state_dict: Mapping[str, Any],
 def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
     """Deterministic random weights from a CPU ``torch.Generator``: conv
     kernels truncated-normal with std 1/sqrt(fan_in) (Flax's lecun_normal),
-    conv biases zero, frozen BatchNorm at identity statistics. The same seed
-    gives the same weights on every device."""
+    conv biases zero, every norm's affine (BatchNorm, GroupNorm) the
+    identity (Flax's ``scale`` ones, ``bias`` zeros) and BatchNorm's
+    statistics at identity. The same seed gives the same weights on every
+    device."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -147,3 +156,9 @@ def init_weights(model: torch.nn.Module, seed: int = 0) -> None:
                                             generator=gen)
                 mod.weight.copy_(w)
                 mod.bias.zero_()
+            elif isinstance(mod, (FrozenBatchNorm, GroupNorm)):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                if isinstance(mod, FrozenBatchNorm):
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)

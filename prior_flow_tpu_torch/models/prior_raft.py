@@ -17,7 +17,30 @@ JAX package makes. Above ``LEAN_BUILD_QUERIES`` 1/8 queries (as at
 1024x2048) the pyramids are built in query chunks
 (``ops.corr.build_pyramid_lean``, ``prior_raft.py:394-409``), and there
 the 1/8 grid is wider than 128 columns, so ``DCCLFused`` takes its planes
-route. The two-scan ``deferred_vol_grad`` path is not ported.
+route.
+
+Deferred volume gradients (``deferred_vol_grad``, ``prior_raft.py:156-164,
+386-395,486-540``): a training forward on the ``DCCLFused`` volume route
+runs in the three stages of JAX's ``_forward_deferred``:
+(a) ``_record_and_rebind``'s recording pass under
+``torch.no_grad()``, the same recurrence through ``DCCLFused.record``,
+without mask heads or upsampling, keeping every iteration's summed fields
+and centres; (b) ``ops.corr.DCCLDeferredRebind``, the identity on the
+stacked fields whose backward is ONE stacked scatter per level and volume
+(``ops.corr.stacked_volume_cotangents``, which the taped backward shares);
+(c) the replay, ``_recur`` with the rebound fields in place of the lookups,
+in the same checkpoint regions as the standard path. The gradients are
+the standard path's: the lookup is linear in the volume and the coords
+are detached every iteration. Under mixed precision the pyramids are built
+in query chunks at every size (``:394-395``; the dense build's bits).
+The ``mxu`` / ``gather`` lookups and ``corr_mode="onthefly"`` take the
+standard path, and the taped backward ignores the field, as in JAX.
+
+BatchNorm (``bn_running_average``, ``prior_raft.py:137,172``): ``True``,
+the default, freezes the context encoder's norms at their running
+statistics (``nn.layers.FrozenBatchNorm``); ``False`` normalises by each
+call's batch statistics and updates the running ones
+(``nn.layers.BatchNorm``).
 
 Correlation (``corr_mode``, ``prior_raft.py:150-155,386-399``):
 ``"volume"`` (the default) builds both branches' volume pyramids once and
@@ -75,8 +98,9 @@ from torch.nn import functional as F
 from ..geometry import grids as gridlib
 from ..nn.encoder import BasicEncoder
 from ..nn.update import BasicMultiUpdateBlock, BasicUpdateBlock
-from ..ops.corr import (DCCL, DCCLFused, DCCLOnTheFly, all_pairs_correlation,
-                        build_pyramid, build_pyramid_lean, groupwise_corr)
+from ..ops.corr import (DCCL, DCCLDeferredRebind, DCCLFused, DCCLOnTheFly,
+                        all_pairs_correlation, build_pyramid,
+                        build_pyramid_lean, groupwise_corr)
 from ..ops.samplers import cycle_bilinear_sample
 from ..ops.warp import flo_rotate, img_rotate
 from ..utils.precision import check_precision, precision_scope
@@ -153,7 +177,8 @@ class PriOrRAFT(nn.Module):
                  dropout: float = 0.0, mixed_precision: bool = False,
                  precision: Optional[str] = None, corr_mode: str = "volume",
                  remat: bool = True, remat_policy: str = "dccl",
-                 lookup_mode: str = "auto"):
+                 lookup_mode: str = "auto", bn_running_average: bool = True,
+                 deferred_vol_grad: bool = False):
         super().__init__()
         check_precision(precision)
         if corr_mode not in CORR_MODES:
@@ -170,6 +195,7 @@ class PriOrRAFT(nn.Module):
         self.lookup_mode = lookup_mode
         self.remat = remat
         self.remat_policy = remat_policy
+        self.deferred_vol_grad = deferred_vol_grad
         self.hidden_dim = hidden_dim
         self.corr_levels = corr_levels
         self.mixed_precision = mixed_precision
@@ -177,7 +203,8 @@ class PriOrRAFT(nn.Module):
         self.dropout = dropout
         self.fnet = BasicEncoder(256, "instance", dropout=dropout)
         self.cnet = BasicEncoder(hidden_dim + context_dim, "batch",
-                                 dropout=dropout)
+                                 dropout=dropout,
+                                 use_running_average=bn_running_average)
         self.ODDC = BasicMultiUpdateBlock(hidden_dim, corr_planes)
         self.update_block = BasicUpdateBlock(hidden_dim, corr_planes)
         if corr_mode == "onthefly":
@@ -231,11 +258,11 @@ class PriOrRAFT(nn.Module):
         fmaps = tuple(_nhwc(f.float()).contiguous() for f in fmaps)
         return net_A, net_B, inp_A, inp_B, fmaps
 
-    def build_pyramids(self, fmaps):
+    def build_pyramids(self, fmaps, lean: bool = False):
         """Both branches' 4-level pyramids from the channels-last fmaps,
         differentiable when autograd records. Volume pyramids are stored in
         bf16 under mixed precision (``prior_raft.py:385``) and built in
-        query chunks above ``LEAN_BUILD_QUERIES`` queries
+        query chunks above ``LEAN_BUILD_QUERIES`` queries or with ``lean``
         (``prior_raft.py:394-414``; the same bits as the dense build); with
         ``corr_mode="onthefly"`` the f32 feature pyramids of
         ``DCCLOnTheFly.build_pyramid``."""
@@ -246,7 +273,7 @@ class PriOrRAFT(nn.Module):
                          for f1, f2 in pairs)
         dt = torch.bfloat16 if self.mixed_precision else torch.float32
         _, h8, w8, _ = fmap1_A.shape
-        if h8 * w8 > LEAN_BUILD_QUERIES:
+        if lean or h8 * w8 > LEAN_BUILD_QUERIES:
             return tuple(build_pyramid_lean(f1, f2, self.corr_levels, dt)
                          for f1, f2 in pairs)
         return tuple([p.to(dt).contiguous() for p in build_pyramid(
@@ -346,7 +373,11 @@ class PriOrRAFT(nn.Module):
         net_A, net_B, inp_A, inp_B, fmaps = self.encode(
             image1, image2, g,
             self.dropout_generator(generator) if train else None)
-        pyr_A, pyr_B = self.build_pyramids(fmaps)
+        deferred = (self.deferred_vol_grad and train
+                    and isinstance(self.dccl, DCCLFused)
+                    and self.corr_mode != "onthefly")
+        pyr_A, pyr_B = self.build_pyramids(
+            fmaps, lean=deferred and self.mixed_precision)
 
         h8, w8 = H // 8, W // 8
         coords0 = gridlib.identity_grid_on(h8, w8, dev).expand(B, h8, w8, 2)
@@ -369,8 +400,43 @@ class PriOrRAFT(nn.Module):
             return own_A + cross_A, own_B + cross_B
 
         k = StepConsts(inp_A, inp_B, fmaps[0], fmaps[1], coords0, g)
+        if deferred:
+            corr_fn = self._record_and_rebind(
+                net_A, net_B, coords1_A, coords1_B, k, pyr_A, pyr_B, iters)
         return self._recur(net_A, net_B, coords1_A, coords1_B, k, corr_fn,
                            iters, train)
+
+    def _record_and_rebind(self, net_A, net_B, coords1_A, coords1_B,
+                           k: StepConsts, pyr_A, pyr_B, iters: int):
+        """Stages (a) and (b) of the deferred path (JAX's
+        ``_forward_deferred``, ``prior_raft.py:486-540``): the recording
+        pass without gradients through ``DCCLFused.record``, the same
+        recurrence as the replay (``_step`` under the caller's autocast and
+        precision, coords detached each iteration; no mask heads, no
+        upsampling), then ``DCCLDeferredRebind`` on the stacked fields.
+        Returns the replay's ``corr_fn``, which hands out iteration s's
+        rebound fields and runs no lookup."""
+        g = k.grids
+        rec = []    # per iteration ((field_A, field_B), (cen_A, cen_B))
+
+        def record(c_A, c_B):
+            rec.append(self.dccl.record(c_A, c_B, pyr_A, pyr_B, g.a2b_w2c_8,
+                                        g.b2a_w2c_8, g.a2b_8, g.b2a_8))
+            return rec[-1][0]
+
+        with torch.no_grad():
+            state = (net_A, net_B, coords1_A, coords1_B)
+            for _ in range(iters):
+                state = self._step(*state, k, record, mask_A=False,
+                                   mask_B=False, upsample=False)[:4]
+        stacked = [torch.stack([r[i][j] for r in rec])
+                   for i in range(2) for j in range(2)]
+        del rec
+        vols = [v for i in range(self.corr_levels)
+                for v in (pyr_A[i], pyr_B[i])]
+        fields_A, fields_B = DCCLDeferredRebind.apply(*stacked, g, *vols)
+        taps = iter(zip(fields_A.unbind(0), fields_B.unbind(0)))
+        return lambda c_A, c_B: next(taps)
 
     def iterate_taped(self, net_A, net_B, inp_A, inp_B, fmap1_A, fmap2_A,
                       pyr_A, pyr_B, iters: int = 12):

@@ -1,12 +1,15 @@
 """Encoders, update blocks and shared layers (NCHW torch modules)."""
 
-from .encoder import BasicEncoder, ResidualBlock
-from .layers import FrozenBatchNorm, InstanceNorm, conv
+from .encoder import (BasicEncoder, BottleneckBlock, ResidualBlock,
+                      SmallEncoder)
+from .layers import BatchNorm, FrozenBatchNorm, GroupNorm, InstanceNorm, conv
 from .update import (BasicMotionEncoder, BasicMultiMotionEncoder,
-                     BasicMultiUpdateBlock, BasicUpdateBlock, FlowHead,
-                     SepConvGRU)
+                     BasicMultiUpdateBlock, BasicUpdateBlock, ConvGRU,
+                     FlowHead, SepConvGRU, SmallMotionEncoder,
+                     SmallUpdateBlock)
 
-__all__ = ["BasicEncoder", "ResidualBlock", "FrozenBatchNorm", "InstanceNorm",
+__all__ = ["BasicEncoder", "BottleneckBlock", "ResidualBlock", "SmallEncoder",
+           "BatchNorm", "FrozenBatchNorm", "GroupNorm", "InstanceNorm",
            "conv", "BasicMotionEncoder", "BasicMultiMotionEncoder",
-           "BasicMultiUpdateBlock", "BasicUpdateBlock", "FlowHead",
-           "SepConvGRU"]
+           "BasicMultiUpdateBlock", "BasicUpdateBlock", "ConvGRU", "FlowHead",
+           "SepConvGRU", "SmallMotionEncoder", "SmallUpdateBlock"]

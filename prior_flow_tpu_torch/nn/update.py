@@ -1,6 +1,8 @@
 """ConvGRU update blocks and motion encoders (counterpart of
-``prior_flow_tpu/nn/update.py``). Channel orders inside every concatenation
-follow the reference exactly. NCHW throughout."""
+``prior_flow_tpu/nn/update.py``): PriOr-RAFT's and RAFT's
+``BasicUpdateBlock``, the ODDC ``BasicMultiUpdateBlock``, and the legacy
+``SmallUpdateBlock`` of ``RAFT(small=True)``. Channel orders inside every
+concatenation follow the reference exactly. NCHW throughout."""
 
 from __future__ import annotations
 
@@ -23,6 +25,29 @@ class FlowHead(nn.Module):
         return self.conv2(F.relu(self.conv1(x)))
 
 
+def _gru_pass(h, x, convz, convr, convq):
+    """One GRU update of h by x through the three gate convs."""
+    hx = torch.cat([h, x], dim=1)
+    z = torch.sigmoid(convz(hx))
+    r = torch.sigmoid(convr(hx))
+    q = torch.tanh(convq(torch.cat([r * h, x], dim=1)))
+    return (1 - z) * h + z * q
+
+
+class ConvGRU(nn.Module):
+    """One-pass GRU with 3x3 convs (``prior_flow_tpu/nn/update.py:37``)."""
+
+    def __init__(self, hidden_dim: int = 128, input_dim: int = 192 + 128):
+        super().__init__()
+        cin = hidden_dim + input_dim
+        self.convz = conv(cin, hidden_dim, 3)
+        self.convr = conv(cin, hidden_dim, 3)
+        self.convq = conv(cin, hidden_dim, 3)
+
+    def forward(self, h, x):
+        return _gru_pass(h, x, self.convz, self.convr, self.convq)
+
+
 class SepConvGRU(nn.Module):
     """Two-pass GRU, (1, 5) then (5, 1) convs."""
 
@@ -34,16 +59,27 @@ class SepConvGRU(nn.Module):
                 setattr(self, f"conv{g}{p}", conv(cin, hidden_dim, k,
                                                   padding=pad))
 
-    def _pass(self, h, x, convz, convr, convq):
-        hx = torch.cat([h, x], dim=1)
-        z = torch.sigmoid(convz(hx))
-        r = torch.sigmoid(convr(hx))
-        q = torch.tanh(convq(torch.cat([r * h, x], dim=1)))
-        return (1 - z) * h + z * q
-
     def forward(self, h, x):
-        h = self._pass(h, x, self.convz1, self.convr1, self.convq1)
-        return self._pass(h, x, self.convz2, self.convr2, self.convq2)
+        h = _gru_pass(h, x, self.convz1, self.convr1, self.convq1)
+        return _gru_pass(h, x, self.convz2, self.convr2, self.convq2)
+
+
+class SmallMotionEncoder(nn.Module):
+    """Legacy {corr, flow} -> 82-channel motion feature
+    (``prior_flow_tpu/nn/update.py:82``)."""
+
+    def __init__(self, corr_planes: int = CORR_PLANES):
+        super().__init__()
+        self.convc1 = conv(corr_planes, 96, 1, padding=0)
+        self.convf1 = conv(2, 64, 7, padding=3)
+        self.convf2 = conv(64, 32, 3)
+        self.conv = conv(128, 80, 3)
+
+    def forward(self, flow, corr):
+        cor = F.relu(self.convc1(corr))
+        flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
+        out = F.relu(self.conv(torch.cat([cor, flo], dim=1)))
+        return torch.cat([out, flow], dim=1)
 
 
 class BasicMotionEncoder(nn.Module):
@@ -131,3 +167,21 @@ class BasicMultiUpdateBlock(_UpdateHeads):
                 with_mask: bool = True):
         motion = self.encoder(flow_A, corr_A, flaw_A, flow_B_A, flaw_B_A)
         return self._heads(net, inp, motion, with_mask)
+
+
+class SmallUpdateBlock(nn.Module):
+    """Legacy small update block (``prior_flow_tpu/nn/update.py:98``):
+    ``SmallMotionEncoder``, a ``ConvGRU`` on the context and motion
+    features (64 + 82 channels), a 128-wide flow head, no mask head: the
+    mask it returns is None whatever ``with_mask`` asks."""
+
+    def __init__(self, hidden_dim: int = 96, corr_planes: int = CORR_PLANES):
+        super().__init__()
+        self.encoder = SmallMotionEncoder(corr_planes)
+        self.gru = ConvGRU(hidden_dim, input_dim=82 + 64)
+        self.flow_head = FlowHead(hidden_dim, hidden_dim=128)
+
+    def forward(self, net, inp, corr, flow, with_mask: bool = True):
+        motion = self.encoder(flow, corr)
+        net = self.gru(net, torch.cat([inp, motion], dim=1))
+        return net, None, self.flow_head(net)

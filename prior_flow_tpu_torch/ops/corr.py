@@ -18,7 +18,8 @@ differentiable forms are ``DCCLAllLevelsLookup`` (every level of the grid
 route, the custom VJPs of ``dccl_packed_lookup_grid`` and
 ``dccl_packed_lookup_grid_all``) and ``DCCLLevelLookupCoords`` (of
 ``dccl_packed_lookup_planes``); ``DCCLFused.record`` serves the taped
-backward, which scatters all iterations at once. ``DCCL`` (``mxu``,
+backward and the deferred path (``DCCLDeferredRebind``), which scatter all
+iterations at once through ``stacked_volume_cotangents``. ``DCCL`` (``mxu``,
 ``gather``) is the JAX package's one-branch lookup without a kernel,
 differentiated by autograd.
 """
@@ -37,7 +38,7 @@ from .kernels.dccl_lookup import (NTAP, RADIUS, dccl_level_lookup,
                                   sample_volume_level, window_delta)
 from .kernels.dccl_scatter import dccl_level_scatter, dccl_level_scatter_grid
 from .samplers import bilinear_corners, cycle_bilinear_sample
-from .static_resample import resample_static
+from .static_resample import resample_static, resample_static_transpose
 
 __all__ = ["all_pairs_correlation", "avg_pool2", "build_pyramid",
            "build_pyramid_lean", "groupwise_corr", "DCCL", "DCCLFused",
@@ -45,6 +46,7 @@ __all__ = ["all_pairs_correlation", "avg_pool2", "build_pyramid",
            "sample_volume_level", "sample_volume_level_mxu",
            "DCCLOnTheFly", "OnTheFlyTaps", "tap_values",
            "DCCLLevelLookupCoords", "DCCLAllLevelsLookup",
+           "DCCLDeferredRebind", "stacked_volume_cotangents",
            "window_delta", "dccl_level_lookup", "dccl_level_lookup_plain"]
 
 
@@ -220,6 +222,79 @@ class DCCLAllLevelsLookup(torch.autograd.Function):
                   dccl_level_scatter_grid(g_ownB, cB, g_crossA, cA, grid_A, s,
                                           Hl, Wl, dtype)]
         return (None,) * 6 + tuple(d)
+
+
+def stacked_volume_cotangents(g_A, g_B, cen_A, cen_B, levels, grids):
+    """The volume cotangents of S recorded iterations of the grid route
+    at once (``dccl_gather.py::_rebind_bwd``, ``:1235-1277``): the shared
+    step of the taped backward (``train/trainer.py::taped_value_and_grad``)
+    and of ``DCCLDeferredRebind``.
+
+    g_*: the stacked cotangents (S, B, h1, w1, L*81) of the summed own +
+    back-rotated cross fields; cen_*: the recorded unscaled centres
+    (S, B, Q, 2); ``levels``: per level (Hl, Wl, dtype) of the volumes;
+    ``grids``: the ``RotationGrids`` the lookups ran on. First the
+    transposed back-rotation of each branch's cross part, then per level
+    and volume ONE grid-entry scatter with S = iterations, which reads the
+    level's columns of the stacked cotangents in place and computes the
+    other branch's cross tap coords itself. Returns per level the pair
+    (d vol_A, d vol_B)."""
+    S, B, h1, w1, C = g_A.shape
+    Q = h1 * w1
+
+    def back_rot_t(gf, grid):
+        # own and cross were summed, so both read the field cotangent
+        ct = resample_static_transpose(gf.reshape(S * B, h1, w1, C), grid,
+                                       (h1, w1))
+        return ct.reshape(S, B, Q, C)
+
+    gA_cross = back_rot_t(g_A, grids.b2a_8)
+    gB_cross = back_rot_t(g_B, grids.a2b_8)
+    gA_own = g_A.reshape(S, B, Q, C)
+    gB_own = g_B.reshape(S, B, Q, C)
+    d = []
+    for lvl, (Hl, Wl, dtype) in enumerate(levels):
+        s = 1.0 / 2.0 ** lvl
+        sl = slice(lvl * NTAP, (lvl + 1) * NTAP)
+        # volume A takes branch A's own taps and branch B's cross taps
+        d.append((
+            dccl_level_scatter_grid(gA_own[..., sl], cen_A, gB_cross[..., sl],
+                                    cen_B, grids.b2a_w2c_8, s, Hl, Wl, dtype),
+            dccl_level_scatter_grid(gB_own[..., sl], cen_B, gA_cross[..., sl],
+                                    cen_A, grids.a2b_w2c_8, s, Hl, Wl, dtype)))
+    return d
+
+
+class DCCLDeferredRebind(torch.autograd.Function):
+    """Re-binds the fields of a no-grad recording pass to the volumes
+    (counterpart of ``dccl_deferred_rebind`` / ``_rebind``,
+    ``dccl_gather.py:1193-1302``), for ``PriOrRAFT(deferred_vol_grad=True)``.
+
+    ``apply(fields_A, fields_B, cen_A, cen_B, grids, *vols)`` with the
+    recorded stacked fields (S, B, h1, w1, L*81), the recorded centres
+    (S, B, Q, 2), the ``RotationGrids`` of the recording and ``vols`` =
+    (A_0, B_0, A_1, B_1, ...). Forward: the identity on the two stacked
+    fields. Backward: ``stacked_volume_cotangents`` at the recorded centres
+    (the cross tap coords are recomputed inside the scatter, not taped:
+    ~3.2 GB at 512x1024, batch 4, ``dccl_gather.py:1049-1051``). The
+    lookup is linear in the volume and its coords carry no gradient, so
+    this is the sum of every iteration's lookup backward. Fields, centres
+    and grids get no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, fields_A, fields_B, cen_A, cen_B, grids, *vols):
+        ctx.save_for_backward(cen_A, cen_B)
+        ctx.grids = grids
+        ctx.levels = [(v.shape[2], v.shape[3], v.dtype) for v in vols[0::2]]
+        return fields_A.view_as(fields_A), fields_B.view_as(fields_B)
+
+    @staticmethod
+    def backward(ctx, g_A, g_B):
+        cen_A, cen_B = ctx.saved_tensors
+        d = stacked_volume_cotangents(g_A, g_B, cen_A, cen_B, ctx.levels,
+                                      ctx.grids)
+        return (None,) * 5 + tuple(t for pair in d for t in pair)
 
 
 # the JAX package samples the cross tap coords inside the lookup kernel only

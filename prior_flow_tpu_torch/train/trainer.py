@@ -12,6 +12,12 @@
   over all iterations (``trainer.py:68-194``). The lookup is linear in the
   volume and the coords are detached every iteration, so both modes give
   the same gradients.
+- A model built with ``deferred_vol_grad=True`` takes, in the standard
+  mode, the two-pass training forward of ``models/prior_raft.py`` (a
+  no-grad recording pass, the rebind, the replay); its backward runs the
+  taped mode's stacked scatter, which both share:
+  ``ops.corr.stacked_volume_cotangents``. The taped mode ignores the
+  field, as JAX's ``iterate_taped`` does.
 - ``add_noise``: gaussian noise of a per-step standard deviation on both
   images (``trainer.py:230-237``), drawn from a generator keyed by
   (seed, step), as the encoders' dropout draws are: a resumed run draws
@@ -55,9 +61,7 @@ from ..checkpoint.convert import (ORBAX_HINT, convert_things_ckpt, load_pth,
 from ..data.loader import device_prefetch
 from ..models import build_model, precision_scope
 from ..nn.layers import RankDraws, draw_rows
-from ..ops.corr import DCCLFused
-from ..ops.kernels.dccl_scatter import dccl_level_scatter_grid
-from ..ops.static_resample import resample_static_transpose
+from ..ops.corr import DCCLFused, stacked_volume_cotangents
 from ..ops.warp import flo_a2b
 from ..parallel.mesh import (all_reduce_grads, all_reduce_sums,
                              batch_sharding, replicated)
@@ -130,13 +134,13 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
     (a) encode with graph, outputs detached into leaves; (b) the pyramids
     from the fmap leaves, with graph; (c) the GRU loop with record lookups
     on the detached pyramids, each iteration's summed field a leaf, and
-    ``backward`` of the loss; (d) the stacked field cotangents, the
-    transposed back-rotation for their cross part, then per level and
-    volume ONE grid-entry scatter with S = iters, which reads the level's
-    columns of the stacked cotangents in place and computes the other
-    branch's cross tap coords itself (``dccl_gather.py::_rebind_bwd``); (e)
-    backward through the pyramid
-    build, then through the encoder with the leaves' gradients.
+    ``backward`` of the loss; (d) the stacked field cotangents into the
+    volume cotangents by ``ops.corr.stacked_volume_cotangents`` (the
+    transposed back-rotation of their cross part, then per level and
+    volume ONE grid-entry scatter with S = iters; shared with
+    ``PriOrRAFT(deferred_vol_grad=True)``'s rebind); (e) backward through
+    the pyramid build, then through the encoder with the leaves'
+    gradients.
     ``generator``: the encoders' dropout draws; ``mesh``: as ``dual_loss``
     reads it. Refuses ``corr_mode="onthefly"``
     (``prior_flow_tpu/train/trainer.py:102-103``): the stacked scatter
@@ -166,33 +170,10 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
     loss.backward()
 
     with torch.no_grad():                                         # (d)
-        gA = torch.stack([f.grad for f in fields_A])   # (S, B, h1, w1, L*81)
-        gB = torch.stack([f.grad for f in fields_B])
-        S, _, h1, w1, C = gA.shape
-        Q = h1 * w1
-
-        def back_rot_t(gf, grid):
-            # own and cross were summed, so both read the field cotangent
-            ct = resample_static_transpose(gf.reshape(S * B, h1, w1, C),
-                                           grid, (h1, w1))
-            return ct.reshape(S, B, Q, C)
-
-        gA_cross = back_rot_t(gA, g.b2a_8)
-        gB_cross = back_rot_t(gB, g.a2b_8)
-        gA_own = gA.reshape(S, B, Q, C)
-        gB_own = gB.reshape(S, B, Q, C)
-        d_pyr = []
-        for lvl, (vA, vB) in enumerate(zip(pyr_A, pyr_B)):
-            s = 1.0 / 2.0 ** lvl
-            sl = slice(lvl * 81, (lvl + 1) * 81)
-            Hl, Wl = vA.shape[2:]
-            d_pyr.append((
-                dccl_level_scatter_grid(gA_own[..., sl], cen_A,
-                                        gB_cross[..., sl], cen_B, g.b2a_w2c_8,
-                                        s, Hl, Wl, vA.dtype),
-                dccl_level_scatter_grid(gB_own[..., sl], cen_B,
-                                        gA_cross[..., sl], cen_A, g.a2b_w2c_8,
-                                        s, Hl, Wl, vB.dtype)))
+        d_pyr = stacked_volume_cotangents(
+            torch.stack([f.grad for f in fields_A]),
+            torch.stack([f.grad for f in fields_B]), cen_A, cen_B,
+            [(v.shape[2], v.shape[3], v.dtype) for v in pyr_A], g)
 
     torch.autograd.backward([*pyr_A, *pyr_B],                     # (e)
                             [d[0] for d in d_pyr] + [d[1] for d in d_pyr])

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions, the DCCL routes
 against each other, a forward and a train step on the card against the
 CPU, the memory-scale modes on the card (the on-the-fly taps and
-forward, rematerialised train steps), a one-rank NCCL step and the mxu
-lookup on the card (its forward and a program exported on the CPU).
+forward, rematerialised train steps), a one-rank NCCL step, the mxu
+lookup on the card (its forward and a program exported on the CPU), the
+deferred-volume-gradient step against the standard one and the legacy
+RAFT on the card against the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports no JAX, so it runs as it is on a machine with the card:
@@ -1067,3 +1069,63 @@ def test_mxu_program_exported_on_cpu_runs_on_card(dev, tmp_path):
     card = build_model(dev, seed=3, precision="highest", lookup_mode="mxu")
     want = serving.make_forward(card, 1)(st, i1, i2)
     assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_deferred_step_on_card_matches_standard(dev, remat):
+    """``deferred_vol_grad=True`` on the card, 64x128, batch 2, 2
+    iterations, f32, against the standard step of the same weights and
+    batch: loss to 1e-5 relative, each gradient tensor within twice the
+    distance of two standard steps (the scatter's f32 atomics) plus 1e-5
+    of its norm (floored as in ``test_remat_step_on_card_matches_no_remat``);
+    launches: one record per iteration (4 lookups), no
+    lookup in the replay, one stacked scatter per level and volume (8),
+    the encoders' 30 sums."""
+    g = torch.Generator().manual_seed(9)
+    batch = tuple(t.to(dev) for t in (
+        torch.rand(2, 64, 128, 3, generator=g) * 255,
+        torch.rand(2, 64, 128, 3, generator=g) * 255,
+        torch.randn(2, 64, 128, 2, generator=g) * 5, torch.ones(2, 64, 128)))
+    out = {}
+    for case in ("standard", "again", "deferred"):
+        model = build_model(dev, seed=6, remat=remat,
+                            deferred_vol_grad=case == "deferred")
+        opt, sched = make_optimizer(model.parameters(), 1e-4, 100)
+        step = make_train_step(model, opt, sched, iters=2, clip=1e9)
+        reset_launch_counts()
+        m = step(batch, 0)
+        torch.cuda.synchronize()
+        out[case] = (float(m["train/loss"]), launch_counts(),
+                     {n: p.grad.detach().cpu() for n, p in
+                      model.named_parameters()})
+    (l_ref, _, g_ref), (_, _, g_again) = out["standard"], out["again"]
+    loss, counts, grads = out["deferred"]
+    assert counts == _counts(dccl_level_lookup=8, instance_norm_sums=30,
+                             dccl_level_scatter_grid=8)
+    assert abs(loss - l_ref) <= 1e-5 * abs(l_ref)
+    total = torch.sqrt(sum((t ** 2).sum() for t in g_ref.values()))
+    for n, ref in g_ref.items():
+        zero = (n.startswith("fnet.") and n.endswith(".bias")
+                and n != "fnet.conv2.bias")
+        gate = 2.0 * (g_again[n] - ref).norm() + 1e-5 * max(
+            ref.norm(), (1e-2 if zero else 1e-6) * total)
+        assert (grads[n] - ref).norm() <= gate, n
+
+
+@pytest.mark.parametrize("small", [False, True])
+def test_raft_on_card_matches_cpu(dev, small):
+    """The legacy RAFT, 64x128, 4 iterations, fp32 ``precision="highest"``,
+    on the card against the CPU within 1e-4 x max|flow|; the feature
+    encoder's instance norms launch the sums kernel (15 basic, 21 small),
+    nothing else."""
+    from prior_flow_tpu_torch.models import build_raft
+    g = torch.Generator().manual_seed(14)
+    i1, i2 = (torch.rand(1, 64, 128, 3, generator=g) * 255 for _ in range(2))
+    ref = build_raft("cpu", seed=2, small=small, precision="highest")(
+        i1, i2, iters=4)
+    model = build_raft(dev, seed=2, small=small, precision="highest")
+    reset_launch_counts()
+    out = model(i1.to(dev), i2.to(dev), iters=4)
+    torch.cuda.synchronize()
+    assert launch_counts() == _counts(instance_norm_sums=21 if small else 15)
+    assert (out.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max()

@@ -59,6 +59,18 @@ GRAD_RTOL = 1e-3
 GRAD_FLOOR = 1e-6     # reference norms floored at this share of the global
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread, as in ``test_torch_port_scale.py``: the suite's
+    worker processes share the cores, and beside five busy processes on 8
+    cores more threads wait on each other at every op (this module's
+    deferred test took 341 s so, ~5 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batch(seed=0, b=B, h=H, w=W):
     """Uniform images and a smooth flow with |flow| < 50 px, all valid but
     a band of invalid pixels."""
@@ -200,17 +212,20 @@ def _rel_l2(got, ref, floor):
     return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), floor))
 
 
-@pytest.mark.parametrize("grad_mode", ["standard", "taped"])
+@pytest.mark.parametrize("grad_mode", ["standard", "taped", "deferred"])
 def test_train_step_matches_jax(oracle, encoder_f64, grad_mode):
     """Loss, metrics, clipped gradients and the AdamW update of one step,
-    in both grad modes: the encoder's gradients against float64 at half
-    the gate, every other gradient and all the rest against JAX's jitted
-    ``make_train_step``."""
+    in both grad modes and in the standard mode with deferred volume
+    gradients (``PriOrRAFT(deferred_vol_grad=True)``): the encoder's
+    gradients against float64 at half the gate, every other gradient and
+    all the rest against JAX's jitted ``make_train_step`` (JAX's own
+    tests hold its deferred path to its standard one)."""
+    deferred = grad_mode == "deferred"
     model = build_model("cpu", state_dict=state_dict_from_jax(
-        oracle["variables"]))
+        oracle["variables"]), deferred_vol_grad=deferred)
     optimizer, schedule = make_optimizer(model.parameters(), LR, NUM_STEPS)
     step = make_train_step(model, optimizer, schedule, iters=ITERS,
-                           grad_mode=grad_mode)
+                           grad_mode="standard" if deferred else grad_mode)
     old = {n: p.detach().clone() for n, p in model.named_parameters()}
     fnet_outs = []
 
@@ -305,6 +320,134 @@ def test_encoder_grads_near_float64(oracle, encoder_f64):
     for n in ref:
         assert port[n] <= GRAD_RTOL / 2, (n, port[n])
         assert jax_err[n] <= JAX_F64_BOUND, (n, jax_err[n])
+
+
+# the port's deferred step against its standard step, per tensor (relative
+# L2): the two sum the volume cotangents in another order. The fnet conv
+# biases in front of an instance norm have a zero gradient in exact
+# arithmetic (~1e-9 of the global norm, round-off on both sides): their
+# norms are floored at ZERO_BIAS_FLOOR of the global norm
+DEFERRED_RTOL = 1e-5
+ZERO_BIAS_FLOOR = 1e-2
+# against the taped step, which scatters the same field cotangents the
+# same way: only the feature maps' gradients are summed in another order
+# (leaves accumulated across two backward calls there, one graph here),
+# 3.3e-7 on fnet.conv2.bias with one thread, bitwise with eight
+DEFERRED_TAPED_RTOL = 1e-6
+
+
+def _zero_bias(name):
+    return (name.startswith("fnet.") and name.endswith(".bias")
+            and name != "fnet.conv2.bias")
+
+
+def _step_grads(batch, grad_mode="standard", **model_kw):
+    """The loss and the unclipped gradients of one step of the seeded
+    model at batch ``batch``, and the ``DCCLFused`` calls it made (lookups
+    and recordings)."""
+    from prior_flow_tpu_torch.ops.corr import DCCLFused
+    calls = {"lookup": 0, "record": 0}
+    model = build_model("cpu", seed=1, **model_kw)
+    lookup, record = DCCLFused.__call__, DCCLFused.record
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    optimizer, schedule = make_optimizer(model.parameters(), LR, NUM_STEPS)
+    step = make_train_step(model, optimizer, schedule, iters=ITERS,
+                           grad_mode=grad_mode, clip=float("inf"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(DCCLFused, "__call__", count("lookup", lookup))
+        mp.setattr(DCCLFused, "record", count("record", record))
+        m = step(batch, 0)
+    return (float(m["train/loss"]),
+            {n: p.grad.clone() for n, p in model.named_parameters()}, calls)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_deferred_matches_standard_step(remat):
+    """``deferred_vol_grad=True`` against the port's standard step, with
+    ``remat`` on and off: the loss bitwise (the replay runs the recorded
+    fields through the same recurrence), every gradient within
+    ``DEFERRED_RTOL``, and within ``DEFERRED_TAPED_RTOL`` of the taped
+    step's (both turn the same field cotangents into volume cotangents
+    with one stacked scatter, ``ops.corr.stacked_volume_cotangents``); the
+    taped mode ignores the field (bitwise). Lookups: the deferred step records each iteration once and
+    runs no lookup in its replay; the standard step looks up each
+    iteration."""
+    batch = tuple(torch.from_numpy(a) for a in _batch(seed=6))
+    l_s, g_s, c_s = _step_grads(batch, remat=remat)
+    l_d, g_d, c_d = _step_grads(batch, remat=remat, deferred_vol_grad=True)
+    l_t, g_t, _ = _step_grads(batch, "taped", remat=remat)
+    l_dt, g_dt, _ = _step_grads(batch, "taped", remat=remat,
+                                deferred_vol_grad=True)
+    assert c_s == {"lookup": ITERS, "record": 0}
+    # DCCLFused.record looks up through __call__: one each per iteration
+    assert c_d == {"lookup": ITERS, "record": ITERS}
+    assert l_d == l_s == l_t == l_dt
+    total = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                 for g in g_s.values())))
+    worst = (0.0, "")
+    for n, ref in g_s.items():
+        floor = (ZERO_BIAS_FLOOR if _zero_bias(n) else GRAD_FLOOR) * total
+        err = float((g_d[n] - ref).norm()) / max(float(ref.norm()), floor)
+        assert err <= DEFERRED_RTOL, (n, err)
+        worst = max(worst, (err, n))
+        err_t = float((g_d[n] - g_t[n]).norm()) / max(float(g_t[n].norm()),
+                                                      floor)
+        assert err_t <= DEFERRED_TAPED_RTOL, (n, err_t)
+        assert torch.equal(g_dt[n], g_t[n]), n
+    print(f"deferred vs standard, remat={remat}: worst gradient rel L2 "
+          f"{worst[0]:.2e} ({worst[1]})")
+
+
+def test_taped_step_d_unchanged():
+    """The taped backward's step (d), now ``ops.corr.
+    stacked_volume_cotangents``, gives the bits of its former inline form
+    (the transposed back-rotation, then per level and volume one
+    grid-entry scatter), kept here as the reference."""
+    from prior_flow_tpu_torch.ops.kernels.dccl_scatter import (
+        dccl_level_scatter_grid)
+    from prior_flow_tpu_torch.ops.static_resample import (
+        resample_static_transpose)
+    from prior_flow_tpu_torch.train import trainer
+
+    def inline(gA, gB, cen_A, cen_B, levels, g):
+        S, B, h1, w1, C = gA.shape
+        Q = h1 * w1
+
+        def back_rot_t(gf, grid):
+            ct = resample_static_transpose(gf.reshape(S * B, h1, w1, C),
+                                           grid, (h1, w1))
+            return ct.reshape(S, B, Q, C)
+
+        gA_cross = back_rot_t(gA, g.b2a_8)
+        gB_cross = back_rot_t(gB, g.a2b_8)
+        gA_own = gA.reshape(S, B, Q, C)
+        gB_own = gB.reshape(S, B, Q, C)
+        d_pyr = []
+        for lvl, (Hl, Wl, dt) in enumerate(levels):
+            s = 1.0 / 2.0 ** lvl
+            sl = slice(lvl * 81, (lvl + 1) * 81)
+            d_pyr.append((
+                dccl_level_scatter_grid(gA_own[..., sl], cen_A,
+                                        gB_cross[..., sl], cen_B, g.b2a_w2c_8,
+                                        s, Hl, Wl, dt),
+                dccl_level_scatter_grid(gB_own[..., sl], cen_B,
+                                        gA_cross[..., sl], cen_A, g.a2b_w2c_8,
+                                        s, Hl, Wl, dt)))
+        return d_pyr
+
+    batch = tuple(torch.from_numpy(a) for a in _batch(seed=8, b=1))
+    _, got, _ = _step_grads(batch, "taped")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trainer, "stacked_volume_cotangents", inline)
+        _, ref, _ = _step_grads(batch, "taped")
+    for n in ref:
+        assert torch.equal(got[n], ref[n]), n
 
 
 def test_one_cycle_linear_matches_optax():
