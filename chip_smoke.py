@@ -127,7 +127,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    eager, 48 kernel-1 and 15 sums launches per call), the AOTInductor
    package (``serving.aot_compile``, loaded from its file alone; each
    precision compiled at 12 iterations and at one, the four side by side
-   in processes of their own while the other checks run; compile
+   in processes of their own, started before phase 18 so that phases 18
+   and 19 and the other checks run while they compile; compile
    seconds), called with TF32 on for cuDNN (torch's default) with seed 0's
    and seed 1's states: each strictly below a fraction of the distance one
    step down in precision puts eager from itself (``SERVING_GATE``), the
@@ -197,6 +198,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``bn_running_average=False`` (PriOrRAFT, basic RAFT), a 64x128
    forward on the card against the CPU: the flow and the context
    encoder's updated running statistics. Each phase prints its seconds.
+25. the space axis (``parallel/spatial.py``: height sharding) with ranks
+   sharing the card over gloo: the sums kernel's f64 output (the
+   sharded norm's partial sums) against its plain version at the
+   1024x2048 fnet shapes' half heights; (a) a 1x2 data x space mesh, the
+   EFT recipe's standard step at 512x1024, global batch 2, 12 iterations,
+   fp32 ``precision="highest"``, remat ``dccl``, 2 updates, against the
+   one-process batch-2 step in this process (loss within 1e-5, each
+   gradient tensor within 1e-5 of its norm or twice the distance of two
+   one-process steps, the updated parameters within 1e-5; launches per
+   rank); (b) a 1x2 mesh, the 1024x2048 fp32 test-mode forward (the lean
+   build, the planes route: rows 3 and 5) within 1e-4 x flow scale of
+   the one-process forward, each rank's peak GB beside one process's;
+   (c) ``dryrun_multichip(4)`` on a 2x2 mesh; (a)-(c) side by side; the
+   exchange route printed.
 The launches of phases 15-17 are the tools' measurement runs (path
 "tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
@@ -210,8 +225,10 @@ precision (512x1024 and 1024x2048) and of one training step per grad
 mode. ``--multichip`` runs instead only the data-parallel path on every
 visible card (two or more), one rank per card over NCCL: phase 22 (b)'s
 gates with n ranks and a global batch of max(4, n), then
-``dryrun_multichip(n)`` and ``cli.train --mesh auto`` at phase 19's
-recipe, in-process (one spawned rank per card) and under ``torchrun``.
+``dryrun_multichip(n)`` (a 2 x n/2 data x space mesh where n is even and
+at least 4) and ``cli.train --mesh auto`` at phase 19's recipe,
+in-process (one spawned rank per card) and under ``torchrun``; with four
+or more cards phase 25 (a) and (b) on a 2 x n/2 NCCL mesh.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -294,7 +311,10 @@ PORT_KERNELS = ("dccl_level_kernel", "dccl_all_levels_kernel",
 
 
 def fail(msg: str) -> None:
+    """Print ``msg`` on both streams (a caller that keeps only the end of
+    standard error still reads which gate failed) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -2391,6 +2411,99 @@ print(json.dumps(out))
 """
 
 
+# phase 20's checks that need nothing of the main process, each run in a
+# process of its own beside the compiles (``start_serving_side``): one of
+# the ``serving_*_job`` functions below, its result as the last line
+SERVING_SIDE = """
+import json, sys
+import chip_smoke
+print(json.dumps({"result": getattr(chip_smoke, sys.argv[1])()}))
+"""
+SERVING_SIDE_JOBS = ("serving_opcheck_job", "serving_export_hr_job",
+                     "serving_cli_check_job")
+SERVING_HR = os.path.join(SERVING_DIR, f"fp32_{H2}x{W2}.pt2")
+
+
+def side_device():
+    """The card, with TF32 off as ``main`` sets it, for a side job."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def serving_opcheck_job() -> list:
+    from prior_flow_tpu_torch.geometry import rotation_grids
+    dev = side_device()
+    return serving_opcheck(dev, rotation_grids(H, W).to_device(dev),
+                           rotation_grids(H2, W2).to_device(dev))
+
+
+def serving_export_hr_job() -> float:
+    """Exports the 1024x2048 fp32 forward to SERVING_HR; its seconds."""
+    from prior_flow_tpu_torch import build_model, serving
+    side_device()
+    model = build_model(seed=0, precision="highest")
+    t0 = time.perf_counter()
+    serving.save_exported(serving.export_forward(
+        model, model.state_dict(), (1, H2, W2), ITERS), SERVING_HR)
+    return time.perf_counter() - t0
+
+
+def serving_cli_check_job() -> list:
+    """``cli.export --check`` on a seeded .pth: the CLI's JSON lines."""
+    import io
+    from prior_flow_tpu_torch import build_model
+    from prior_flow_tpu_torch.checkpoint import write_pth
+    from prior_flow_tpu_torch.cli import export as export_cli
+    side_device()
+    pth = write_pth(build_model("cpu", seed=0).state_dict(),
+                    os.path.join(SERVING_DIR, "seed0.pth"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        export_cli.main(["--model", pth, "--output",
+                         os.path.join(SERVING_DIR, "cli.pt2"), "--size",
+                         str(H), str(W), "--iters", str(ITERS), "--check"])
+    return [json.loads(line) for line in buf.getvalue().splitlines()]
+
+
+def start_jobs(argv_of: dict, env: dict, base: str) -> dict:
+    """Starts one process per entry of ``argv_of`` (name -> argv), each
+    writing its output to ``base`` + name + ".out" / ".err"; returns
+    name -> (process, that path stem) and registers their kill at this
+    process's exit."""
+    import atexit
+    import subprocess
+    jobs = {}
+    for name, argv in argv_of.items():
+        stem = base + ("_".join(map(str, name)) if isinstance(name, tuple)
+                       else name)
+        with open(stem + ".out", "w") as out, open(stem + ".err", "w") as err:
+            jobs[name] = (subprocess.Popen(argv, cwd=REPO, env=env,
+                                           stdout=out, stderr=err), stem)
+
+    def stop():
+        for proc, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return jobs
+
+
+def job_output(name, job, what: str) -> str:
+    """Waits for ``job`` and returns its standard output; fails with the
+    end of its standard error if it failed."""
+    proc, stem = job
+    proc.wait(timeout=1800)
+    if proc.returncode != 0:
+        with open(stem + ".err") as f:
+            fail(f"{what} {name} failed:\n{f.read()[-3000:]}")
+    with open(stem + ".out") as f:
+        return f.read()
+
+
 def pair_ms(fn, runs: int = 7) -> float:
     """Median host ms of ``fn`` ending in a synchronise, after one
     warm-up."""
@@ -2498,52 +2611,62 @@ def conv_kernels(fn) -> dict:
             serving_precision.kernel_events(fn))
 
 
-def phase_serving(dev, grids, grids2):
-    """Phase 20: the serving path (``prior_flow_tpu_torch.serving``). The
-    four AOTInductor packages compile in processes of their own while this
-    one checks the ops and the exported programs; every timing is taken
-    after they have finished."""
-    import subprocess
-
+def start_serving_compiles() -> dict:
+    """Starts phase 20's four AOTInductor package compiles, each in a
+    process of its own writing its output to files beside its package.
+    They take minutes side by side (phase 20 prints their seconds), so
+    they start before phase 18, after the kernel timings of phases 2-17:
+    phases 18 and 19, whose host times are reported and not gated, run
+    beside them and share the host's cores with them.
+    Returns the jobs (``start_jobs``: killed when this process exits, so
+    a failed phase leaves no compile behind), the packages, the start time
+    and the environment."""
     os.makedirs(SERVING_DIR, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=REPO, CXX=SERVING_CXX)
-    print(f"  AOTInductor's C++ compiler: CXX={SERVING_CXX}", flush=True)
     package = {(tag, iters): os.path.join(SERVING_DIR,
                                           f"{tag}_{iters}it_aoti.pt2")
                for tag in ("fp32", "bf16") for iters in SERVING_DEPTHS}
     t_compile = time.perf_counter()
-    compiles = {key: subprocess.Popen(
-        [sys.executable, "-c", SERVING_COMPILE, path, key[0], str(H),
-         str(W), str(key[1])], cwd=REPO, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for key, path in package.items()}
-    try:
-        return serving_checks(dev, grids, grids2, compiles, package,
-                              t_compile, env)
-    finally:
-        for proc in compiles.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    compiles = start_jobs(
+        {key: [sys.executable, "-c", SERVING_COMPILE, path, key[0], str(H),
+               str(W), str(key[1])] for key, path in package.items()},
+        env, os.path.join(SERVING_DIR, "compile_"))
+    return dict(compiles=compiles, package=package, t=t_compile, env=env)
 
 
-def serving_checks(dev, grids, grids2, compiles, package, t_compile, env):
+def phase_serving(dev, started: dict):
+    """Phase 20: the serving path (``prior_flow_tpu_torch.serving``). The
+    four AOTInductor packages compile in the processes that
+    ``start_serving_compiles`` started, and the opcheck, the 1024x2048
+    export and ``cli.export --check`` run in processes of their own
+    (SERVING_SIDE_JOBS), while this one checks the exported programs;
+    every timing is taken after they have all finished."""
+    print(f"  AOTInductor's C++ compiler: CXX={SERVING_CXX}", flush=True)
+    return serving_checks(dev, started["compiles"], started["package"],
+                          started["t"], started["env"])
+
+
+def serving_checks(dev, compiles, package, t_compile, env):
     """Phase 20's checks, beside the compiles ``compiles`` ((precision,
-    iterations) -> process) of ``package`` ((precision, iterations) ->
-    path)."""
-    import io
+    iterations) -> job) of ``package`` ((precision, iterations) -> path)
+    and the side jobs it starts."""
     import subprocess
     import torch
     from prior_flow_tpu_torch import build_model, serving
-    from prior_flow_tpu_torch.checkpoint import write_pth
-    from prior_flow_tpu_torch.cli import export as export_cli
     from prior_flow_tpu_torch.ops.kernels import (launch_counts,
                                                   reset_launch_counts)
     from prior_flow_tpu_torch.tools.serving_precision import (
         eager_model, precision_by_name, ratio)
 
-    out = {"opcheck": serving_opcheck(dev, grids, grids2)}
-    print(f"  opcheck passed: {out['opcheck']}", flush=True)
-    torch.cuda.empty_cache()
+    def lap(what: str) -> None:
+        print(f"  [{what}: {time.perf_counter() - t_compile:.1f} s after "
+              f"the compiles started]", flush=True)
+
+    side = start_jobs({name: [sys.executable, "-c", SERVING_SIDE, name]
+                       for name in SERVING_SIDE_JOBS}, env,
+                      os.path.join(SERVING_DIR, "side_"))
+    lap("phase 20's checks begin")
+    out = {}
     i1, i2 = (t.to(dev) for t in images(0, H, W))
     want = forward_counts(dccl_level_lookup=LEVELS * ITERS)
     models, live = {}, {}
@@ -2561,6 +2684,7 @@ def serving_checks(dev, grids, grids2, compiles, package, t_compile, env):
         torch.save({"state": state, "images": (i1, i2)},
                    os.path.join(SERVING_DIR, f"inputs_{tag}.pt"))
 
+    lap("exported")
     # the saved programs in a process without the model code
     proc = subprocess.run(
         [sys.executable, "-c", SERVING_LOAD, SERVING_DIR, "fp32", "bf16"],
@@ -2583,15 +2707,19 @@ def serving_checks(dev, grids, grids2, compiles, package, t_compile, env):
                  f"{res['counts'][tag]}")
         out[tag]["export_err"] = err
 
+    lap("loaded without the model code")
+    side = {name: json.loads(job_output(name, job, "phase 20's side job")
+                             .strip().splitlines()[-1])["result"]
+            for name, job in side.items()}
+    lap("the side jobs ended")
+    out["opcheck"] = side["serving_opcheck_job"]
+    print(f"  opcheck passed: {out['opcheck']}", flush=True)
     # the 1024x2048 planes route as an exported program
     model_hr = build_model(seed=0, precision="highest")
     state_hr = model_hr.state_dict()
     h1, h2 = (t.to(dev) for t in images(2, H2, W2))
     eager = model_hr(h1, h2, iters=ITERS)
-    path = os.path.join(SERVING_DIR, f"fp32_{H2}x{W2}.pt2")
-    serving.save_exported(serving.export_forward(
-        model_hr, state_hr, (1, H2, W2), ITERS), path)
-    program_hr = serving.load_exported(path)
+    program_hr = serving.load_exported(SERVING_HR)
     program_hr(state_hr, h1, h2)
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -2601,9 +2729,10 @@ def serving_checks(dev, grids, grids2, compiles, package, t_compile, env):
     want_hr = forward_counts(dccl_level_lookup_coords=LEVELS * ITERS,
                              dccl_cross_coords=ITERS)
     same = bool(torch.equal(flow, eager))
-    print(f"  fp32 {H2}x{W2} exported program: bitwise eager {same} (max "
-          f"abs diff {(flow - eager).abs().max().item():.3e}); launches "
-          f"{counts}", flush=True)
+    print(f"  fp32 {H2}x{W2} exported program "
+          f"({side['serving_export_hr_job']:.1f} s to export): bitwise eager "
+          f"{same} (max abs diff {(flow - eager).abs().max().item():.3e}); "
+          f"launches {counts}", flush=True)
     if not same or counts != want_hr:
         fail(f"the {H2}x{W2} exported program: bitwise {same}, launches "
              f"{counts}, expected {want_hr}")
@@ -2611,20 +2740,14 @@ def serving_checks(dev, grids, grids2, compiles, package, t_compile, env):
     del eager, flow
 
     # the export CLI with --check on a seeded .pth
-    pth = write_pth(build_model("cpu", seed=0).state_dict(),
-                    os.path.join(SERVING_DIR, "seed0.pth"))
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        export_cli.main(["--model", pth, "--output",
-                         os.path.join(SERVING_DIR, "cli.pt2"), "--size",
-                         str(H), str(W), "--iters", str(ITERS), "--check"])
-    lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    lines = side["serving_cli_check_job"]
     print(f"  cli.export --check: {lines}", flush=True)
     if not (lines[0]["platforms"] == ["cuda"]
             and lines[1]["check_max_abs_err"] < SERVING_CHECK_ATOL):
         fail(f"cli.export --check: {lines}")
     out["cli_check_err"] = lines[1]["check_max_abs_err"]
 
+    lap(f"the {H2}x{W2} program and cli.export --check")
     # the eager references: each seed and depth at each precision
     refs = {(seed, iters): eager_refs(seed, iters, i1, i2)
             for seed in (0, 1) for iters in SERVING_DEPTHS}
@@ -2651,11 +2774,11 @@ def serving_checks(dev, grids, grids2, compiles, package, t_compile, env):
     out["conv_kernels_eager"] = {ref: sum(c.values())
                                  for ref, c in control.items()}
 
+    lap("the eager references and the kernel-name controls")
     # the packages
-    for key, proc in compiles.items():
-        stdout, stderr = proc.communicate(timeout=1800)
-        if proc.returncode != 0:
-            fail(f"{key} AOTInductor compile failed:\n{stderr[-3000:]}")
+    for key, job in compiles.items():
+        stdout = job_output(key, job, "the AOTInductor compile")
+        lap(f"{key[0]} {key[1]}-iteration package compiled")
         out.setdefault(key[0], {})[f"compile_s_{key[1]}it"] = json.loads(
             stdout.strip().splitlines()[-1])["compile_s"]
     compile_wall = time.perf_counter() - t_compile
@@ -3737,11 +3860,16 @@ def phase_lookup_modes(dev, grids):
 DEFERRED_STEPS = TRAIN_STEPS   # timed after one warm-up, as phase 9
 # (a) the deferred step's gradients against the taped step's (both turn
 # the same field cotangents into volume cotangents with one stacked scatter
-# per level and volume; bitwise on the CPU): each tensor within this
-# multiple of the distance between two taped steps (phase 22's rule: the
-# scatter's f32 atomics) plus DEFERRED_RTOL of its norm (floored as
-# grad_floor); against the standard step, phase 9's MODE_GRAD_RTOL (the
-# standard step sums 12 per-iteration bf16 volume cotangents)
+# per level and volume; bitwise on the CPU): each tensor, from the nearest
+# of DEFERRED_TAPED taped steps, within this multiple of the largest
+# distance between two of them (the scatter's f32 atomics) plus
+# DEFERRED_RTOL of its norm (floored as grad_floor); against the standard
+# step, phase 9's MODE_GRAD_RTOL (the standard step sums 12 per-iteration
+# bf16 volume cotangents). One pair of taped steps is too few: the
+# distance of two runs is spread widely for some tensors (fnet.conv2.weight:
+# 0.5e-7 to 3.2e-7 on an H100), and against a single pair the deferred
+# step failed 2 of 8 repeats of an unchanged tree
+DEFERRED_TAPED = 4             # phase 9's taped step and three more
 DEFERRED_SPREAD_X = 2.0
 DEFERRED_RTOL = 1e-5
 RAFT_H, RAFT_W = 440, 1024     # (b): a Sintel frame (436x1024) padded to /8
@@ -3755,10 +3883,11 @@ def deferred_eft(dev, train):
     """(a) The EFT recipe with ``deferred_vol_grad=True``, standard grad
     mode, on phase 9's seeded weights and batches: launches per step,
     median ms/step and peak GB; the first step's loss against phase 9's
-    standard step, its gradients against phase 9's taped step (within
-    DEFERRED_SPREAD_X times the distance of a second taped step plus
-    DEFERRED_RTOL of each norm) and its standard step (MODE_GRAD_RTOL),
-    the distance of a second standard step reported."""
+    standard step, its gradients against the nearest of phase 9's taped
+    step and DEFERRED_TAPED - 1 more (within DEFERRED_SPREAD_X times the
+    largest distance between two of them plus DEFERRED_RTOL of each norm)
+    and against phase 9's standard step (MODE_GRAD_RTOL), the distance of
+    a second standard step reported."""
     import torch
     from prior_flow_tpu_torch.ops.kernels import (launch_counts,
                                                   reset_launch_counts)
@@ -3767,11 +3896,11 @@ def deferred_eft(dev, train):
     want = forward_counts(dccl_level_lookup=LEVELS * ITERS,
                           instance_norm_sums=30,
                           dccl_level_scatter_grid=2 * LEVELS)
-    again = {}
-    for mode in ("standard", "taped"):
+    again = {"standard": [], "taped": []}
+    for mode in ("standard",) + ("taped",) * (DEFERRED_TAPED - 1):
         model, step = make_trainer(dev, mode, True, ITERS)
         step(batches[0], 0)
-        again[mode] = grads_of(model)
+        again[mode].append(grads_of(model))
         del model, step
         torch.cuda.empty_cache()
     model, step = make_trainer(dev, "standard", True, ITERS,
@@ -3809,14 +3938,17 @@ def deferred_eft(dev, train):
                           for a in g_std.values()))
     worst = {"taped": (0.0, ""), "standard": (0.0, "")}
     ratio_std = 0.0
+    taped = [g_tap] + again["taped"]
     for n, ref in g_tap.items():
-        d = (g[n] - ref).norm().item()
-        spread = (again["taped"][n] - ref).norm().item()
+        d = min((g[n] - t[n]).norm().item() for t in taped)
+        spread = max((a[n] - b[n]).norm().item()
+                     for i, a in enumerate(taped) for b in taped[i + 1:])
         gate = (DEFERRED_SPREAD_X * spread + DEFERRED_RTOL
                 * max(ref.norm().item(), grad_floor(n, total)))
         if d > gate:
-            fail(f"deferred gradient {n} {d:.3e} from the taped step's, "
-                 f"gate {gate:.3e} (two taped steps {spread:.3e} apart)")
+            fail(f"deferred gradient {n} {d:.3e} from the nearest of "
+                 f"{len(taped)} taped steps, gate {gate:.3e} (the taped "
+                 f"steps at most {spread:.3e} apart)")
         worst["taped"] = max(worst["taped"], (d / gate, n))
         s = g_std[n]
         rel = ((g[n] - s).norm()
@@ -3825,7 +3957,7 @@ def deferred_eft(dev, train):
             fail(f"deferred and standard gradients differ on {n}: "
                  f"{rel:.3e}")
         worst["standard"] = max(worst["standard"], (rel, n))
-        s_spread = (again["standard"][n] - s).norm().item()
+        s_spread = (again["standard"][0][n] - s).norm().item()
         if s_spread > 0:
             ratio_std = max(ratio_std, (g[n] - s).norm().item() / s_spread)
     med = statistics.median(times)
@@ -3838,7 +3970,8 @@ def deferred_eft(dev, train):
           f"{train['taped']['peak_gb']:.2f} GB", flush=True)
     print(f"  (a) first step: loss {loss:.6f} vs standard {l_std:.6f}, "
           f"taped {l_tap:.6f}; gradients: worst tensor at "
-          f"{worst['taped'][0]:.3f} of its gate against the taped step "
+          f"{worst['taped'][0]:.3f} of its gate against the nearest of "
+          f"{len(taped)} taped steps "
           f"({worst['taped'][1]}); against the standard step worst rel L2 "
           f"{worst['standard'][0]:.3e} ({worst['standard'][1]}, gate "
           f"{MODE_GRAD_RTOL}), at most {ratio_std:.1f}x the distance of two "
@@ -4002,6 +4135,303 @@ def phase_deferred_raft(dev, train):
     return out
 
 
+# -- phase 25: the space axis (height sharding) ----------------------------------
+
+SP_SHAPE = (1, 2)         # (a), (b): one data rank of two height slices
+SP_B = 2                  # (a): the global batch
+SP_STEPS = 2              # (a): updates per rank; the first is gated
+SP_SHORT = 1              # (a): the iterations of the step gated strictly
+SP_FLOW_SHORT = 3         # (b): the iterations of the forward gated strictly
+SP_GRAD_RTOL = 1e-5       # (a): per tensor, of its norm (or SP_SPREAD_X x
+SP_SPREAD_X = 2.0         #      the distance of two one-process steps)
+SP_LOSS_RTOL = 1e-5
+SP_PARAM_ATOL = 1e-5      # (a): JAX's
+SP_FLOW_TOL = 1e-4        # (b): x flow scale, JAX's
+SP_ULP = 2.0 ** -23       # the sensitivity references' relative image change
+SP_RUNS = 2               # (b): forwards per rank and job, the first counted
+SP_SUMS_RTOL = 1e-9       # the sums kernel's f64 partial sums, of max|plain|
+SP_TIMEOUT_S = 600.0
+
+
+def space_sums_f64(dev, shapes):
+    """The sums kernel's f64 output (the height-sharded norm's partial
+    sums) against its plain version at ``shapes``: (x, x) f32 and bf16,
+    (xhat, dy) f32."""
+    import torch
+    from prior_flow_tpu_torch.ops.kernels.instance_norm import (
+        instance_norm_sums, instance_norm_sums_plain)
+    g = torch.Generator(device=dev).manual_seed(25)
+    worst = 0.0
+    for shape in shapes:
+        x = torch.randn(shape, generator=g, device=dev) * 3 + 1
+        dy = torch.randn(shape, generator=g, device=dev)
+        for a, b in ((x, x), (x.bfloat16(), x.bfloat16()), (x, dy)):
+            got = instance_norm_sums(a, b, torch.float64)
+            want = instance_norm_sums_plain(a, b, torch.float64)
+            for u, v in zip(got, want):
+                if u.dtype != torch.float64:
+                    fail(f"phase 25: f64 sums came back {u.dtype}")
+                err = ((u - v).abs().max() / v.abs().max()).item()
+                worst = max(worst, err)
+    if worst > SP_SUMS_RTOL:
+        fail(f"phase 25: the sums kernel's f64 output lies {worst:.3e} of "
+             f"max|plain| from its plain version (gate {SP_SUMS_RTOL})")
+    print(f"  the sums kernel's f64 output (x, x) f32 / bf16 and (xhat, dy) "
+          f"at {shapes}: worst {worst:.3e} of max|plain| (gate "
+          f"{SP_SUMS_RTOL})", flush=True)
+    return worst
+
+
+def nudged(images, sign: int):
+    """The pair (and the rest of a batch) with both images scaled by
+    1 + sign * SP_ULP: about one f32 rounding of each pixel."""
+    return (images[0] * (1 + sign * SP_ULP), images[1] * (1 + sign * SP_ULP),
+            *images[2:])
+
+
+def _global_rel(g, ref) -> float:
+    num = sum(float(((g[k] - r).double() ** 2).sum()) for k, r in ref.items())
+    den = sum(float((r.double() ** 2).sum()) for r in ref.values())
+    return math.sqrt(num / den)
+
+
+def space_step_refs(dev, batch, cases, kw):
+    """(a)'s references in this process, per case: the one-process step,
+    again, and on the images nudged by one rounding either way: the
+    step's sensitivity to f32 rounding."""
+    import torch
+    from prior_flow_tpu_torch.parallel.dryrun import train_once
+    refs = []
+    for case in cases:
+        runs = [train_once(None, dev, case, batch, **kw) for _ in range(2)]
+        runs += [train_once(None, dev, case, nudged(batch, s), **kw)
+                 for s in (1, -1)]
+        refs.append(runs)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return refs
+
+
+def space_step_gates(ranks, refs, cases, shape, tag: str) -> dict:
+    """(a)'s gates per case: launches per rank; every rank's gradients and
+    parameters bitwise rank 0's; the loss and the updated parameters
+    against the one-process step; each gradient tensor within
+    SP_GRAD_RTOL of its norm, or SP_SPREAD_X times the largest distance
+    of the one-process step from itself (the scatter's atomics) and
+    from the steps on nudged images. The split rounds each convolution's
+    sums in another order, and a ReLU whose input lies within that
+    rounding of zero then passes or stops its cotangent (found at
+    64x128 on the CPU: two such ReLUs put the split step 4.03e-4 of the
+    gradients' norm from one process's); the recurrence spreads such
+    differences, as it spreads the nudged images'. A norm is floored as
+    phase 9 floors it (``grad_floor``: the fnet conv biases in front of
+    an instance norm carry only round-off)."""
+    out = {}
+    for i, case in enumerate(cases):
+        it = case["iters"]
+        want = {"dccl_level_lookup": LEVELS * it, "instance_norm_sums": 30,
+                "dccl_level_scatter_grid": 2 * LEVELS * it}
+        for r, res in enumerate(ranks):
+            if not (res[i]["grads_same"] and res[i]["params_same"]):
+                fail(f"{tag} (a) {it} iterations: rank {r}'s gradients or "
+                     f"parameters differ from rank 0's")
+            if res[i]["launches"] != want:
+                fail(f"{tag} (a) {it} iterations rank {r}: launches per "
+                     f"step {res[i]['launches']}, expected {want}")
+        got, (ref, again, *nudges) = ranks[0][i], refs[i]
+        l1, l0 = got["metrics"]["train/loss"], ref["metrics"]["train/loss"]
+        if abs(l1 - l0) > SP_LOSS_RTOL * abs(l0):
+            fail(f"{tag} (a) {it} iterations: loss {l1} against the "
+                 f"one-process step's {l0}")
+        worst = (0.0, "")
+        total = _flat(ref["grads"].values()).norm().item()
+        for k, r in ref["grads"].items():
+            d = (got["grads"][k] - r).norm().item()
+            spread = max([(again["grads"][k] - r).norm().item()]
+                         + [(n["grads"][k] - r).norm().item()
+                            for n in nudges])
+            gate = max(SP_GRAD_RTOL * max(r.norm().item(),
+                                          grad_floor(k, total)),
+                       SP_SPREAD_X * spread)
+            if d > gate:
+                fail(f"{tag} (a) {it} iterations: gradient {k} {d:.3e} from "
+                     f"the one-process step's, gate {gate:.3e}")
+            if gate > 0:
+                worst = max(worst, (d / gate, k))
+        dp = max((got["params"][k] - p).abs().max().item()
+                 for k, p in ref["params"].items())
+        if dp > SP_PARAM_ATOL:
+            fail(f"{tag} (a) {it} iterations: updated parameters {dp:.3e} "
+                 f"from the one-process step's (atol {SP_PARAM_ATOL})")
+        rel = dict(sharded=_global_rel(got["grads"], ref["grads"]),
+                   two_runs=_global_rel(again["grads"], ref["grads"]),
+                   nudged=[_global_rel(n["grads"], ref["grads"])
+                           for n in nudges])
+        per_rank = [dict(ms=statistics.median(res[i]["ms"]),
+                         peak_gb=res[i]["peak_gb"]) for res in ranks]
+        peaks = "; ".join(f"rank {r}: {q['ms']:.1f} ms/step, peak "
+                          f"{q['peak_gb']} GB" for r, q in enumerate(per_rank))
+        peaks += f" (one process: peak {ref['peak_gb']} GB)"
+        print(f"  (a) {shape[0]}x{shape[1]} mesh, the EFT recipe's standard "
+              f"step at {H}x{W}, global batch {SP_B * shape[0]}, {it} "
+              f"iterations, fp32, remat dccl: loss {l1:.6f} vs {l0:.6f}; "
+              f"gradients {rel['sharded']:.3e} of the global norm from one "
+              f"process's (two one-process steps {rel['two_runs']:.3e}"
+              + f", nudged images {rel['nudged'][0]:.3e} / "
+              f"{rel['nudged'][1]:.3e}); worst tensor at {worst[0]:.3f} of its gate "
+              f"({worst[1]}); parameters {dp:.3e} apart; per rank {peaks}; "
+              f"launches per step and rank {got['launches']}", flush=True)
+        out[it] = dict(loss=l1, loss_ref=l0, worst_of_gate=worst[0],
+                       worst_tensor=worst[1], param_dist=dp, grad_rel=rel,
+                       ranks=per_rank, peak_gb_ref=ref["peak_gb"],
+                       launches=got["launches"])
+    return out
+
+
+def space_forward_refs(dev, pair, iters, kw):
+    """(b)'s references in this process: the one-process forward at each
+    of ``iters``, its peak GB at the last, and at the last the forwards on
+    the nudged pair (the sensitivity)."""
+    import torch
+    from prior_flow_tpu_torch import build_model
+    cuda = dev.type == "cuda"
+    model = build_model(dev, seed=0, **kw)
+    run = lambda p, it: model(*(t.to(dev) for t in p), iters=it).cpu()
+    flows = {it: run(pair, it) for it in iters[:-1]}
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    flows[iters[-1]] = run(pair, iters[-1])
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else math.nan
+    nudges = [run(nudged(pair, s), iters[-1]) for s in (1, -1)]
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    return flows, nudges, peak
+
+
+def space_forward_gates(ranks, refs, iters, shape, size, tag: str) -> dict:
+    """(b)'s gates: launches per rank (at 1024x2048 the planes route: rows
+    3 and 5 and the sums) and the ranks' rows against the one-process
+    flow: within SP_FLOW_TOL x flow scale at SP_FLOW_SHORT iterations;
+    at 12 within the larger of that and SP_SPREAD_X times the distance
+    the nudged pair puts the one-process flow from itself."""
+    import torch
+    flows, nudges, ref_peak = refs
+    D, S = shape
+    out = {}
+    for j, it in enumerate(iters):
+        want = {k: v for k, v in forward_counts(
+            dccl_level_lookup_coords=LEVELS * it,
+            dccl_cross_coords=it).items() if v}
+        for r, res in enumerate(ranks):
+            if res[j]["launches"] != want:
+                fail(f"{tag} (b) {it} iterations rank {r}: launches per "
+                     f"forward {res[j]['launches']}, expected {want}")
+        flow = torch.cat([torch.cat([ranks[d * S + s][j]["flow"]
+                                     for s in range(S)], dim=1)
+                          for d in range(D)])
+        ref = flows[it]
+        scale = ref.abs().max().item()
+        err = (flow - ref).abs().max().item() / scale
+        sens = ([(n - ref).abs().max().item() / scale for n in nudges]
+                if it == iters[-1] else [])
+        gate = max([SP_FLOW_TOL] + [SP_SPREAD_X * v for v in sens])
+        if not (torch.isfinite(flow).all() and err <= gate):
+            fail(f"{tag} (b) {it} iterations: the sharded forward lies "
+                 f"{err:.3e} x flow scale from the one-process flow (gate "
+                 f"{gate:.3e}; nudged pair {sens})")
+        per_rank = [dict(ms=statistics.median(res[j]["ms"])
+                         if res[j]["ms"] else None,
+                         peak_gb=res[j]["peak_gb"]) for res in ranks]
+        print(f"  (b) {D}x{S} mesh, the {size[0]}x{size[1]} fp32 test-mode "
+              f"forward, {it} iterations: {err:.3e} x flow scale "
+              f"{scale:.3f} from the one-process flow (gate {gate:.3e}"
+              + (f"; the nudged pair puts one process {sens[0]:.3e} / "
+                 f"{sens[1]:.3e} from itself" if sens else "")
+              + f"); peak GB per rank {[q['peak_gb'] for q in per_rank]}"
+              + (f" beside one process's {ref_peak:.3f}"
+                 if it == iters[-1] else "")
+              + f"; ms/pair per rank {[q['ms'] for q in per_rank]}; "
+              f"launches per forward and rank {ranks[0][j]['launches']}; "
+              f"route {ranks[0][j]['route']}", flush=True)
+        out[it] = dict(err_ratio=err, gate=gate, nudged=sens,
+                       ranks=per_rank, launches=ranks[0][j]["launches"])
+    out["peak_gb_ref"] = ref_peak
+    out["route"] = ranks[0][0]["route"]
+    return out
+
+
+def space_runs(dev, shape, device: str, backend: str, tag: str,
+               with_dryrun: int = 0) -> dict:
+    """(a) and (b) on a ``shape`` data x space mesh of spawned ranks
+    (``device`` / ``backend`` as ``parallel.dryrun.spawn`` reads them),
+    and with ``with_dryrun`` > 0 ``dryrun_multichip(with_dryrun)``, the
+    three side by side after this process's references. (a) at 12
+    iterations and at SP_SHORT, a global batch of SP_B per data rank;
+    (b) at SP_FLOW_SHORT and 12, one pair per data rank."""
+    import concurrent.futures
+
+    import torch
+    from prior_flow_tpu_torch.parallel import dryrun
+    n = shape[0] * shape[1]
+    kw = dict(precision="highest")
+    cases = [dict(grad_mode="standard", iters=it) for it in (ITERS, SP_SHORT)]
+    iters = (SP_FLOW_SHORT, ITERS)
+    batch = dryrun.synthetic_batch(11, SP_B * shape[0], H, W)
+    # (b): one pair per data rank
+    pair = tuple(torch.cat([images(2 + d, H2, W2)[i]
+                            for d in range(shape[0])]) for i in (0, 1))
+    fwd_refs = space_forward_refs(dev, pair, iters, kw)
+    step_refs = space_step_refs(dev, batch, cases, kw)
+    t0 = time.perf_counter()
+
+    def dry():
+        t = time.perf_counter()
+        res = dryrun.dryrun_multichip(with_dryrun, device=device,
+                                      backend=backend)
+        return dict(loss=res["loss"], s=time.perf_counter() - t)
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        step = pool.submit(dryrun.spawn, dryrun.rank_updates, n, cases,
+                           batch, SP_STEPS, 0, kw, device=device,
+                           backend=backend, timeout_s=SP_TIMEOUT_S,
+                           shape=shape)
+        fwd = pool.submit(dryrun.spawn, dryrun.forward_rows, n,
+                          [(*pair, it) for it in iters], 0, SP_RUNS, kw,
+                          device=device, backend=backend,
+                          timeout_s=SP_TIMEOUT_S, shape=shape)
+        dryrun_out = pool.submit(dry) if with_dryrun else None
+        out = {"step": space_step_gates(step.result(), step_refs, cases,
+                                        shape, tag),
+               "forward": space_forward_gates(fwd.result(), fwd_refs, iters,
+                                              shape, (H2, W2), tag)}
+        if dryrun_out is not None:
+            out["dryrun"] = dryrun_out.result()
+    out["spawned_s"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_space(dev):
+    """Phase 25: the space axis on the one card, ranks sharing it over
+    gloo: the sums kernel's f64 output; (a) the EFT step and (b) the
+    1024x2048 forward on a 1x2 mesh against one process; (c)
+    ``dryrun_multichip(4)`` (a 2x2 mesh), side by side with (a) and (b)."""
+    t0 = time.perf_counter()
+    half = [(b, c, h // SP_SHAPE[1], w) for b, c, h, w in FNET_SHAPES_HR]
+    out = {"sums_f64_rel": space_sums_f64(dev, half)}
+    out.update(space_runs(dev, SP_SHAPE, "cuda:0", "gloo", "phase 25",
+                          with_dryrun=4))
+    out["s"] = time.perf_counter() - t0
+    print(f"  phase 25: {out['s']:.1f} s ((a), (b) and (c) side by side "
+          f"{out['spawned_s']:.1f} s; two ranks share the card with each "
+          f"other, (c)'s four and this process: no speed claim)",
+          flush=True)
+    return out
+
+
 # -- --multichip: data parallel over the host's cards ----------------------------
 
 MULTICHIP_TIMEOUT_S = 900
@@ -4071,7 +4501,9 @@ def multichip_cli(n: int, base: str):
 def multichip_main(name: str) -> None:
     """``--multichip``: the data-parallel path on every visible card, one
     rank per card over NCCL: phase 22 (b)'s gradient gates, then
-    ``dryrun_multichip(n)`` and ``cli.train --mesh auto``."""
+    ``dryrun_multichip(n)`` (a 2 x n/2 data x space mesh where n is even
+    and at least 4) and ``cli.train --mesh auto``; with four or more
+    cards (an even count) phase 25 (a) and (b) on a 2 x n/2 NCCL mesh."""
     import tempfile
 
     import torch
@@ -4097,6 +4529,11 @@ def multichip_main(name: str) -> None:
     with tempfile.TemporaryDirectory(prefix="multichip_",
                                      dir=os.path.join(REPO, "build")) as tmp:
         out["cli_s"] = multichip_cli(n, tmp)
+    if n >= 4 and n % 2 == 0:
+        shape = (2, n // 2)
+        print(f"multichip (d) the space axis on a {shape[0]}x{shape[1]} NCCL "
+              f"mesh, one card per rank: phase 25 (a) and (b)", flush=True)
+        out["space"] = space_runs(dev, shape, "cuda", "nccl", "multichip (d)")
     print(json.dumps({"multichip": out}))
     print(f"all multichip checks passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -4256,6 +4693,7 @@ def main(argv=None) -> None:
     variant, pair, one_branch, tool_gridwin = phase_gridwin(dev, peaks)
     tool = {k: tool_anchor[k] + tool_split[k] + tool_gridwin[k]
             for k in tool_anchor}
+    serving_compiles = start_serving_compiles()
     phase(f"phase 18 evaluation path, {H}x{W}: cli.evaluate, cli.video, "
           f"cli.demo_image")
     ev = phase_eval(dev, ms32)
@@ -4273,7 +4711,7 @@ def main(argv=None) -> None:
 
     phase(f"phase 20 serving, {H}x{W} and {H2}x{W2}: torch.library ops, "
           f"exported programs, AOTInductor packages, cli.export")
-    sv = phase_serving(dev, grids, grids2)
+    sv = phase_serving(dev, serving_compiles)
     print(json.dumps({"serving_ms_per_pair": {
         tag: sv[tag]["ms"] for tag in ("fp32", "bf16")},
         "serving_1024x2048_ms_per_pair": sv["hr"]["ms"],
@@ -4351,6 +4789,19 @@ def main(argv=None) -> None:
         "raft_440x1024": {tag: {k: v for k, v in r.items() if k != "counts"}
                           for tag, r in p24["raft"].items()},
         "bn_batch_statistics": p24["bn"]}))
+
+    phase(f"phase 25 the space axis: a {SP_SHAPE[0]}x{SP_SHAPE[1]} mesh of "
+          f"gloo ranks sharing the card, the EFT step at {H}x{W} and the "
+          f"{H2}x{W2} forward; dryrun_multichip(4) on a 2x2 mesh")
+    sp = phase_space(dev)
+    print(json.dumps({"space_1x2": {
+        "sums_f64_rel": sp["sums_f64_rel"],
+        "step": {it: {k: v for k, v in r.items() if k != "launches"}
+                 for it, r in sp["step"].items()},
+        "forward_1024x2048": {it: {k: v for k, v in r.items()
+                                   if k != "launches"} if isinstance(r, dict)
+                              else r for it, r in sp["forward"].items()},
+        "dryrun_multichip_2x2": sp["dryrun"], "s": sp["s"]}}))
     phase()
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -4394,7 +4845,14 @@ def main(argv=None) -> None:
                 "one stacked scatter per level and volume); "
                 "launches_raft_basic_440x1024 / _small_: one 440x1024 fp32 "
                 "forward of the legacy RAFT, 12 iterations (phase 24: the "
-                "feature encoder's sums)")
+                "feature encoder's sums); launches_train_step_sp2_per_rank: "
+                "one standard step of one of phase 25 (a)'s two gloo ranks "
+                "of a 1x2 data x space mesh (512x1024 split in two height "
+                "slices, global batch 2, 12 iterations, fp32, remat dccl; "
+                "the sums with f64 partial sums); "
+                "launches_forward_1024x2048_sp2_per_rank: one 1024x2048 "
+                "fp32 forward of one of phase 25 (b)'s two ranks (the planes "
+                "route)")
 
     def row(name, src, replaces, d, work, err, path="train"):
         paths = {"train": std, "forward_1024x2048": hr_counts,
@@ -4422,6 +4880,10 @@ def main(argv=None) -> None:
                     p24["raft"]["basic"]["counts"][name],
                 "launches_raft_small_440x1024":
                     p24["raft"]["small"]["counts"][name],
+                "launches_train_step_sp2_per_rank":
+                    sp["step"][ITERS]["launches"].get(name, 0),
+                "launches_forward_1024x2048_sp2_per_rank":
+                    sp["forward"][ITERS]["launches"].get(name, 0),
                 "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
                 "library_ms": d["library_ms"], "work": work + "; " + per_path,

@@ -13,13 +13,19 @@ Presets (``scripts/train_*.sh``):
 ``--mesh`` as in the JAX CLI: ``auto`` trains data-parallel over every
 card (one process per card, ``parallel.make_mesh``): under ``torchrun``
 over its ranks, else by spawning one process per visible card, and on
-one card (or ``--device cpu``) without a mesh. ``DPxSP`` asks for DP
-data-parallel ranks, and fails unless DP x SP is the number visible
-(torchrun's world size, else the cards, or 1 with ``--device cpu``); SP
-above 1 (JAX's height sharding) is ROADMAP Queue 1, item 9b. On N cards:
+one card (or ``--device cpu``) without a mesh. ``DPxSP`` asks for DP x
+SP ranks, DP over the batch and, with SP above 1, SP over the image
+height (``parallel.make_mesh_2d``, ``parallel/spatial.py``); it fails
+unless DP x SP is the number visible (torchrun's world size, else the
+cards, or 1 with ``--device cpu``). On N cards:
 
     torchrun --nproc_per_node=N -m prior_flow_tpu_torch.cli.train \
         --mesh auto --stage EFT --preset --mixed_precision --data_root ...
+
+and on four, two data ranks of two height slices each:
+
+    torchrun --nproc_per_node=4 -m prior_flow_tpu_torch.cli.train \
+        --mesh 2x2 --stage EFT --preset --mixed_precision --data_root ...
 
 ``--batch_size`` is the global batch; each rank trains on its share.
 ``--remat_policy``
@@ -95,8 +101,9 @@ def build_parser():
 
     parser.add_argument("--mesh", type=str, default="auto",
                         help="'auto' (data parallel over every visible card, "
-                             "or torchrun's ranks) or 'DPxSP' (e.g. 2x1); "
-                             "SP > 1 is ROADMAP Queue 1, item 9b")
+                             "or torchrun's ranks) or 'DPxSP' (e.g. 2x2: DP "
+                             "ranks over the batch, SP over the image "
+                             "height)")
     parser.add_argument("--save_path", type=str, default="./checkpoints")
     parser.add_argument("--data_root", type=str, default=None)
     parser.add_argument("--wandb", action="store_true")
@@ -123,13 +130,11 @@ def make_validators(args):
 
 
 def mesh_ranks(spec: str, device=None):
-    """``--mesh`` -> (ranks, under_torchrun): the data-parallel ranks to
-    train on, and whether ``torchrun`` started them
+    """``--mesh`` -> (ranks, under_torchrun): the ranks to train on (DP x
+    SP), and whether ``torchrun`` started them
     (``prior_flow_tpu/cli/train.py:125-138``). Raises ``SystemExit`` with
     the JAX CLI's messages."""
     import torch
-
-    from ..parallel.mesh import SPACE_ITEM
 
     world = os.environ.get("WORLD_SIZE")
     if world is not None:
@@ -145,14 +150,21 @@ def mesh_ranks(spec: str, device=None):
         raise SystemExit(f"--mesh expects 'auto' or 'DPxSP' (e.g. 2x4); got "
                          f"{spec!r}")
     dp, sp = int(parts[0]), int(parts[1])
-    if sp != 1:
-        raise SystemExit(f"--mesh {spec}: {SPACE_ITEM}")
     # JAX's rule; 1x1 on a host without a card reaches resolve_device's
     # error instead
     if dp * sp != visible and not (dp * sp == 1 and visible == 0):
         raise SystemExit(f"--mesh {spec}: {dp}x{sp}={dp * sp} chips "
                          f"requested but {visible} visible")
-    return dp, world is not None
+    return dp * sp, world is not None
+
+
+def mesh_shape(spec: str):
+    """``--mesh`` -> the (DP, SP) shape of a data x space mesh where SP > 1,
+    else None (a 1-D data mesh); ``mesh_ranks`` checks the spec first."""
+    if spec == "auto":
+        return None
+    dp, sp = (int(p) for p in spec.lower().split("x"))
+    return (dp, sp) if sp > 1 else None
 
 
 def _rank_main(mesh, argv):
@@ -173,15 +185,17 @@ def main(argv=None):
     ranks were spawned processes)."""
     args = parse_args(argv)
     ranks, torchrun = mesh_ranks(args.mesh, args.device)
+    shape = mesh_shape(args.mesh)
     if ranks > 1 and not torchrun:
         from ..parallel.dryrun import spawn
         spawn(_rank_main, ranks, sys.argv[1:] if argv is None else argv,
-              device=args.device or "cuda", timeout_s=None)
+              device=args.device or "cuda", timeout_s=None, shape=shape)
         return None
     mesh = None
     if ranks > 1:
         from ..parallel.mesh import make_mesh
-        mesh = make_mesh(ranks, device=args.device)
+        mesh = make_mesh(ranks, ("data",) if shape is None
+                         else ("data", "space"), shape, device=args.device)
     return train(args, mesh)
 
 

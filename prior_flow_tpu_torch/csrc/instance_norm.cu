@@ -1,5 +1,8 @@
 // Instance-norm statistics: per-row sums of y and x*y, accumulated in f64,
-// returned as f32.
+// returned as f32, or as f64 where the sums of a height-sharded norm's rows
+// are added up over its ranks (out_f64): rounded to f32 before that sum,
+// partial sums of opposite signs lost the bits the feature encoder's
+// gradients need (prior_flow_tpu_torch/parallel/spatial.py).
 //
 // Replaces prior_flow_tpu/ops/pallas/instance_norm.py::_sums_kernel
 // (launched by _lane_sums). With NCHW activations every (sample, channel)
@@ -76,10 +79,10 @@ __device__ __forceinline__ float load_one(const uint16_t* p, long long i) {
   return __uint_as_float(static_cast<unsigned int>(b) << 16);
 }
 
-template <typename T, bool kSame>
+template <typename T, typename OutT, bool kSame>
 __global__ void __launch_bounds__(kThreads)
     row_sums_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                    float* __restrict__ s1, float* __restrict__ s2,
+                    OutT* __restrict__ s1, OutT* __restrict__ s2,
                     long long n, int vectorised) {
   const long long row = blockIdx.x;
   const T* xr = x + row * n;
@@ -127,13 +130,13 @@ __global__ void __launch_bounds__(kThreads)
     a1 = warp_sum(a1);
     a2 = warp_sum(a2);
     if (lane == 0) {
-      s1[row] = static_cast<float>(a1);
-      s2[row] = static_cast<float>(a2);
+      s1[row] = static_cast<OutT>(a1);
+      s2[row] = static_cast<OutT>(a2);
     }
   }
 }
 
-template <typename T>
+template <typename T, typename OutT>
 int launch(const void* x, const void* y, void* s1, void* s2, int rows,
            long long n, cudaStream_t s) {
   const int vectorised = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
@@ -141,27 +144,35 @@ int launch(const void* x, const void* y, void* s1, void* s2, int rows,
                          (n % Vec<T>::kElems == 0);
   const T* xp = static_cast<const T*>(x);
   const T* yp = static_cast<const T*>(y);
-  float* o1 = static_cast<float*>(s1);
-  float* o2 = static_cast<float*>(s2);
+  OutT* o1 = static_cast<OutT*>(s1);
+  OutT* o2 = static_cast<OutT*>(s2);
   if (x == y) {
-    row_sums_kernel<T, true><<<rows, kThreads, 0, s>>>(xp, yp, o1, o2, n,
-                                                       vectorised);
+    row_sums_kernel<T, OutT, true><<<rows, kThreads, 0, s>>>(
+        xp, yp, o1, o2, n, vectorised);
   } else {
-    row_sums_kernel<T, false><<<rows, kThreads, 0, s>>>(xp, yp, o1, o2, n,
-                                                        vectorised);
+    row_sums_kernel<T, OutT, false><<<rows, kThreads, 0, s>>>(
+        xp, yp, o1, o2, n, vectorised);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_out(const void* x, const void* y, void* s1, void* s2, int out_f64,
+               int rows, long long n, cudaStream_t s) {
+  return out_f64 ? launch<T, double>(x, y, s1, s2, rows, n, s)
+                 : launch<T, float>(x, y, s1, s2, rows, n, s);
 }
 
 }  // namespace
 
 // Launches the row sums on `stream`; returns cudaGetLastError() as an int.
-// is_bf16 != 0 selects bf16 inputs (raw 16-bit words), else f32.
+// is_bf16 != 0 selects bf16 inputs (raw 16-bit words), else f32; out_f64
+// != 0 writes s1, s2 as f64, else f32.
 extern "C" int instance_norm_sums(const void* x, const void* y, int is_bf16,
-                                  void* s1, void* s2, int rows, long long n,
-                                  void* stream) {
+                                  void* s1, void* s2, int out_f64, int rows,
+                                  long long n, void* stream) {
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<uint16_t>(x, y, s1, s2, rows, n, s)
-                 : launch<float>(x, y, s1, s2, rows, n, s);
+  return is_bf16 ? launch_out<uint16_t>(x, y, s1, s2, out_f64, rows, n, s)
+                 : launch_out<float>(x, y, s1, s2, out_f64, rows, n, s);
 }

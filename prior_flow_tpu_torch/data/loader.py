@@ -6,8 +6,11 @@ shuffled by a generator keyed by (seed, epoch) alone, each shard its
 slice of that order, the last short batch dropped or kept, an infinite
 stream that resumes at any batch (``start_batch``), and each ``iter()``
 one epoch further. A data-parallel rank's stream (``infinite(rank=,
-world=)``) holds its rows of each global batch; that split is not the
-shards', which are JAX's multi-host slices of each epoch. Underneath it is a ``torch.utils.data.DataLoader``: a
+world=)``) holds its rows of each global batch; on a data x space mesh
+``rank`` and ``world`` are the data axis's (``Mesh.data_rank``,
+``data_size``), so every space rank of a data group reads the same rows
+and keeps its height slice of them (``Trainer.run``). That split is not
+the shards', which are JAX's multi-host slices of each epoch. Underneath it is a ``torch.utils.data.DataLoader``: a
 batch sampler yields each batch's (epoch, index) pairs, worker processes
 read and augment the samples, and batches come back as tensors, in pinned
 memory when a card is present. The workers come from a fork server (a

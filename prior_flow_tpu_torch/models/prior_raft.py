@@ -78,6 +78,18 @@ only, in train mode, and draws from the ``generator`` the caller passes
 (the trainer keys one by (seed, step)); a training forward in train mode
 without one raises. Test-mode forwards and eval mode never drop.
 
+Height sharding (the ``space`` axis of a data x space mesh,
+``parallel/spatial.py``): inside a ``spatial.scope`` the forward takes
+this rank's rows of each image (H / S of them, a multiple of 8) and
+returns its rows of the flow. Every convolution and instance norm, the
+orthogonal view, ``flo_rotate``, the back-rotation and the upsampling
+exchange rows with the other ranks; fmap2 is gathered once per forward
+(the volume's targets, the flaw maps' warps); the queries, the volume
+rows, the lookups and ``coords0`` are the rank's, in global pixels; the
+grids are the whole image's. Refused inside the scope (ROADMAP item 9c):
+``deferred_vol_grad``, the ``mxu`` / ``gather`` lookups,
+``bn_running_average=False`` and the taped backward (``iterate_taped``).
+
 Precision (``prior_raft.py:142-144``): ``precision=None`` runs under
 torch's backend flags as the caller left them (torch's default lets cuDNN
 convolutions use TF32); ``"highest"`` runs the forward, and a training
@@ -103,6 +115,7 @@ from ..ops.corr import (DCCL, DCCLDeferredRebind, DCCLFused, DCCLOnTheFly,
                         build_pyramid_lean, groupwise_corr)
 from ..ops.samplers import cycle_bilinear_sample
 from ..ops.warp import flo_rotate, img_rotate
+from ..parallel import spatial
 from ..utils.precision import check_precision, precision_scope
 
 
@@ -143,7 +156,13 @@ def upsample_flow_convex(flow: torch.Tensor, mask: torch.Tensor):
     m = mask.permute(0, 3, 1, 2).float().reshape(B, 1, 9, 8, 8, h, w)
     m = torch.softmax(m, dim=2)
     f = (8.0 * flow).permute(0, 3, 1, 2).float()
-    neigh = F.unfold(f, [3, 3], padding=1).reshape(B, C, 9, 1, 1, h, w)
+    space = spatial.current()
+    if space is None:
+        neigh = F.unfold(f, [3, 3], padding=1)
+    else:   # one halo row above and below for the 3x3 neighbourhoods
+        neigh = F.unfold(spatial.halo_rows(f, 1, 1, 2, space), [3, 3],
+                         padding=(0, 1))
+    neigh = neigh.reshape(B, C, 9, 1, 1, h, w)
     up = torch.sum(m * neigh, dim=2)                      # (B, C, 8, 8, h, w)
     up = up.permute(0, 4, 2, 5, 3, 1)                     # (B, h, 8, w, 8, C)
     return up.reshape(B, 8 * h, 8 * w, C).to(flow.dtype)
@@ -191,6 +210,7 @@ class PriOrRAFT(nn.Module):
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
                              f"got {remat_policy!r}")
         self.precision = precision
+        self.bn_running_average = bn_running_average
         self.corr_mode = corr_mode
         self.lookup_mode = lookup_mode
         self.remat = remat
@@ -272,7 +292,8 @@ class PriOrRAFT(nn.Module):
             return tuple(DCCLOnTheFly.build_pyramid(f1, f2, self.corr_levels)
                          for f1, f2 in pairs)
         dt = torch.bfloat16 if self.mixed_precision else torch.float32
-        _, h8, w8, _ = fmap1_A.shape
+        # the whole image's 1/8 size (fmap2 is gathered when height-sharded)
+        _, h8, w8, _ = fmap2_A.shape
         if lean or h8 * w8 > LEAN_BUILD_QUERIES:
             return tuple(build_pyramid_lean(f1, f2, self.corr_levels, dt)
                          for f1, f2 in pairs)
@@ -365,22 +386,46 @@ class PriOrRAFT(nn.Module):
             return self._forward(image1, image2, iters, init_flow,
                                  not test_mode, generator)
 
+    def check_space(self, space, h: int) -> None:
+        """Raises where a height-sharded forward of this model over
+        ``space`` with ``h`` rows per rank is not ported (ROADMAP item
+        9c) or the rows are not whole 1/8 rows."""
+        if self.deferred_vol_grad:
+            raise ValueError(spatial.refused("deferred_vol_grad=True"))
+        if isinstance(self.dccl, DCCL):
+            raise ValueError(spatial.refused(
+                f"lookup_mode={self.lookup_mode!r}"))
+        if not self.bn_running_average:
+            raise ValueError(spatial.refused("bn_running_average=False"))
+        spatial.check_height(h * space.size, space.size)
+
     def _forward(self, image1, image2, iters, init_flow, train: bool,
                  generator=None):
         B, H, W, _ = image1.shape
         dev = image1.device
+        space = spatial.current()
+        if space is not None:
+            self.check_space(space, H)
+            H *= space.size
         g = self.rotation_grids(H, W, dev)
         net_A, net_B, inp_A, inp_B, fmaps = self.encode(
             image1, image2, g,
             self.dropout_generator(generator) if train else None)
+        if space is not None:   # the targets: fmap2 of the whole image
+            fmaps = (fmaps[0], spatial.gather_rows(fmaps[1], 1, space),
+                     fmaps[2], spatial.gather_rows(fmaps[3], 1, space))
         deferred = (self.deferred_vol_grad and train
                     and isinstance(self.dccl, DCCLFused)
                     and self.corr_mode != "onthefly")
         pyr_A, pyr_B = self.build_pyramids(
             fmaps, lean=deferred and self.mixed_precision)
 
-        h8, w8 = H // 8, W // 8
-        coords0 = gridlib.identity_grid_on(h8, w8, dev).expand(B, h8, w8, 2)
+        h8, w8 = fmaps[0].shape[1], W // 8
+        if space is None:
+            coords0 = gridlib.identity_grid_on(h8, w8, dev)
+        else:
+            coords0 = spatial.identity_rows(h8, w8, dev, space)
+        coords0 = coords0.expand(B, h8, w8, 2)
         coords1_A = coords0
         coords1_B = coords0
         if init_flow is not None:
@@ -451,6 +496,8 @@ class PriOrRAFT(nn.Module):
         fields_B), (cen_A, cen_B))``: stacked (iters, B, H, W, 2) flows, the
         lists of field leaves (B, h8, w8, L*81), and the stacked
         (iters, B, Q, 2) centres."""
+        if spatial.current() is not None:
+            raise ValueError(spatial.refused("grad_mode='taped'"))
         B, _, h8, w8 = net_A.shape
         g = self.rotation_grids(8 * h8, 8 * w8, net_A.device)
         coords0 = gridlib.identity_grid_on(h8, w8, net_A.device).expand(

@@ -32,6 +32,7 @@ from ..ops.corr import all_pairs_correlation, build_pyramid
 from ..ops.kernels.dccl_lookup import window_delta
 from ..ops.samplers import bilinear_sample
 from ..ops.warp import upflow8
+from ..parallel import spatial
 from ..utils.precision import check_precision, precision_scope
 from .prior_raft import PriOrRAFT, _nchw, _nhwc, upsample_flow_convex
 
@@ -100,6 +101,8 @@ class RAFT(nn.Module):
         (``test_mode=False``) in train mode."""
         if iters < 1:
             raise ValueError("iters must be at least 1")
+        if spatial.current() is not None:
+            raise ValueError(spatial.refused("the legacy RAFT"))
         grad = torch.no_grad() if test_mode else contextlib.nullcontext()
         with precision_scope(self.precision), grad:
             return self._forward(image1, image2, iters, init_flow,

@@ -1,5 +1,10 @@
 """Building blocks shared by the encoders and update blocks
-(counterpart of ``prior_flow_tpu/nn/layers.py``). NCHW throughout."""
+(counterpart of ``prior_flow_tpu/nn/layers.py``). NCHW throughout.
+
+Under a ``parallel.spatial.scope`` (height sharding) the convolutions pad
+their rows with the neighbouring ranks' (``Conv2d``), the instance norm
+sums its statistics over the space group and the dropout draws are the
+whole image's (``draw_rows``); outside one nothing changes."""
 
 from __future__ import annotations
 
@@ -7,18 +12,40 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..ops.kernels.instance_norm import instance_norm
+from ..parallel import spatial
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (the same parameters and state-dict keys) that, under
+    a space scope, takes its input rows' halo from the ranks above and
+    below (``spatial.halo_rows``) and convolves with height padding 0:
+    ``padding`` rows above and ``kernel - padding - stride`` below (none
+    below where that is negative), so the rank's output rows are those of
+    the unsharded convolution."""
+
+    def forward(self, x):
+        space = spatial.current()
+        if space is None:
+            return super().forward(x)
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        top, bottom = p, max(0, k - p - s)
+        if top or bottom:
+            x = spatial.halo_rows(x, top, bottom, dim=2, space=space)
+        return F.conv2d(x, self.weight, self.bias, self.stride,
+                        (0, self.padding[1]), self.dilation, self.groups)
 
 
 def conv(in_ch: int, out_ch: int, kernel, stride: int = 1,
-         padding=None) -> nn.Conv2d:
+         padding=None) -> Conv2d:
     """torch-style Conv2d with explicit zero padding (default k // 2)."""
     if isinstance(kernel, int):
         kernel = (kernel, kernel)
     if padding is None:
         padding = (kernel[0] // 2, kernel[1] // 2)
-    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding)
+    return Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding)
 
 
 class InstanceNorm(nn.Module):
@@ -127,37 +154,48 @@ class GroupNorm(nn.Module):
 
 class RankDraws(NamedTuple):
     """A generator whose batch-shaped draws are made at the global batch
-    of a data-parallel mesh of ``world`` ranks, of which this rank keeps
-    its rows (``draw_rows``): every rank then draws what one process
-    training on the global batch would."""
+    of a data-parallel mesh of ``world`` data ranks, of which this rank
+    keeps its rows (``draw_rows``), and, on a space axis of ``space``
+    ranks, at the whole image's height, of which it keeps its height rows:
+    every rank then draws what one process training on the global batch
+    would."""
 
     generator: torch.Generator
     rank: int
     world: int
+    space_rank: int = 0
+    space: int = 1
 
 
-def draw_rows(sampler, shape, generator, device, views: int = 1):
+def draw_rows(sampler, shape, generator, device, views: int = 1,
+              hdim: int = 2):
     """``sampler(shape, generator=, device=)`` (``torch.rand`` /
     ``torch.randn``) for a tensor whose dim 0 is ``views`` blocks of batch
-    rows, view-major (the encoders' concatenated views). With a
-    ``RankDraws`` the draw is made for ``views`` blocks of ``world`` times
-    the rows and each block's rows of this rank are kept; with a plain
-    generator (or ``world == 1``) it is the plain draw."""
+    rows, view-major (the encoders' concatenated views), and whose dim
+    ``hdim`` is the image height. With a ``RankDraws`` the draw is made
+    for ``views`` blocks of ``world`` times the rows, and ``space`` times
+    the height, and this rank's batch rows of each block and its height
+    rows are kept; with a plain generator (or one rank) it is the plain
+    draw."""
     if not isinstance(generator, RankDraws):
         return sampler(shape, generator=generator, device=device)
-    g, rank, world = generator
+    g, rank, world, srank, space = generator
     shape = tuple(shape)
     per = shape[0] // views
-    full = sampler((views * world * per, *shape[1:]), generator=g,
-                   device=device)
-    return full.view(views, world, per, *shape[1:])[:, rank].reshape(shape)
+    full = list(shape)
+    full[0] = views * world * per
+    full[hdim] *= space
+    draw = sampler(tuple(full), generator=g, device=device)
+    draw = draw.view(views, world, per, *shape[1:hdim], space,
+                     *shape[hdim:])[:, rank]
+    return draw.select(hdim + 1, srank).reshape(shape)
 
 
 def dropout(x: torch.Tensor, p: float, generator, views: int = 1):
-    """Elementwise dropout at rate ``p`` drawn from ``generator`` (a
-    ``torch.Generator`` or ``RankDraws``; ``views`` as ``draw_rows``
-    reads it): each element kept with probability 1 - p and scaled by
-    1 / (1 - p), the rest zero (flax ``nn.Dropout``'s rule,
+    """Elementwise dropout at rate ``p`` of NCHW ``x``, drawn from
+    ``generator`` (a ``torch.Generator`` or ``RankDraws``; ``views`` as
+    ``draw_rows`` reads it): each element kept with probability 1 - p and
+    scaled by 1 / (1 - p), the rest zero (flax ``nn.Dropout``'s rule,
     ``select(keep, x / (1 - p), 0)``)."""
     keep = draw_rows(torch.rand, x.shape, generator, x.device, views) >= p
     return torch.where(keep, x / (1.0 - p), 0.0)

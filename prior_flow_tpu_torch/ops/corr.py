@@ -51,14 +51,16 @@ __all__ = ["all_pairs_correlation", "avg_pool2", "build_pyramid",
 
 
 def all_pairs_correlation(fmap1: torch.Tensor, fmap2: torch.Tensor):
-    """(B, H, W, C) x2 -> (B, H*W, H, W) f32 cost volume scaled by 1/sqrt(C)
-    (``prior_flow_tpu/ops/corr.py:46``). A plain f32 matmul, as the JAX
-    package leaves it to XLA."""
+    """(B, H, W, C) queries x (B, H2, W2, C) targets -> (B, H*W, H2, W2)
+    f32 cost volume scaled by 1/sqrt(C) (``prior_flow_tpu/ops/corr.py:46``;
+    height-sharded, the rank's query rows against the gathered fmap2). A
+    plain f32 matmul, as the JAX package leaves it to XLA."""
     B, H, W, C = fmap1.shape
+    H2, W2 = fmap2.shape[1:3]
     a = fmap1.reshape(B, H * W, C).float()
-    b = fmap2.reshape(B, H * W, C).float()
+    b = fmap2.reshape(B, H2 * W2, C).float()
     vol = torch.matmul(a, b.transpose(1, 2))
-    return vol.reshape(B, H * W, H, W) / math.sqrt(C)
+    return vol.reshape(B, H * W, H2, W2) / math.sqrt(C)
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
@@ -91,12 +93,14 @@ def build_pyramid_lean(fmap1: torch.Tensor, fmap2: torch.Tensor,
     is one chunk's f32 pyramid: 0.71 GB at 1024x2048 (Q = 32768) and
     q_chunk 4096, where the dense build holds a 4.3 GB level-0 volume and a
     5.7 GB f32 pyramid per branch. Differentiable when autograd records
-    (the chunks are written by slice assignment).
+    (the chunks are written by slice assignment). The queries are fmap1's
+    (a rank's rows, height-sharded), the targets fmap2's.
     """
-    B, H, W, C = fmap1.shape
-    Q = H * W
+    B, H1, W1, C = fmap1.shape
+    H, W = fmap2.shape[1:3]
+    Q = H1 * W1
     a = fmap1.reshape(B, Q, C).float()
-    b = fmap2.reshape(B, Q, C).float().transpose(1, 2)
+    b = fmap2.reshape(B, H * W, C).float().transpose(1, 2)
     q_chunk = min(q_chunk, Q)
     assert Q % q_chunk == 0, (Q, q_chunk)
     levels = [torch.empty((B, Q, H >> i, W >> i), dtype=dtype,
@@ -408,7 +412,10 @@ class DCCLFused:
         """Rotate each branch's cross field back with ONE resample over the
         level-concatenated channels (``prior_flow_tpu/ops/corr.py:572-587``;
         resampling is channelwise, so rotate-then-concat equals
-        concat-then-rotate). ``fields``: the four (B, Q, L*81) fields."""
+        concat-then-rotate). ``fields``: the four (B, Q, L*81) fields.
+        Height-sharded, the queries are the rank's rows and the cross
+        fields are gathered before the back-rotation (``resample_static``
+        under a space scope)."""
         own_A, cross_A, own_B, cross_B = (f.reshape(B, h1, w1, -1)
                                           for f in fields)
         return (own_A, resample_static(cross_A, b2a_8), own_B,

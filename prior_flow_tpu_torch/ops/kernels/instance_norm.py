@@ -16,30 +16,38 @@ import ctypes
 
 import torch
 
+from ...parallel import spatial
 from . import _build
 
 
-def instance_norm_sums_plain(x: torch.Tensor, y: torch.Tensor):
-    """(B, C, H, W) x2 -> (sum(y), sum(x*y)) over H*W, each (B, C) f32,
+def instance_norm_sums_plain(x: torch.Tensor, y: torch.Tensor,
+                             out_dtype=torch.float32):
+    """(B, C, H, W) x2 -> (sum(y), sum(x*y)) over H*W, each (B, C) in
+    ``out_dtype`` (f32, or f64 for a height-sharded norm's partial sums),
     accumulated in f64 as the kernel does (see ``InstanceNormFunction``)."""
     xd, yd = x.double(), y.double()
-    return (yd.sum(dim=(2, 3)).float(),
-            (xd * yd).sum(dim=(2, 3)).float())
+    return (yd.sum(dim=(2, 3)).to(out_dtype),
+            (xd * yd).sum(dim=(2, 3)).to(out_dtype))
 
 
 def _kernel():
     fn = _build.load_library().lib.instance_norm_sums
     p = ctypes.c_void_p
-    fn.argtypes = [p, p, ctypes.c_int, p, p, ctypes.c_int, ctypes.c_longlong, p]
+    fn.argtypes = [p, p, ctypes.c_int, p, p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def instance_norm_sums(x: torch.Tensor, y: torch.Tensor):
-    """Per-(sample, channel) f32 sums of y and x*y over H*W of NCHW inputs;
-    y = x gives the forward moments."""
+def instance_norm_sums(x: torch.Tensor, y: torch.Tensor,
+                       out_dtype=torch.float32):
+    """Per-(sample, channel) sums of y and x*y over H*W of NCHW inputs, in
+    ``out_dtype`` (f32, or f64); y = x gives the forward moments."""
+    if out_dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"instance_norm_sums: float32 or float64 sums, got "
+                        f"{out_dtype}")
     if x.device.type == "cpu":
-        return instance_norm_sums_plain(x, y)
+        return instance_norm_sums_plain(x, y, out_dtype)
     if x.device.type != "cuda":
         raise RuntimeError(f"instance_norm_sums: no kernel for device {x.device}")
     if y.device != x.device or y.shape != x.shape or y.dtype != x.dtype:
@@ -52,13 +60,14 @@ def instance_norm_sums(x: torch.Tensor, y: torch.Tensor):
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("instance_norm_sums: inputs must be contiguous NCHW")
     B, C, H, W = x.shape
-    s1 = torch.empty((B, C), dtype=torch.float32, device=x.device)
-    s2 = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    s1 = torch.empty((B, C), dtype=out_dtype, device=x.device)
+    s2 = torch.empty((B, C), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = _kernel()(x.data_ptr(), y.data_ptr(),
                            int(x.dtype == torch.bfloat16), s1.data_ptr(),
-                           s2.data_ptr(), B * C, H * W, stream)
+                           s2.data_ptr(), int(out_dtype == torch.float64),
+                           B * C, H * W, stream)
     _build.check(status, "instance_norm_sums")
     instance_norm_sums.launches += 1
     return s1, s2
@@ -84,12 +93,27 @@ class InstanceNormFunction(torch.autograd.Function):
     accumulated in f64 (kernel and plain version alike): the encoder's
     weight gradients follow the rounding of these sums, and with f32
     sums they lay ~2e-3 from a float64 evaluation
-    (``tests/test_torch_port_train.py::test_encoder_grads_near_float64``)."""
+    (``tests/test_torch_port_train.py::test_encoder_grads_near_float64``).
+
+    Under a ``parallel.spatial.scope`` (height sharding) the kernel sums
+    the rank's rows into f64 (the wrapper, not the op: the sharded path is
+    not exported); the forward's and the backward's two sums are then
+    added up over the space group in f64, rounded to f32 once, as the
+    unsharded sums are, and divided by the whole image's H * W. With
+    partial sums rounded to f32 first, the feature encoder's gradients
+    missed the unsharded ones by more than
+    ``tests/test_torch_port_space.py`` allows: the partial sums of
+    dy * xhat cancel across ranks."""
 
     @staticmethod
     def forward(ctx, x, eps: float, out_dtype):
+        space = spatial.current()
         n = x.shape[2] * x.shape[3]
-        s1, s2 = torch.ops.priorflow.instance_norm_sums(x, x)
+        if space is None:
+            s1, s2 = torch.ops.priorflow.instance_norm_sums(x, x)
+        else:
+            s1, s2, n = _over_space(x, x, n, space)
+        ctx.space = space
         m = s1 / n
         var = torch.clamp_min(s2 / n - m * m, 0.0)
         s = torch.rsqrt(var + eps)
@@ -104,10 +128,22 @@ class InstanceNormFunction(torch.autograd.Function):
         a = s[:, :, None, None]
         xhat = (x.float() - m[:, :, None, None]) * a
         dyf = dy.float().contiguous()
-        d1, d2 = instance_norm_sums(xhat, dyf)
+        if ctx.space is None:
+            d1, d2 = instance_norm_sums(xhat, dyf)
+        else:
+            d1, d2, n = _over_space(xhat, dyf, n, ctx.space)
         dx = a * (dyf - (d1 / n)[:, :, None, None]
                   - xhat * (d2 / n)[:, :, None, None])
         return dx.to(x.dtype), None, None
+
+
+def _over_space(x, y, n: int, space):
+    """The kernel's f64 sums of y and x*y over a rank's rows, added up over
+    the space group in f64 and rounded to f32, and the whole image's pixel
+    count."""
+    both = torch.stack(instance_norm_sums(x, y, torch.float64))
+    both = spatial.sum_over_space(both, space).float()
+    return both[0], both[1], n * space.size
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, out_dtype=None):

@@ -8,12 +8,19 @@ fixed grid, its VJP is autograd of the sampler's gathers (exact: a gather's
 transpose is a scatter-add with the same weights), and
 ``resample_static_transpose`` applies that VJP on its own, as
 ``apply_transpose`` does for the taped backward.
+
+Under a ``parallel.spatial.scope`` (height sharding) ``resample_static``
+takes this rank's rows of ``img`` and returns its rows of the result: the
+whole image gathered (``spatial.gather_rows``), sampled at the rank's rows
+of the grid (the back-rotation of ``ops.corr.DCCLFused._finish``, the
+second resample of ``ops.warp.flo_rotate``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel import spatial
 from .samplers import cycle_bilinear_sample, cycle_grid_sample
 
 
@@ -24,6 +31,10 @@ def resample_static(img: torch.Tensor, grid: torch.Tensor,
     ``mode='cycle_bilinear'``: x wrapped mod W, zero padding, the seam quirk;
     ``mode='cycle_grid'``: true longitude wrap and latitude clamp.
     """
+    space = spatial.current()
+    if space is not None:
+        img = spatial.gather_rows(img, 1, space)
+        grid = spatial.rows(grid, space, dim=0)
     if grid.dim() == 3:
         grid = grid.unsqueeze(0).expand(img.shape[0], -1, -1, -1)
     if mode == "cycle_bilinear":

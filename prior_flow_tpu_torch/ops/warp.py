@@ -4,6 +4,13 @@
 ``(H, W, 2)`` or ``(B, H, W, 2)`` torch tensors. The convenience wrappers
 (``img_a2b``, ``flo_b2a``, ``coord_a2b``, ...) fetch the cached host grids
 and copy them to the input's device.
+
+Under a ``parallel.spatial.scope`` (height sharding) ``img_rotate``,
+``flo_rotate`` (and so ``flo_a2b``) and ``cycle_warp`` take this rank's
+rows of their input and return its rows of the result: each gathers the
+rows its samples read (``spatial.gather_rows``) and samples at the rank's
+rows of the whole grid (or of its own flow); pixel coordinates stay
+global.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import torch
 
 from ..geometry import erp, grids
 from ..geometry import rotation as rot
+from ..parallel import spatial
 from .samplers import (bilinear_sample, cycle_bilinear_sample,
                        cycle_grid_sample, masked_bilinear_interpolate)
 from .static_resample import resample_static
@@ -31,9 +39,18 @@ def _identity(H: int, W: int, like: torch.Tensor) -> torch.Tensor:
     return grids.identity_grid_on(H, W, like.device).unsqueeze(0)
 
 
+def _grid_rows(grid: torch.Tensor, space) -> torch.Tensor:
+    """The rank's rows of a whole (H, W, 2) or (B, H, W, 2) grid."""
+    return spatial.rows(grid, space, dim=grid.dim() - 3)
+
+
 def img_rotate(image: torch.Tensor, sample_grid: torch.Tensor) -> torch.Tensor:
     """Resample an image through a rotation grid with the wrap-x
     grid_sample semantics (``prior_flow_tpu/ops/warp.py:27``)."""
+    space = spatial.current()
+    if space is not None:
+        image = spatial.gather_rows(image, 1, space)
+        sample_grid = _grid_rows(sample_grid, space)
     return cycle_bilinear_sample(image, _bcast(sample_grid, image.shape[0]))
 
 
@@ -59,9 +76,16 @@ def flo_rotate(flow: torch.Tensor, sample_grid_w2c: torch.Tensor,
     it at the camera->world grid."""
     B, H, W, _ = flow.shape
     w2c = _bcast(sample_grid_w2c, B)
-    end_w = erp.flow_to_endpoint(_identity(H, W, flow), flow, H, W)
+    space = spatial.current()
+    if space is None:
+        start, w2c_here = _identity(H, W, flow), w2c
+    else:   # the endpoints of this rank's rows, in global pixels
+        start = spatial.identity_rows(H, W, flow.device, space)[None]
+        H *= space.size
+        w2c_here = _grid_rows(w2c, space)
+    end_w = erp.flow_to_endpoint(start, flow, H, W)
     end_c = cycle_grid_sample(w2c, end_w, is_grid=True)
-    flow_c = end_c - w2c
+    flow_c = end_c - w2c_here
     flow_c = torch.stack([erp.u_clip(flow_c[..., 0], W), flow_c[..., 1]],
                          dim=-1)
     return resample_static(flow_c, sample_grid_c2w, mode="cycle_grid")
@@ -71,11 +95,12 @@ def flo_a2b(flow: torch.Tensor, g: grids.RotationGrids = None) -> torch.Tensor:
     """A-frame flow -> B-frame flow at full resolution
     (``prior_flow_tpu/ops/warp.py:106``), through the (H, W) ``a2b_w2c``
     and ``a2b`` grids. ``g`` is the bundle already on ``flow``'s device
-    (e.g. ``PriOrRAFT.rotation_grids``); without it the grids are copied
-    there."""
-    H, W = flow.shape[1], flow.shape[2]
+    (e.g. ``PriOrRAFT.rotation_grids``; under a space scope the whole
+    image's); without it the grids are copied there."""
     if g is None:
-        g = grids.rotation_grids(H, W).to_device(flow.device)
+        space = spatial.current()
+        H = flow.shape[1] * (1 if space is None else space.size)
+        g = grids.rotation_grids(H, flow.shape[2]).to_device(flow.device)
     return flo_rotate(flow, g.a2b_w2c, g.a2b)
 
 
@@ -111,7 +136,12 @@ def cycle_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Backward-warp an image by a flow with the true-wrap sampler
     (``prior_flow_tpu/ops/warp.py:131``)."""
     H, W = image.shape[1], image.shape[2]
-    return cycle_grid_sample(image, _identity(H, W, image) + flow)
+    space = spatial.current()
+    if space is None:
+        return cycle_grid_sample(image, _identity(H, W, image) + flow)
+    start = spatial.identity_rows(H, W, image.device, space)[None]
+    return cycle_grid_sample(spatial.gather_rows(image, 1, space),
+                             start + flow)
 
 
 def img_rotate_theta(image: torch.Tensor, theta: float) -> torch.Tensor:

@@ -8,7 +8,8 @@ data-parallel step to the single-process one.
   results. A rank that raises or dies fails the call (the others are
   stopped), and so does a run past ``timeout_s``: nothing falls back to
   fewer ranks.
-- ``dryrun_multichip(n)``: ``Trainer.run`` for 2 updates on n ranks.
+- ``dryrun_multichip(n)``: ``Trainer.run`` for 2 updates on n ranks
+  (a 2 x n/2 data x space mesh where n is even and at least 4).
 - ``train_once`` / ``RankShare``: one seeded update of the data-parallel
   step, on a rank of a real mesh, or in one process as one rank's share
   (no collectives), whose shares summed are what the collectives give.
@@ -35,10 +36,11 @@ DRYRUN_ITERS = 2
 
 
 def _rank_entry(rank: int, n: int, init: str, device, backend, out_dir: str,
-                fn, args) -> None:
+                fn, args, shape) -> None:
     torch.set_num_threads(1)
-    mesh = make_mesh(n, device=device, backend=backend, init_method=init,
-                     rank=rank)
+    axes = ("data",) if shape is None else ("data", "space")
+    mesh = make_mesh(n, axes, shape, device=device, backend=backend,
+                     init_method=init, rank=rank)
     try:
         result = fn(mesh, *args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -47,17 +49,19 @@ def _rank_entry(rank: int, n: int, init: str, device, backend, out_dir: str,
 
 
 def spawn(fn, n: int, *args, device=None, backend: Optional[str] = None,
-          timeout_s: Optional[float] = 1800.0) -> list:
+          timeout_s: Optional[float] = 1800.0, shape=None) -> list:
     """``fn(mesh, *args)`` on ``n`` spawned ranks; their results in rank
     order. ``device`` / ``backend`` as ``make_mesh`` reads them (None or
     ``"cuda"``: one card per rank, NCCL; ``"cpu"``: gloo; ``"cuda:0"``:
-    all ranks on one card, which needs gloo). ``fn`` must be importable by
+    all ranks on one card, which needs gloo); ``shape`` (D, S): a data x
+    space mesh (default: 1-D over ``data``). ``fn`` must be importable by
     name (a module-level function). ``timeout_s`` None: no deadline."""
     rank_device(device)  # raises here, before any rank, without a card
     with tempfile.TemporaryDirectory(prefix="priorflow_ranks_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
         ctx = torch.multiprocessing.start_processes(
-            _rank_entry, args=(n, init, device, backend, tmp, fn, args),
+            _rank_entry, args=(n, init, device, backend, tmp, fn, args,
+                               shape),
             nprocs=n, join=False, start_method="spawn")
         deadline = None if timeout_s is None else time.monotonic() + timeout_s
         while not ctx.join(timeout=1.0):
@@ -204,6 +208,51 @@ def rank_updates(mesh, cases: list, batch, steps: int = 1, seed: int = 0,
     return out
 
 
+def forward_rows(mesh, jobs, seed: int = 0, runs: int = 1,
+                 model_kw: Optional[dict] = None) -> list:
+    """A rank's worker for ``spawn``: the test-mode forward of the model of
+    ``seed`` (``model_kw`` to ``build_model``) on this rank's rows of each
+    global pair of ``jobs``, (image1, image2, iters) each, height-sharded
+    over its space group. Returns per job the rank's rows of the flow
+    (CPU), the kernel launches of one forward, the ms of each of ``runs``
+    after the first (host clock around a synchronised forward), the peak
+    device GB and the exchange route."""
+    from ..models import build_model
+    from ..ops.kernels import launch_counts, reset_launch_counts
+    from . import spatial
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    model = build_model(dev, seed=seed, **(model_kw or {}))
+    out = []
+    for image1, image2, iters in jobs:
+        i1, i2 = shard_batch((image1, image2), mesh)
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        with spatial.scope(mesh.space):
+            for k in range(max(runs, 1)):
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                flow = model(i1, i2, iters=iters)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+                if k == 0:
+                    launches = {n: c for n, c in launch_counts().items()
+                                if c}
+        out.append(dict(
+            flow=flow.cpu(), launches=launches, ms=times[1:],
+            peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+                     else None),
+            route=None if mesh.space is None else mesh.space.route))
+        del flow
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
 class SyntheticPairs:
     """Tiny in-memory dataset with the FlowDataset sample contract
     (``__graft_entry__.py:75-94``)."""
@@ -225,18 +274,17 @@ class SyntheticPairs:
         return self.items[i % len(self.items)]
 
 
-def _dryrun_rank(mesh, save_path: str) -> dict:
+def _dryrun_rank(mesh, save_path: str, batch: int) -> dict:
     from ..data.loader import DataLoader
     from ..train.trainer import Trainer, TrainerConfig
 
-    n = mesh.size
     seen = {}
-    cfg = TrainerConfig(num_steps=1, batch_size=n, iters=DRYRUN_ITERS,
+    cfg = TrainerConfig(num_steps=1, batch_size=batch, iters=DRYRUN_ITERS,
                         save_path=save_path, val_freq=10 ** 9)
     trainer = Trainer(cfg, mesh=mesh,
                       logger=lambda metrics, step: seen.update(metrics))
-    loader = DataLoader(SyntheticPairs(2 * n), batch_size=n, shuffle=False,
-                        num_workers=0)
+    loader = DataLoader(SyntheticPairs(2 * batch), batch_size=batch,
+                        shuffle=False, num_workers=0)
     trainer.run(loader)
     return {"step": trainer.step, "mesh": dict(mesh.shape),
             "loss": seen.get("train/loss", math.nan),
@@ -247,17 +295,21 @@ def _dryrun_rank(mesh, save_path: str) -> dict:
 def dryrun_multichip(n_devices: int, device=None,
                      backend: Optional[str] = None) -> dict:
     """``Trainer.run`` for 2 updates (``num_steps=1``) on ``n_devices``
-    spawned ranks, on ``SyntheticPairs`` at 64x128, 2 GRU iterations, a
-    global batch of ``n_devices``; raises unless rank 0's loss is finite,
+    spawned ranks, on ``SyntheticPairs`` at 64x128, 2 GRU iterations, as
+    JAX's (``__graft_entry__.py:61-71``): a 2 x (n/2) data x space mesh
+    and a global batch of 2 where n is even and at least 4, else a 1-D
+    mesh and a global batch of n. Raises unless rank 0's loss is finite,
     only rank 0 logged and every rank took 2 updates, then prints JAX's
     line. ``device`` / ``backend`` as ``spawn`` reads them (one card per
     rank by default; ``device="cpu"`` for gloo ranks on the CPU).
-    Deviation: JAX takes a 2-D 2 x (n/2) data x space mesh where n is
-    even and at least 4; the port's mesh is 1-D, the space axis being
-    ROADMAP Queue 1, item 9b. Returns rank 0's result."""
+    Returns rank 0's result."""
+    if n_devices % 2 == 0 and n_devices >= 4:
+        shape, batch = (2, n_devices // 2), 2
+    else:
+        shape, batch = None, n_devices
     with tempfile.TemporaryDirectory(prefix="priorflow_dryrun_") as tmp:
-        results = spawn(_dryrun_rank, n_devices, tmp, device=device,
-                        backend=backend)
+        results = spawn(_dryrun_rank, n_devices, tmp, batch, device=device,
+                        backend=backend, shape=shape)
         wrote = sorted(os.listdir(tmp))
     r0 = results[0]
     loss = r0["loss"]

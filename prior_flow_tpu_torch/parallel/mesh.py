@@ -27,14 +27,20 @@ a host meet without a TCP port). Backend: NCCL on the card, gloo on the
 CPU; gloo also on the card where ranks share one device, which NCCL
 refuses. Nothing falls back: a failed rendezvous or collective raises.
 
-The ``space`` axis (JAX's height sharding, ``make_mesh_2d`` with
-``space > 1``) needs a design of its own in torch, which has no SPMD
-partitioner: ROADMAP Queue 1, item 9b. Meshes with ``space == 1`` work.
+A 2-D ``data`` x ``space`` mesh (``make_mesh_2d``) lays rank
+``d * S + s`` at data index d and space index s, as JAX's device array
+``reshape(data, space)`` does, and adds the subgroups: the ``space``
+group of the S ranks that share data index d (they hold the height
+slices of the same batch rows, ``parallel/spatial.py``) and the ``data``
+group of the D ranks that share space index s. The gradient and metric
+sums stay over all ranks: each rank's loss is a disjoint share of the
+global sum over batch and pixels.
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 import os
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -42,18 +48,21 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from .spatial import Space, check_height, rows
+
 # covers a rank-0 validation or checkpoint write while the other ranks
 # wait in the next collective
 TIMEOUT = datetime.timedelta(hours=1)
-SPACE_ITEM = ("spatial sharding (space > 1) is not in the port: ROADMAP "
-              "Queue 1, item 9b")
 
 
 @dataclass
 class Mesh:
     """One rank's view of the mesh: the process group, this rank and the
     world size, this rank's device, and JAX's ``axis_names`` / ``shape``
-    (``mesh.shape == {"data": n}``)."""
+    (``mesh.shape == {"data": n}``, or ``{"data": D, "space": S}``).
+    ``space``: this rank's space group where S > 1 (else None);
+    ``data_group``: its data group where D > 1 and S > 1 (else the whole
+    group serves)."""
 
     group: Optional[dist.ProcessGroup]
     rank: int
@@ -62,6 +71,24 @@ class Mesh:
     backend: str
     axis_names: tuple = ("data",)
     shape: dict = field(default_factory=dict)
+    space: Optional[Space] = None
+    data_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def space_size(self) -> int:
+        return self.shape.get("space", 1)
+
+    @property
+    def space_rank(self) -> int:
+        return self.rank % self.space_size
+
+    @property
+    def data_size(self) -> int:
+        return self.size // self.space_size
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.space_size
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """SUM over the ranks, in place."""
@@ -112,8 +139,9 @@ def make_mesh(n_devices: Optional[int] = None,
     (default ``RANK``); ``init_method`` (default ``env://``, torchrun's);
     ``device`` as ``rank_device`` reads it; ``backend`` NCCL on the card,
     gloo on the CPU by default. A 2-D ``("data", "space")`` mesh needs an
-    explicit ``shape``, and its space extent must be 1. Returns after a
-    barrier: every rank has joined."""
+    explicit ``shape`` (D, S) with D x S ranks; with S > 1 every rank
+    joins the subgroups (``Mesh``). Returns after a barrier: every rank
+    has joined."""
     axis_names = tuple(axis_names)
     if n_devices is None:
         n_devices = (dist.get_world_size() if dist.is_initialized()
@@ -130,9 +158,7 @@ def make_mesh(n_devices: Optional[int] = None,
             len(shape) != len(axis_names):
         raise ValueError(f"mesh axes {axis_names} of shape {shape}: the port "
                          f"has ('data',) and ('data', 'space')")
-    if len(shape) == 2 and shape[1] != 1:
-        raise ValueError(f"mesh {shape[0]}x{shape[1]}: {SPACE_ITEM}")
-    if shape[0] != n_devices:
+    if math.prod(shape) != n_devices:
         raise ValueError(f"mesh shape {shape} does not cover {n_devices} "
                          f"ranks")
     if dist.is_initialized():
@@ -157,6 +183,8 @@ def make_mesh(n_devices: Optional[int] = None,
     mesh = Mesh(None, rank, n_devices, dev, dist.get_backend(), axis_names,
                 dict(zip(axis_names, shape)))
     try:
+        if mesh.space_size > 1:
+            _join_subgroups(mesh)
         mesh.barrier()
     except Exception:
         # e.g. NCCL refusing two ranks on one device: leave no group behind
@@ -165,12 +193,27 @@ def make_mesh(n_devices: Optional[int] = None,
     return mesh
 
 
+def _join_subgroups(mesh: Mesh) -> None:
+    """Every rank creates every space group, then every data group, in
+    one order (``dist.new_group`` is collective), and keeps its own."""
+    D, S = mesh.data_size, mesh.space_size
+    for d in range(D):
+        g = dist.new_group(list(range(d * S, (d + 1) * S)))
+        if d == mesh.data_rank:
+            mesh.space = Space(g, mesh.space_rank, S, mesh.backend)
+    if D > 1:
+        for s in range(S):
+            g = dist.new_group(list(range(s, D * S, S)))
+            if s == mesh.space_rank:
+                mesh.data_group = g
+
+
 def make_mesh_2d(data: int, space: int, **kwargs) -> Mesh:
-    """A ``data`` x ``space`` mesh; ``space`` must be 1 in the port (JAX's
-    height sharding is ROADMAP Queue 1, item 9b)."""
-    if space != 1:
-        raise ValueError(f"mesh {data}x{space}: {SPACE_ITEM}")
-    return make_mesh(data, ("data", "space"), (data, space), **kwargs)
+    """A ``data`` x ``space`` mesh over ``data * space`` ranks: the batch
+    over ``data``, the image height over ``space`` (``make_mesh``'s
+    keywords)."""
+    return make_mesh(data * space, ("data", "space"), (data, space),
+                     **kwargs)
 
 
 def close_mesh(mesh: Mesh) -> None:
@@ -180,13 +223,14 @@ def close_mesh(mesh: Mesh) -> None:
 
 
 def local_rows(n: int, mesh: Mesh) -> slice:
-    """This rank's rows of a global batch of ``n``; raises where ``n`` does
-    not divide over the ranks."""
-    if n % mesh.size:
+    """This rank's rows of a global batch of ``n``: its data group's
+    (every space rank of that group shares them); raises where ``n`` does
+    not divide over the data axis."""
+    if n % mesh.data_size:
         raise ValueError(f"a global batch of {n} does not divide over "
-                         f"{mesh.size} ranks")
-    b = n // mesh.size
-    return slice(mesh.rank * b, (mesh.rank + 1) * b)
+                         f"{mesh.data_size} data ranks")
+    b = n // mesh.data_size
+    return slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
 
 
 def batch_sharding(mesh: Mesh, axis: str = "data"):
@@ -197,24 +241,41 @@ def batch_sharding(mesh: Mesh, axis: str = "data"):
     return lambda x: x[local_rows(x.shape[0], mesh)]
 
 
+def height_sharding(mesh: Mesh):
+    """``x -> `` this rank's height rows of dim 1 (images (B, H, W, 3),
+    flows (B, H, W, 2), valid masks (B, H, W)) on a mesh with S > 1, else
+    ``x``; raises where H / 8 does not divide by S."""
+    if mesh.space is None:
+        return lambda x: x
+
+    def shard(x):
+        check_height(x.shape[1], mesh.space_size)
+        return rows(x, mesh.space, dim=1)
+
+    return shard
+
+
 def spatial_batch_sharding(mesh: Mesh):
-    """JAX's ``P('data', 'space')``: with ``space == 1`` the batch rows."""
-    if mesh.shape.get("space", 1) != 1:
-        raise ValueError(SPACE_ITEM)
-    return batch_sharding(mesh)
+    """JAX's ``P('data', 'space')``: ``x -> `` this rank's batch rows
+    (``batch_sharding``) and its height rows (``height_sharding``)."""
+    batch_rows, height_rows = batch_sharding(mesh), height_sharding(mesh)
+    return lambda x: height_rows(batch_rows(x))
 
 
 def shard_batch(batch, mesh: Mesh, axis: str = "data"):
     """This rank's rows of each tensor of a global batch, on the rank's
-    device; other entries (lists of names) pass as they are."""
-    rows = batch_sharding(mesh, axis)
-    return tuple(rows(x).to(mesh.device) if torch.is_tensor(x) else x
+    device (``spatial_batch_sharding`` on a mesh with S > 1); other
+    entries (lists of names) pass as they are."""
+    rows_of = (spatial_batch_sharding(mesh) if mesh.space is not None
+               else batch_sharding(mesh, axis))
+    return tuple(rows_of(x).to(mesh.device) if torch.is_tensor(x) else x
                  for x in batch)
 
 
 @torch.no_grad()
 def replicated(mesh: Mesh, module: torch.nn.Module) -> torch.nn.Module:
-    """Rank 0's parameters and buffers on every rank, in place."""
+    """Rank 0's parameters and buffers on every rank of both axes, in
+    place."""
     for t in [*module.parameters(), *module.buffers()]:
         mesh.broadcast_(t.data)
     return module

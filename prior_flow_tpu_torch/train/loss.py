@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..eval.metrics import spherical_mask
+from ..parallel import spatial
 
 MAX_FLOW = 400.0
 
@@ -35,10 +36,18 @@ def sequence_loss_sums(flow_preds, flow_gt, valid, gamma: float = 0.8,
     """``uniform_sequence_loss``'s loss and, in place of its metrics, their
     numerators and the valid pixel count: ``{"epe": f32 sum of the error,
     "1px" / "3px" / "5px": int64 counts, "valid": int64}``, which sum over
-    the ranks of a data-parallel step (``parallel.all_reduce_sums``)."""
+    the ranks of a data-parallel step (``parallel.all_reduce_sums``).
+    Under a ``parallel.spatial.scope`` (height sharding) the inputs are
+    this rank's rows and the pixel weights are its rows of the whole
+    image's mask."""
     n, _, H, W, _ = flow_preds.shape
-    weights = torch.from_numpy(spherical_mask(H, W).copy()).to(
-        flow_preds.device)[None]
+    space = spatial.current()
+    if space is None:
+        mask = spherical_mask(H, W)
+    else:
+        mask = spherical_mask(H * space.size, W)[
+            space.rank * H:(space.rank + 1) * H]
+    weights = torch.from_numpy(mask.copy()).to(flow_preds.device)[None]
     mag = torch.sqrt(torch.sum(flow_gt ** 2, dim=-1))
     valid = (valid >= 0.5) & (mag < max_flow)
 

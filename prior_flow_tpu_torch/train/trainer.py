@@ -24,7 +24,9 @@
   what an uninterrupted one would.
 - ``mesh`` (``parallel.make_mesh``): the data-parallel step and loop,
   one process per device, the gradients summed over the ranks before the
-  clip (``trainer.py:299-305,369-392,414-420``).
+  clip (``trainer.py:299-305,369-392,414-420``); on a data x space mesh
+  (``parallel.make_mesh_2d``) each rank also takes its height rows and
+  the step runs height-sharded (``parallel/spatial.py``).
 - ``Trainer``: the loop of ``trainer.py:398-460``: ``num_steps + 1``
   updates; every 100 steps the metrics with ``train/steps_per_sec`` and
   ``train/learning_rate``; image panels every ``IMAGE_LOG_FREQ``; a
@@ -63,8 +65,10 @@ from ..models import build_model, precision_scope
 from ..nn.layers import RankDraws, draw_rows
 from ..ops.corr import DCCLFused, stacked_volume_cotangents
 from ..ops.warp import flo_a2b
+from ..parallel import spatial
 from ..parallel.mesh import (all_reduce_grads, all_reduce_sums,
-                             batch_sharding, replicated)
+                             height_sharding, replicated,
+                             spatial_batch_sharding)
 from .loss import metric_ratios, sequence_loss_sums
 from .optim import clip_by_global_norm_, global_norm, make_optimizer
 
@@ -92,7 +96,7 @@ def draw_noise(image: torch.Tensor, generator):
     g = generator.generator if isinstance(generator, RankDraws) else generator
     stdv = torch.rand((), generator=g, device=image.device) * 5.0
     return stdv, *(draw_rows(torch.randn, image.shape, generator,
-                             image.device) for _ in range(2))
+                             image.device, hdim=1) for _ in range(2))
 
 
 def add_noise(image1, image2, stdv, noise1, noise2):
@@ -146,8 +150,11 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
     (``prior_flow_tpu/train/trainer.py:102-103``): the stacked scatter
     needs volumes; and the ``mxu`` / ``gather`` lookups, which have no
     ``DCCLFused.record`` (the JAX CLI pins ``pallas`` for the taped mode,
-    ``prior_flow_tpu/cli/train.py:116-121``).
+    ``prior_flow_tpu/cli/train.py:116-121``); and height sharding
+    (ROADMAP item 9c).
     """
+    if spatial.current() is not None:
+        raise ValueError(spatial.refused("grad_mode='taped'"))
     if model.corr_mode == "onthefly":
         raise ValueError("taped gradients require corr_mode='volume'")
     if not isinstance(model.dccl, DCCLFused):
@@ -206,19 +213,32 @@ def make_train_step(model, optimizer, schedule: Callable[[int], float],
     one flat bucket after the backward and before the norm and the clip,
     and ``train/loss`` and the metrics are the global batch's. Every rank
     then takes the same update. A clip of ``inf`` leaves ``.grad`` as the
-    gradients before the clip."""
+    gradients before the clip. On a mesh with a space axis (S > 1) the
+    batch holds this rank's height rows too, and the step (the B ground
+    truth, the draws, the forward, the loss and the backward) runs
+    height-sharded over the rank's space group; the sums stay over all
+    ranks (the taped mode is refused: ROADMAP item 9c)."""
     if grad_mode not in ("standard", "taped"):
         raise ValueError(f"unknown grad_mode {grad_mode!r}")
+    space = None if mesh is None else mesh.space
+    if space is not None and grad_mode == "taped":
+        raise ValueError(spatial.refused("grad_mode='taped'"))
     params = [p for p in model.parameters() if p.requires_grad]
 
     def draws(generator):
-        return (generator if mesh is None
-                else RankDraws(generator, mesh.rank, mesh.size))
+        return (generator if mesh is None else RankDraws(
+            generator, mesh.data_rank, mesh.data_size, mesh.space_rank,
+            mesh.space_size))
 
     def train_step(batch, step: int) -> Dict[str, torch.Tensor]:
+        with spatial.scope(space):
+            return sharded_step(batch, step)
+
+    def sharded_step(batch, step: int) -> Dict[str, torch.Tensor]:
         image1, image2, flow_gt, valid = batch
         dev = flow_gt.device
-        g = model.rotation_grids(flow_gt.shape[1], flow_gt.shape[2], dev)
+        H = flow_gt.shape[1] * (1 if space is None else space.size)
+        g = model.rotation_grids(H, flow_gt.shape[2], dev)
         with torch.no_grad():
             flow_gt_B = torch.cat([flo_a2b(flow_gt[i:i + 1], g)
                                    for i in range(flow_gt.shape[0])])
@@ -385,14 +405,15 @@ class Trainer:
         total = self.step
         mesh = self.mesh
         if hasattr(loader, "infinite"):
-            rows = {} if mesh is None else dict(rank=mesh.rank,
-                                                world=mesh.size)
+            rows = {} if mesh is None else dict(rank=mesh.data_rank,
+                                                world=mesh.data_size)
             source = loader.infinite(start_batch=total, **rows)
-            batches = (tuple(b[:4]) for b in source)
+            shard = (lambda x: x) if mesh is None else height_sharding(mesh)
         else:
             source = iter(loader)
-            shard = (lambda x: x) if mesh is None else batch_sharding(mesh)
-            batches = (tuple(shard(x) for x in b[:4]) for b in source)
+            shard = ((lambda x: x) if mesh is None
+                     else spatial_batch_sharding(mesh))
+        batches = (tuple(shard(x) for x in b[:4]) for b in source)
         it = device_prefetch(batches, self.device)
         clock = self.clock = LoopClock(self.device)
         metrics = {}
@@ -410,8 +431,7 @@ class Trainer:
                     host["train/learning_rate"] = float(self.schedule(total))
                     t_last = t_now
                     self.logger(host, total)
-                if total % IMAGE_LOG_FREQ == 0 and self.is_main and \
-                        hasattr(self.logger, "log_images"):
+                if total % IMAGE_LOG_FREQ == 0:
                     self._log_image_panels(batch, total)
                 if total % cfg.val_freq == cfg.val_freq - 1:
                     self.save(total + 1)
@@ -449,11 +469,20 @@ class Trainer:
     def _log_image_panels(self, batch, step: int):
         """Input, orthogonal view, ground truth and both branches' last
         predictions of the batch's first pair as colour panels
-        (``trainer.py:463-490``)."""
+        (``trainer.py:463-490``), drawn by the main rank where its logger
+        draws images. On a mesh with a space axis every rank first gathers
+        its group's rows of that pair, and the panels' forward runs on
+        the whole images, unsharded."""
         from ..ops.warp import img_a2b
         from ..utils.flow_viz import omniflow_to_image
 
         image1, image2, flow_gt = batch[0][:1], batch[1][:1], batch[2][:1]
+        space = None if self.mesh is None else self.mesh.space
+        if space is not None:
+            image1, image2, flow_gt = (spatial.gather_rows(t, 1, space)
+                                       for t in (image1, image2, flow_gt))
+        if not (self.is_main and hasattr(self.logger, "log_images")):
+            return
         self.model.eval()
         try:
             with torch.no_grad():

@@ -119,6 +119,26 @@ def test_instance_norm_sums_matches_plain(dev, dtype, shape):
             torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_sums_f64_output_matches_plain(dev, dtype):
+    """The f64 output of the height-sharded norm's partial sums, aligned
+    and unaligned rows: the f64 sums of the plain version up to their
+    order."""
+    g = torch.Generator().manual_seed(2)
+    shape = (2, 8, 16, 24)
+    x = (torch.randn(shape, generator=g) * 3 + 1.5).to(dtype).to(dev)
+    y = torch.randn(shape, generator=g).to(dtype).to(dev)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    buf[1:] = x.reshape(-1)
+    xs = buf[1:].reshape(shape)
+    for a, b in ((x, x), (x, y), (xs, xs)):
+        got = instance_norm.instance_norm_sums(a, b, torch.float64)
+        ref = instance_norm.instance_norm_sums_plain(a, b, torch.float64)
+        for o, r in zip(got, ref):
+            assert o.dtype == torch.float64
+            torch.testing.assert_close(o, r, rtol=1e-12, atol=1e-9)
+
+
 def test_forward_on_card_matches_cpu_and_counts_launches(dev):
     iters = 3
     cpu = build_model("cpu", seed=5)

@@ -204,7 +204,7 @@ def test_only_rank_0_logs_and_writes(tmp_path):
 def test_mesh_flag(monkeypatch):
     """``--mesh`` as the JAX CLI reads it: ``auto`` is every visible card
     (torchrun's world size under torchrun, 1 with ``--device cpu``);
-    ``DPxSP`` must match it, with JAX's message; SP > 1 names item 9b;
+    ``DPxSP`` must match it (DP x SP ranks), with JAX's message;
     malformed specs get JAX's message."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert tcli.mesh_ranks("auto", "cpu") == (1, False)
@@ -212,24 +212,19 @@ def test_mesh_flag(monkeypatch):
     with pytest.raises(SystemExit, match=r"2x1=2 chips requested but 1 "
                                          r"visible"):
         tcli.mesh_ranks("2x1", "cpu")
-    with pytest.raises(SystemExit, match="item 9b"):
+    with pytest.raises(SystemExit, match=r"1x2=2 chips requested but 1 "
+                                         r"visible"):
         tcli.mesh_ranks("1x2", "cpu")
     with pytest.raises(SystemExit, match="expects 'auto' or 'DPxSP'"):
         tcli.mesh_ranks("2by1", "cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     assert tcli.mesh_ranks("auto", "cpu") == (2, True)
     assert tcli.mesh_ranks("2x1", None) == (2, True)
+    assert tcli.mesh_ranks("1x2", None) == (2, True)
     with pytest.raises(SystemExit, match="4 chips requested but 2 visible"):
         tcli.mesh_ranks("4x1", None)
     with pytest.raises(SystemExit, match="1 chips requested but 2 visible"):
         tcli.mesh_ranks("1x1", "cpu")
-
-
-def test_space_axis_names_item_9b():
-    with pytest.raises(ValueError, match="item 9b"):
-        pmesh.make_mesh_2d(2, 2, device="cpu")
-    with pytest.raises(ValueError, match="item 9b"):
-        pmesh.make_mesh(4, ("data", "space"), (2, 2), device="cpu")
 
 
 def test_failed_rendezvous_raises(tmp_path):

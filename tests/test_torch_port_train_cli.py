@@ -387,8 +387,8 @@ def _flags(parser):
 def test_cli_flags_and_presets_match_jax(tmp_path, monkeypatch):
     """JAX's flags with their defaults, plus ``--device``; the presets;
     ``--mesh DPxSP`` exits with JAX's message where DP x SP is not the
-    number of visible cards, and names ROADMAP item 9b for SP > 1; without
-    ``--device`` the CLI wants the card."""
+    number of visible cards (``1x2`` needs 2); without ``--device`` the
+    CLI wants the card."""
     ours, ref = _flags(tcli.build_parser()), _flags(jcli.build_parser())
     assert set(ours) - set(ref) == {"device"}
     for k, v in ref.items():
@@ -396,7 +396,7 @@ def test_cli_flags_and_presets_match_jax(tmp_path, monkeypatch):
     assert tcli.PRESETS == jcli.PRESETS
     with pytest.raises(SystemExit, match="chips requested but"):
         tcli.main(["--stage", "EFT", "--mesh", "2x1"])
-    with pytest.raises(SystemExit, match="item 9b"):
+    with pytest.raises(SystemExit, match="1x2=2 chips requested but"):
         tcli.main(["--stage", "EFT", "--mesh", "1x2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
