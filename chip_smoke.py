@@ -163,11 +163,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    first update's metrics bitwise, the parameters bitwise (or, where two
    runs without a mesh differ, the scatter's atomics, within twice their
    distance); the gradient all-reduce's ms and bytes; (b) two spawned
-   ranks sharing the card over gloo, a global batch of 4, fp32
+   ranks sharing the card over gloo, a global batch of 2, fp32
    ``precision="highest"``, 12 iterations, standard and taped: each
    rank's all-reduced gradients before the clip and the loss against one
    process summing the two ranks' shares (bitwise, or within twice the
-   distance of two such sums) and against the batch-4 step (per tensor
+   distance of two such sums) and against the batch-2 step (per tensor
    within twice the sum's distance from it plus 2e-4 of its norm), both
    ranks' gradients and parameters bitwise equal, per rank ms/step, peak
    GB and launches; two NCCL ranks on the one card fail; (c)
@@ -178,7 +178,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    max|field|), timed; the 512x1024 fp32 forward against the kernel
    route at 1 and 3 iterations (1e-4 x flow scale + 1e-4), 12 reported,
    ms/pair and peak GB; the mxu model exported on the card for cuda and
-   cpu at 64x128, 2 iterations, run on both within 1e-5 of eager.
+   cpu at 64x128, 1 iteration, run on both within 1e-5 of eager.
 24. (a) deferred volume gradients (``PriOrRAFT(deferred_vol_grad=True)``,
    standard grad mode) at phase 9's EFT recipe, weights and batches: 48
    lookups (the recording pass), 30 sums and 8 stacked scatters per step,
@@ -202,16 +202,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    sharing the card over gloo: the sums kernel's f64 output (the
    sharded norm's partial sums) against its plain version at the
    1024x2048 fnet shapes' half heights; (a) a 1x2 data x space mesh, the
-   EFT recipe's standard step at 512x1024, global batch 2, 12 iterations,
-   fp32 ``precision="highest"``, remat ``dccl``, 2 updates, against the
-   one-process batch-2 step in this process (loss within 1e-5, each
-   gradient tensor within 1e-5 of its norm or twice the distance of two
-   one-process steps, the updated parameters within 1e-5; launches per
-   rank); (b) a 1x2 mesh, the 1024x2048 fp32 test-mode forward (the lean
-   build, the planes route: rows 3 and 5) within 1e-4 x flow scale of
-   the one-process forward, each rank's peak GB beside one process's;
-   (c) ``dryrun_multichip(4)`` on a 2x2 mesh; (a)-(c) side by side; the
-   exchange route printed.
+   EFT recipe's step at 512x1024, global batch 2, fp32
+   ``precision="highest"``, remat ``dccl``, in the standard grad mode (2
+   updates, the second timed), the taped mode and with
+   ``deferred_vol_grad=True`` (1 update each), each at 12 iterations and
+   at 1, against the one-process batch-2 step of the same mode in this
+   process (loss within 1e-5, each gradient tensor within 1e-5 of its
+   norm or twice the distance of two one-process steps and of the steps
+   on images nudged by one rounding, the updated parameters within
+   1e-5; launches per rank of rows 1, 2 and the scatter); (b) a 1x2
+   mesh, the 1024x2048 fp32 test-mode forward (the lean build, the
+   planes route: rows 3 and 5) within 1e-4 x flow scale of the
+   one-process forward at 3 iterations (at 12 within twice the nudged
+   pair's distance), each rank's peak GB beside one process's; (c)
+   ``dryrun_multichip(4)`` on a 2x2 mesh; (d) a 1x2 mesh, the fp32
+   forwards with ``lookup_mode`` ``mxu`` and ``gather`` at 512x1024, 3
+   iterations, and the legacy RAFT basic and small at 448x1024 (RAFT's
+   440x1024 pair padded so that H / 8 splits over two ranks), 12
+   iterations, each against one process (1e-4 x flow scale, at 12
+   iterations or twice the nudged pair's distance; the sums' launches
+   only), and the ``bn_running_average=False`` step at 64x128 as (a)'s
+   at 1 iteration and on the distance over all tensors at 12 (its
+   running statistics within 1e-4 and the same on both ranks);
+   (a) beside (b) then (d) beside (c); the exchange route printed.
 The launches of phases 15-17 are the tools' measurement runs (path
 "tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
@@ -224,11 +237,11 @@ like for like.
 precision (512x1024 and 1024x2048) and of one training step per grad
 mode. ``--multichip`` runs instead only the data-parallel path on every
 visible card (two or more), one rank per card over NCCL: phase 22 (b)'s
-gates with n ranks and a global batch of max(4, n), then
+gates with n ranks and a global batch of max(2, n), then
 ``dryrun_multichip(n)`` (a 2 x n/2 data x space mesh where n is even and
 at least 4) and ``cli.train --mesh auto`` at phase 19's recipe,
 in-process (one spawned rank per card) and under ``torchrun``; with four
-or more cards phase 25 (a) and (b) on a 2 x n/2 NCCL mesh.
+or more cards phase 25 (a), (b) and (d) on a 2 x n/2 NCCL mesh.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -2155,13 +2168,19 @@ def train_cli_counts(mode: str, steps: int, validations: int,
         dccl_level_scatter_grid=per * steps)
 
 
+# loader batches timed per worker's prefetch depth (was 4: cut to pay for
+# phase 25's taped, deferred and (d) cases)
+LOADER_TIMED_DEPTHS = 2
+
+
 def loader_ms_per_batch(tree: str, workers: int) -> float:
     """Host ms per batch of 4 (read two PNGs and a .flo per sample,
     augment, stack, pin) of the EFT loader at ``workers`` worker processes,
-    each ``prefetch`` batches ahead: the wall time per batch of 4 x depth
-    batches taken as fast as they come, after depth = workers x prefetch
-    untimed ones (the workers' start). At most depth batches are ready
-    when the timing starts, so it reads at most a quarter fast."""
+    each ``prefetch`` batches ahead: the wall time per batch of
+    LOADER_TIMED_DEPTHS x depth batches taken as fast as they come, after
+    depth = workers x prefetch untimed ones (the workers' start). At most
+    depth batches are ready when the timing starts, so it reads at most
+    1 / LOADER_TIMED_DEPTHS fast."""
     from prior_flow_tpu_torch.data import datasets
     from prior_flow_tpu_torch.data.loader import DataLoader
     loader = DataLoader(datasets.fetch_dataset("EFT", tree), TRAIN_B,
@@ -2172,9 +2191,10 @@ def loader_ms_per_batch(tree: str, workers: int) -> float:
         for _ in range(depth):
             next(stream)
         t0 = time.perf_counter()
-        for _ in range(4 * depth):
+        for _ in range(LOADER_TIMED_DEPTHS * depth):
             next(stream)
-        return (time.perf_counter() - t0) * 1e3 / (4 * depth)
+        return (time.perf_counter() - t0) * 1e3 / (LOADER_TIMED_DEPTHS
+                                                   * depth)
     finally:
         stream.close()
 
@@ -2909,7 +2929,7 @@ SCALE_RUNS = 1      # was 3: cut to pay for phase 24
 # H100) where two no-remat steps agree bitwise
 REMAT_SPREAD_X = 2.0
 REMAT_RTOL = 2e-4
-REMAT_STEPS = 3     # was 5: cut to pay for phase 24
+REMAT_STEPS = 2     # was 5, then 3: cut to pay for phases 24 and 25
 # the on-the-fly training step against the volume route's, 12 iterations:
 # the random-weight recurrence amplifies any rounding (phase 20), so the
 # reference distance is the one the volume route's step moves when its
@@ -3394,7 +3414,10 @@ def phase_scale(dev, peaks):
 # -- phase 22: data parallel ---------------------------------------------------
 
 DP_RANKS = 2              # (b): ranks sharing the one card over gloo
-DP_B = 4                  # the global batch of (b)
+# the global batch of (b) (was 4: cut to pay for phase 25's taped,
+# deferred and (d) cases; the one-process fp32 reference step at batch 4
+# took 30-38 s on the card, at batch 2 ~1 s)
+DP_B = 2
 DP_STEPS = 2              # (b): updates per mode; the first is the warm-up
 DP_SPREAD_X = 2.0         # (a), (b): times the distance of two reference runs
 DP_RTOL = 2e-4            # (b): of a tensor's norm, as phase 21's remat gate
@@ -3502,7 +3525,7 @@ def shares_and_magnitudes(n: int, dev, case: dict, batch, **kw):
 
 
 def dp_ranks(dev, n: int = DP_RANKS, device="cuda:0", backend="gloo",
-             tag: str = "phase 22 (b)", label: str = ""):
+             tag: str = "phase 22 (b)", label: str = "", after_refs=None):
     """(b) ``n`` spawned ranks (by default two sharing the card over gloo;
     ``device="cuda"``, NCCL: one card each), a global batch of
     max(DP_B, n), fp32 ``precision="highest"``, 12 iterations, standard
@@ -3515,8 +3538,9 @@ def dp_ranks(dev, n: int = DP_RANKS, device="cuda:0", backend="gloo",
     distance from it plus DP_RTOL of its norm); every rank's gradients
     and updated parameters bitwise rank 0's; per rank ms/step, peak GB
     and launches per step. This process computes the references on
-    ``dev`` first (beside the ranks they would not fit one card);
-    ``label`` says what else shares the ranks' card."""
+    ``dev`` first (beside the ranks they would not fit one card), then
+    calls ``after_refs`` (what is to run beside the ranks); ``label``
+    says what else shares the ranks' card."""
     import torch
     from prior_flow_tpu_torch.parallel.dryrun import (rank_updates,
                                                       shares_summed, spawn,
@@ -3527,6 +3551,7 @@ def dp_ranks(dev, n: int = DP_RANKS, device="cuda:0", backend="gloo",
     kw = dict(precision="highest")
     cases = [dict(grad_mode=m, iters=ITERS) for m in ("standard", "taped")]
     refs = []
+    t0 = time.perf_counter()
     for case in cases:
         acc, loss, mag = shares_and_magnitudes(n, dev, case, batch, **kw)
         acc2, loss2 = shares_summed(n, dev, case, batch, **kw)
@@ -3535,8 +3560,13 @@ def dp_ranks(dev, n: int = DP_RANKS, device="cuda:0", backend="gloo",
         order = 0.0 if n <= 2 else 2 * (n - 1) * 2.0 ** -24 * _flat(
             mag.values()).norm().item()
         refs.append((acc, loss, acc2, loss2, one, order))
+    t1 = time.perf_counter()
+    if after_refs is not None:
+        after_refs()
     ranks = spawn(rank_updates, n, cases, batch, DP_STEPS, 0, kw,
                   device=device, backend=backend, timeout_s=DP_TIMEOUT_S)
+    print(f"  {tag[tag.index('('):]} references {t1 - t0:.1f} s, the "
+          f"ranks {time.perf_counter() - t1:.1f} s", flush=True)
     out = {}
     for i, case in enumerate(cases):
         mode = case["grad_mode"]
@@ -3604,14 +3634,15 @@ def dp_nccl_shared_card(dev):
     """Two NCCL ranks on one card: the run fails (NCCL refuses a device
     twice); no rank goes on alone."""
     from prior_flow_tpu_torch.parallel.dryrun import rank_updates, spawn
+    t0 = time.perf_counter()
     try:
         spawn(rank_updates, 2, [], None, device="cuda:0", backend="nccl",
               timeout_s=NCCL_SHARED_TIMEOUT_S)
     except Exception as e:      # the ranks' failure, re-raised by spawn
         msg = str(e).strip().splitlines()
-        print(f"  NCCL with two ranks on one card fails as it must: "
-              f"{type(e).__name__}: {msg[-1][:160] if msg else ''}",
-              flush=True)
+        print(f"  NCCL with two ranks on one card fails as it must "
+              f"({time.perf_counter() - t0:.1f} s): {type(e).__name__}: "
+              f"{msg[-1][:160] if msg else ''}", flush=True)
         return type(e).__name__
     fail("phase 22: NCCL ran two ranks on one card")
 
@@ -3619,7 +3650,7 @@ def dp_nccl_shared_card(dev):
 def phase_parallel(dev):
     """Phase 22: data parallel on one card, (a)-(c). (a) runs alone (its
     all-reduce is timed); the NCCL refusal and (c) (64x128) run beside
-    (b)."""
+    (b)'s ranks, once (b)'s references are done."""
     import concurrent.futures
     import tempfile
 
@@ -3637,13 +3668,13 @@ def phase_parallel(dev):
     torch.cuda.empty_cache()
     out["world1"]["s"] = t1 = time.perf_counter() - t0
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        refused = pool.submit(dp_nccl_shared_card, dev)
-        dry = pool.submit(dryrun)
+        side = []
         out["two_ranks"] = dp_ranks(
             dev, label=" (two processes share one card, beside this "
             "process and the NCCL refusal's and dryrun_multichip's ranks: "
-            "no speed claim)")
-        out["nccl_shared"], out["dryrun"] = refused.result(), dry.result()
+            "no speed claim)", after_refs=lambda: side.extend(
+                [pool.submit(dp_nccl_shared_card, dev), pool.submit(dryrun)]))
+        out["nccl_shared"], out["dryrun"] = (f.result() for f in side)
     out["s"] = time.perf_counter() - t0
     print(f"  phase 22: {out['s']:.1f} s ((a) {t1:.1f} s; (b), the NCCL "
           f"refusal and (c) side by side {out['s'] - t1:.1f} s)", flush=True)
@@ -3655,7 +3686,10 @@ def phase_parallel(dev):
 LOOKUP_FIELD_RTOL = 1e-5  # of max|field|, per DCCL call
 MODE_FLOW_RTOL = MODE_FLOW_ATOL = 1e-4
 MODE_RUNS = 3
-EXPORT_HW, EXPORT_ITERS = (64, 128), 2
+# the mxu program's size and depth (EXPORT_ITERS was 2: cut to pay for
+# phase 25's taped, deferred and (d) cases; the export traces each
+# iteration, ~10-19 s apiece)
+EXPORT_HW, EXPORT_ITERS = (64, 128), 1
 EXPORT_ATOL = 1e-5
 
 
@@ -4137,9 +4171,12 @@ def phase_deferred_raft(dev, train):
 
 # -- phase 25: the space axis (height sharding) ----------------------------------
 
-SP_SHAPE = (1, 2)         # (a), (b): one data rank of two height slices
-SP_B = 2                  # (a): the global batch
-SP_STEPS = 2              # (a): updates per rank; the first is gated
+SP_SHAPE = (1, 2)         # (a), (b), (d): one data rank of two height slices
+SP_B = 2                  # (a), (d): the global batch per data rank
+SP_STEPS = 2              # (a): updates per rank of the standard step; the
+                          #      first is gated, the second timed
+SP_MODE_STEPS = 1         # (a): updates per rank of the taped and deferred
+                          #      steps (gated, not timed)
 SP_SHORT = 1              # (a): the iterations of the step gated strictly
 SP_FLOW_SHORT = 3         # (b): the iterations of the forward gated strictly
 SP_GRAD_RTOL = 1e-5       # (a): per tensor, of its norm (or SP_SPREAD_X x
@@ -4151,6 +4188,9 @@ SP_ULP = 2.0 ** -23       # the sensitivity references' relative image change
 SP_RUNS = 2               # (b): forwards per rank and job, the first counted
 SP_SUMS_RTOL = 1e-9       # the sums kernel's f64 partial sums, of max|plain|
 SP_TIMEOUT_S = 600.0
+SP_RAFT_HW = (448, 1024)  # (d): RAFT's 440x1024 pair padded to H / 8 = 56,
+                          #      which splits over two ranks (55 does not)
+SP_BN_HW = (64, 128)      # (d): the batch-statistics step, phase 24 (c)'s size
 
 
 def space_sums_f64(dev, shapes):
@@ -4212,37 +4252,74 @@ def space_step_refs(dev, batch, cases, kw):
     return refs
 
 
-def space_step_gates(ranks, refs, cases, shape, tag: str) -> dict:
-    """(a)'s gates per case: launches per rank; every rank's gradients and
-    parameters bitwise rank 0's; the loss and the updated parameters
-    against the one-process step; each gradient tensor within
-    SP_GRAD_RTOL of its norm, or SP_SPREAD_X times the largest distance
-    of the one-process step from itself (the scatter's atomics) and
-    from the steps on nudged images. The split rounds each convolution's
-    sums in another order, and a ReLU whose input lies within that
-    rounding of zero then passes or stops its cotangent (found at
-    64x128 on the CPU: two such ReLUs put the split step 4.03e-4 of the
-    gradients' norm from one process's); the recurrence spreads such
-    differences, as it spreads the nudged images'. A norm is floored as
-    phase 9 floors it (``grad_floor``: the fnet conv biases in front of
-    an instance norm carry only round-off)."""
+def space_step_cases():
+    """(a)'s cases: the standard, taped and deferred steps at the EFT
+    recipe, each at 12 iterations and at SP_SHORT."""
+    cases = []
+    for mode in ("standard", "taped", "deferred"):
+        for it in (ITERS, SP_SHORT):
+            case = dict(mode=mode, iters=it, hw=(H, W),
+                        grad_mode="taped" if mode == "taped" else "standard")
+            if mode == "deferred":
+                case["model"] = dict(deferred_vol_grad=True)
+            if mode != "standard":
+                case["steps"] = SP_MODE_STEPS
+            cases.append(case)
+    return cases
+
+
+def step_launches(case) -> dict:
+    """A step's launches per rank: kernel 1 four per iteration (the
+    deferred step's in its recording pass), the 30 sums, and two grid
+    scatters per level and iteration (standard) or per level (taped,
+    deferred: one stacked scatter per volume)."""
+    it = case["iters"]
+    stacked = (case["grad_mode"] == "taped"
+               or case.get("model", {}).get("deferred_vol_grad", False))
+    return {"dccl_level_lookup": LEVELS * it, "instance_norm_sums": 30,
+            "dccl_level_scatter_grid": 2 * LEVELS * (1 if stacked else it)}
+
+
+def space_step_gates(ranks, refs, cases, shape, tag: str,
+                     part: str = "(a)") -> dict:
+    """The steps' gates per case: launches per rank; every rank's
+    gradients, parameters and buffers bitwise rank 0's; the loss, the
+    updated parameters and the buffers (the batch-statistics BatchNorm's
+    running statistics) against the one-process step of the same mode;
+    each gradient tensor within SP_GRAD_RTOL of its norm, or SP_SPREAD_X
+    times the largest distance of the one-process step from itself (the
+    scatter's atomics) and from the steps on nudged images. The split
+    rounds each convolution's sums in another order, and a ReLU whose
+    input lies within that rounding of zero then passes or stops its
+    cotangent (found at 64x128 on the CPU: two such ReLUs put the split
+    step 4.03e-4 of the gradients' norm from one process's); the
+    recurrence spreads such differences, as it spreads the nudged
+    images'. A norm is floored as phase 9 floors it (``grad_floor``: the
+    fnet conv biases in front of an instance norm carry only
+    round-off). A case with ``gate="global"`` holds the distance over
+    all tensors instead (within SP_GRAD_RTOL of the global norm, or
+    SP_SPREAD_X times the largest of the same distances): two nudged
+    steps are too few to bound each tensor's spread at 12 iterations
+    (the batch-statistics step at 64x128 lay 1.06 of such a gate on one
+    tensor on the card, and 1.44e-5 of the global norm against nudged
+    8.5e-5 on the CPU)."""
     out = {}
     for i, case in enumerate(cases):
-        it = case["iters"]
-        want = {"dccl_level_lookup": LEVELS * it, "instance_norm_sums": 30,
-                "dccl_level_scatter_grid": 2 * LEVELS * it}
+        it, mode, (h, w) = case["iters"], case["mode"], case["hw"]
+        what = f"{tag} {part} {mode} {h}x{w} {it} iterations"
+        want = step_launches(case)
         for r, res in enumerate(ranks):
-            if not (res[i]["grads_same"] and res[i]["params_same"]):
-                fail(f"{tag} (a) {it} iterations: rank {r}'s gradients or "
-                     f"parameters differ from rank 0's")
+            if not (res[i]["grads_same"] and res[i]["params_same"]
+                    and res[i]["buffers_same"]):
+                fail(f"{what}: rank {r}'s gradients, parameters or buffers "
+                     f"differ from rank 0's")
             if res[i]["launches"] != want:
-                fail(f"{tag} (a) {it} iterations rank {r}: launches per "
-                     f"step {res[i]['launches']}, expected {want}")
+                fail(f"{what} rank {r}: launches per step "
+                     f"{res[i]['launches']}, expected {want}")
         got, (ref, again, *nudges) = ranks[0][i], refs[i]
         l1, l0 = got["metrics"]["train/loss"], ref["metrics"]["train/loss"]
         if abs(l1 - l0) > SP_LOSS_RTOL * abs(l0):
-            fail(f"{tag} (a) {it} iterations: loss {l1} against the "
-                 f"one-process step's {l0}")
+            fail(f"{what}: loss {l1} against the one-process step's {l0}")
         worst = (0.0, "")
         total = _flat(ref["grads"].values()).norm().item()
         for k, r in ref["grads"].items():
@@ -4253,38 +4330,56 @@ def space_step_gates(ranks, refs, cases, shape, tag: str) -> dict:
             gate = max(SP_GRAD_RTOL * max(r.norm().item(),
                                           grad_floor(k, total)),
                        SP_SPREAD_X * spread)
-            if d > gate:
-                fail(f"{tag} (a) {it} iterations: gradient {k} {d:.3e} from "
-                     f"the one-process step's, gate {gate:.3e}")
+            if d > gate and case.get("gate") != "global":
+                fail(f"{what}: gradient {k} {d:.3e} from the one-process "
+                     f"step's, gate {gate:.3e}")
             if gate > 0:
                 worst = max(worst, (d / gate, k))
         dp = max((got["params"][k] - p).abs().max().item()
                  for k, p in ref["params"].items())
         if dp > SP_PARAM_ATOL:
-            fail(f"{tag} (a) {it} iterations: updated parameters {dp:.3e} "
-                 f"from the one-process step's (atol {SP_PARAM_ATOL})")
+            fail(f"{what}: updated parameters {dp:.3e} from the one-process "
+                 f"step's (atol {SP_PARAM_ATOL})")
+        db = max([(got["buffers"][k] - b).abs().max().item()
+                  / max(b.abs().max().item(), 1e-30)
+                  for k, b in ref["buffers"].items()] or [0.0])
+        if db > BN_STATS_RTOL:
+            fail(f"{what}: buffers {db:.3e} of their max|value| from the "
+                 f"one-process step's (gate {BN_STATS_RTOL})")
         rel = dict(sharded=_global_rel(got["grads"], ref["grads"]),
                    two_runs=_global_rel(again["grads"], ref["grads"]),
                    nudged=[_global_rel(n["grads"], ref["grads"])
                            for n in nudges])
-        per_rank = [dict(ms=statistics.median(res[i]["ms"]),
+        if case.get("gate") == "global":
+            g_gate = max(SP_GRAD_RTOL, SP_SPREAD_X * max(
+                [rel["two_runs"], *rel["nudged"]]))
+            if rel["sharded"] > g_gate:
+                fail(f"{what}: gradients {rel['sharded']:.3e} of the "
+                     f"global norm from the one-process step's, gate "
+                     f"{g_gate:.3e}")
+            worst = (rel["sharded"] / g_gate, "all tensors")
+        per_rank = [dict(ms=statistics.median(res[i]["ms"])
+                         if res[i]["ms"] else None,
                          peak_gb=res[i]["peak_gb"]) for res in ranks]
-        peaks = "; ".join(f"rank {r}: {q['ms']:.1f} ms/step, peak "
-                          f"{q['peak_gb']} GB" for r, q in enumerate(per_rank))
+        peaks = "; ".join(
+            f"rank {r}: " + (f"{q['ms']:.1f} ms/step, " if q["ms"] else "")
+            + f"peak {q['peak_gb']} GB" for r, q in enumerate(per_rank))
         peaks += f" (one process: peak {ref['peak_gb']} GB)"
-        print(f"  (a) {shape[0]}x{shape[1]} mesh, the EFT recipe's standard "
-              f"step at {H}x{W}, global batch {SP_B * shape[0]}, {it} "
-              f"iterations, fp32, remat dccl: loss {l1:.6f} vs {l0:.6f}; "
-              f"gradients {rel['sharded']:.3e} of the global norm from one "
-              f"process's (two one-process steps {rel['two_runs']:.3e}"
-              + f", nudged images {rel['nudged'][0]:.3e} / "
-              f"{rel['nudged'][1]:.3e}); worst tensor at {worst[0]:.3f} of its gate "
-              f"({worst[1]}); parameters {dp:.3e} apart; per rank {peaks}; "
-              f"launches per step and rank {got['launches']}", flush=True)
-        out[it] = dict(loss=l1, loss_ref=l0, worst_of_gate=worst[0],
-                       worst_tensor=worst[1], param_dist=dp, grad_rel=rel,
-                       ranks=per_rank, peak_gb_ref=ref["peak_gb"],
-                       launches=got["launches"])
+        print(f"  {part} {shape[0]}x{shape[1]} mesh, the {mode} step at "
+              f"{h}x{w}, global batch {SP_B * shape[0]}, {it} iterations, "
+              f"fp32, remat dccl: loss {l1:.6f} vs {l0:.6f}; gradients "
+              f"{rel['sharded']:.3e} of the global norm from one process's "
+              f"(two one-process steps {rel['two_runs']:.3e}, nudged images "
+              f"{rel['nudged'][0]:.3e} / {rel['nudged'][1]:.3e}); worst "
+              f"tensor at {worst[0]:.3f} of its gate ({worst[1]}); "
+              f"parameters {dp:.3e} apart, buffers {db:.3e}; per rank "
+              f"{peaks}; launches per step and rank {got['launches']}",
+              flush=True)
+        out[f"{mode}_{it}"] = dict(
+            loss=l1, loss_ref=l0, worst_of_gate=worst[0],
+            worst_tensor=worst[1], param_dist=dp, buffer_rel=db,
+            grad_rel=rel, ranks=per_rank, peak_gb_ref=ref["peak_gb"],
+            launches=got["launches"])
     return out
 
 
@@ -4362,29 +4457,136 @@ def space_forward_gates(ranks, refs, iters, shape, size, tag: str) -> dict:
     return out
 
 
+def space_modes_inputs(shape):
+    """(d)'s inputs, one pair (or two batch rows) per data rank: the
+    forwards (name, ``build_model`` / ``build_raft`` keywords, RAFT?,
+    pair, iterations): ``mxu`` and ``gather`` at H x W, SP_FLOW_SHORT
+    iterations, RAFT basic and small at SP_RAFT_HW, 12; and the
+    batch-statistics step at SP_BN_HW (its batch and cases: SP_SHORT
+    iterations gated per tensor as (a)'s, 12 on the global distance)."""
+    import torch
+    from prior_flow_tpu_torch.parallel import dryrun
+    D = shape[0]
+    pair_of = lambda seed, h, w: tuple(torch.cat(
+        [images(seed + d, h, w)[i] for d in range(D)]) for i in (0, 1))
+    pair, raft_pair = pair_of(5, H, W), pair_of(7, *SP_RAFT_HW)
+    forwards = [("mxu", dict(lookup_mode="mxu"), False, pair, SP_FLOW_SHORT),
+                ("gather", dict(lookup_mode="gather"), False, pair,
+                 SP_FLOW_SHORT),
+                ("raft_basic", {}, True, raft_pair, ITERS),
+                ("raft_small", dict(small=True), True, raft_pair, ITERS)]
+    bn_cases = [dict(mode="batch-statistics", grad_mode="standard",
+                     iters=it, hw=SP_BN_HW, steps=1,
+                     model=dict(bn_running_average=False),
+                     gate="global" if it == ITERS else "tensor")
+                for it in (SP_SHORT, ITERS)]
+    return (forwards, dryrun.synthetic_batch(13, SP_B * D, *SP_BN_HW),
+            bn_cases)
+
+
+def space_modes_refs(dev, modes, kw):
+    """(d)'s references in this process: each forward, at 12 iterations
+    also on the nudged pair; the step as (a)'s (``space_step_refs``)."""
+    import torch
+    from prior_flow_tpu_torch.models import build_model, build_raft
+    forwards, bn_batch, bn_cases = modes
+    flows = {}
+    for name, mkw, raft, pair, it in forwards:
+        model = (build_raft if raft else build_model)(dev, seed=0, **kw,
+                                                      **mkw)
+        run = lambda p: model(*(t.to(dev) for t in p), iters=it).cpu()
+        flows[name] = (run(pair), [run(nudged(pair, s)) for s in (1, -1)]
+                       if it == ITERS else [])
+        del model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return flows, space_step_refs(dev, bn_batch, bn_cases, kw)
+
+
+def space_modes_gates(ranks, refs, modes, shape, tag: str) -> dict:
+    """(d)'s gates: each forward's launches per rank (the sums only: 15,
+    RAFT small 21; no lookup kernel) and the ranks' rows within
+    SP_FLOW_TOL x flow scale of the one-process flow (at 12 iterations
+    within the larger of that and SP_SPREAD_X times the distance the
+    nudged pair puts the one-process flow from itself); the
+    batch-statistics step as (a)'s."""
+    import torch
+    forwards, _, bn_cases = modes
+    flows, step_refs = refs
+    D, S = shape
+    out = {}
+    for j, (name, mkw, raft, pair, it) in enumerate(forwards):
+        want = {"instance_norm_sums": RAFT_SUMS[bool(mkw.get("small"))]
+                if raft else 15}
+        for r, res in enumerate(ranks):
+            if res[j][0]["launches"] != want:
+                fail(f"{tag} (d) {name} rank {r}: launches per forward "
+                     f"{res[j][0]['launches']}, expected {want}")
+        flow = torch.cat([torch.cat([ranks[d * S + s][j][0]["flow"]
+                                     for s in range(S)], dim=1)
+                          for d in range(D)])
+        ref, nudges = flows[name]
+        scale = ref.abs().max().item()
+        err = (flow - ref).abs().max().item() / scale
+        sens = [(n - ref).abs().max().item() / scale for n in nudges]
+        gate = max([SP_FLOW_TOL] + [SP_SPREAD_X * v for v in sens])
+        if not (torch.isfinite(flow).all() and err <= gate):
+            fail(f"{tag} (d) {name} {it} iterations: the sharded forward "
+                 f"lies {err:.3e} x flow scale from the one-process flow "
+                 f"(gate {gate:.3e}; nudged pair {sens})")
+        h, w = pair[0].shape[1:3]
+        print(f"  (d) {D}x{S} mesh, {name} fp32 test-mode forward at "
+              f"{h}x{w}, {it} iterations: {err:.3e} x flow scale "
+              f"{scale:.3f} from the one-process flow (gate {gate:.3e}"
+              + (f"; the nudged pair puts one process {sens[0]:.3e} / "
+                 f"{sens[1]:.3e} from itself" if sens else "")
+              + f"); launches per forward and rank "
+              f"{ranks[0][j][0]['launches']}", flush=True)
+        out[name] = dict(err_ratio=err, gate=gate, nudged=sens,
+                         launches=ranks[0][j][0]["launches"])
+    out["step"] = space_step_gates([res[len(forwards)] for res in ranks],
+                                   step_refs, bn_cases, shape, tag, "(d)")
+    return out
+
+
 def space_runs(dev, shape, device: str, backend: str, tag: str,
                with_dryrun: int = 0) -> dict:
-    """(a) and (b) on a ``shape`` data x space mesh of spawned ranks
+    """(a), (b) and (d) on a ``shape`` data x space mesh of spawned ranks
     (``device`` / ``backend`` as ``parallel.dryrun.spawn`` reads them),
-    and with ``with_dryrun`` > 0 ``dryrun_multichip(with_dryrun)``, the
-    three side by side after this process's references. (a) at 12
-    iterations and at SP_SHORT, a global batch of SP_B per data rank;
-    (b) at SP_FLOW_SHORT and 12, one pair per data rank."""
+    and with ``with_dryrun`` > 0 ``dryrun_multichip(with_dryrun)``, after
+    this process's references: (a) beside (b) then (d) beside the
+    dryrun. (a) the standard, taped and deferred steps at 12 iterations
+    and at SP_SHORT, a global batch of SP_B per data rank; (b) at
+    SP_FLOW_SHORT and 12, one pair per data rank; (d) the lookup modes,
+    RAFT and the batch-statistics step (``space_modes_inputs``)."""
     import concurrent.futures
 
     import torch
     from prior_flow_tpu_torch.parallel import dryrun
     n = shape[0] * shape[1]
     kw = dict(precision="highest")
-    cases = [dict(grad_mode="standard", iters=it) for it in (ITERS, SP_SHORT)]
+    cases = space_step_cases()
     iters = (SP_FLOW_SHORT, ITERS)
     batch = dryrun.synthetic_batch(11, SP_B * shape[0], H, W)
     # (b): one pair per data rank
     pair = tuple(torch.cat([images(2 + d, H2, W2)[i]
                             for d in range(shape[0])]) for i in (0, 1))
+    modes = space_modes_inputs(shape)
+    t_refs = time.perf_counter()
     fwd_refs = space_forward_refs(dev, pair, iters, kw)
     step_refs = space_step_refs(dev, batch, cases, kw)
+    mode_refs = space_modes_refs(dev, modes, kw)
+    laps = {"references": time.perf_counter() - t_refs}
+    mode_runs = [("forward_rows", ([(*p, it)], 0, 1, {**kw, **mkw}, raft))
+                 for _, mkw, raft, p, it in modes[0]]
+    mode_runs.append(("rank_updates", (modes[2], modes[1], 1, 0, kw)))
     t0 = time.perf_counter()
+
+    def spawn(fn, *args):
+        res = dryrun.spawn(fn, n, *args, device=device, backend=backend,
+                           timeout_s=SP_TIMEOUT_S, shape=shape)
+        laps[fn.__name__] = time.perf_counter() - t0
+        return res
 
     def dry():
         t = time.perf_counter()
@@ -4392,23 +4594,32 @@ def space_runs(dev, shape, device: str, backend: str, tag: str,
                                       backend=backend)
         return dict(loss=res["loss"], s=time.perf_counter() - t)
 
+    def forward_then_modes():
+        # (b), then (d): beside (a), two pools of ranks on the card at once
+        return (spawn(dryrun.forward_rows, [(*pair, it) for it in iters], 0,
+                      SP_RUNS, kw),
+                spawn(dryrun.rank_runs, mode_runs))
+
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        step = pool.submit(dryrun.spawn, dryrun.rank_updates, n, cases,
-                           batch, SP_STEPS, 0, kw, device=device,
-                           backend=backend, timeout_s=SP_TIMEOUT_S,
-                           shape=shape)
-        fwd = pool.submit(dryrun.spawn, dryrun.forward_rows, n,
-                          [(*pair, it) for it in iters], 0, SP_RUNS, kw,
-                          device=device, backend=backend,
-                          timeout_s=SP_TIMEOUT_S, shape=shape)
+        step = pool.submit(spawn, dryrun.rank_updates, cases, batch,
+                           SP_STEPS, 0, kw)
+        rest = pool.submit(forward_then_modes)
         dryrun_out = pool.submit(dry) if with_dryrun else None
+        fwd, mode_ranks = rest.result()
         out = {"step": space_step_gates(step.result(), step_refs, cases,
                                         shape, tag),
-               "forward": space_forward_gates(fwd.result(), fwd_refs, iters,
-                                              shape, (H2, W2), tag)}
+               "forward": space_forward_gates(fwd, fwd_refs, iters, shape,
+                                              (H2, W2), tag),
+               "modes": space_modes_gates(mode_ranks, mode_refs, modes,
+                                          shape, tag)}
         if dryrun_out is not None:
             out["dryrun"] = dryrun_out.result()
     out["spawned_s"] = time.perf_counter() - t0
+    out["laps"] = laps
+    print(f"  {tag}: this process's references {laps['references']:.1f} s; "
+          f"then, from the spawns, (a) ended at "
+          f"{laps['rank_updates']:.1f} s, (b) at {laps['forward_rows']:.1f} "
+          f"s, (d) at {laps['rank_runs']:.1f} s", flush=True)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -4416,18 +4627,19 @@ def space_runs(dev, shape, device: str, backend: str, tag: str,
 
 def phase_space(dev):
     """Phase 25: the space axis on the one card, ranks sharing it over
-    gloo: the sums kernel's f64 output; (a) the EFT step and (b) the
-    1024x2048 forward on a 1x2 mesh against one process; (c)
-    ``dryrun_multichip(4)`` (a 2x2 mesh), side by side with (a) and (b)."""
+    gloo: the sums kernel's f64 output; (a) the EFT steps in three modes,
+    (b) the 1024x2048 forward and (d) the lookup modes, RAFT and the
+    batch-statistics step on a 1x2 mesh against one process; (c)
+    ``dryrun_multichip(4)`` (a 2x2 mesh), side by side with them."""
     t0 = time.perf_counter()
     half = [(b, c, h // SP_SHAPE[1], w) for b, c, h, w in FNET_SHAPES_HR]
     out = {"sums_f64_rel": space_sums_f64(dev, half)}
     out.update(space_runs(dev, SP_SHAPE, "cuda:0", "gloo", "phase 25",
                           with_dryrun=4))
     out["s"] = time.perf_counter() - t0
-    print(f"  phase 25: {out['s']:.1f} s ((a), (b) and (c) side by side "
-          f"{out['spawned_s']:.1f} s; two ranks share the card with each "
-          f"other, (c)'s four and this process: no speed claim)",
+    print(f"  phase 25: {out['s']:.1f} s ((a)-(d) side by side "
+          f"{out['spawned_s']:.1f} s; two pools of two ranks share the card "
+          f"with each other, (c)'s four and this process: no speed claim)",
           flush=True)
     return out
 
@@ -4503,7 +4715,8 @@ def multichip_main(name: str) -> None:
     rank per card over NCCL: phase 22 (b)'s gradient gates, then
     ``dryrun_multichip(n)`` (a 2 x n/2 data x space mesh where n is even
     and at least 4) and ``cli.train --mesh auto``; with four or more
-    cards (an even count) phase 25 (a) and (b) on a 2 x n/2 NCCL mesh."""
+    cards (an even count) phase 25 (a), (b) and (d) on a 2 x n/2 NCCL
+    mesh."""
     import tempfile
 
     import torch
@@ -4532,7 +4745,8 @@ def multichip_main(name: str) -> None:
     if n >= 4 and n % 2 == 0:
         shape = (2, n // 2)
         print(f"multichip (d) the space axis on a {shape[0]}x{shape[1]} NCCL "
-              f"mesh, one card per rank: phase 25 (a) and (b)", flush=True)
+              f"mesh, one card per rank: phase 25 (a), (b) and (d)",
+              flush=True)
         out["space"] = space_runs(dev, shape, "cuda", "nccl", "multichip (d)")
     print(json.dumps({"multichip": out}))
     print(f"all multichip checks passed in "
@@ -4791,16 +5005,22 @@ def main(argv=None) -> None:
         "bn_batch_statistics": p24["bn"]}))
 
     phase(f"phase 25 the space axis: a {SP_SHAPE[0]}x{SP_SHAPE[1]} mesh of "
-          f"gloo ranks sharing the card, the EFT step at {H}x{W} and the "
-          f"{H2}x{W2} forward; dryrun_multichip(4) on a 2x2 mesh")
+          f"gloo ranks sharing the card, the EFT step at {H}x{W} (standard, "
+          f"taped, deferred), the {H2}x{W2} forward, the mxu / gather "
+          f"forwards, RAFT at {SP_RAFT_HW[0]}x{SP_RAFT_HW[1]}, the "
+          f"batch-statistics step; dryrun_multichip(4) on a 2x2 mesh")
     sp = phase_space(dev)
+    no_launches = lambda d: {k: ({q: v for q, v in r.items()
+                                  if q != "launches"}
+                                 if isinstance(r, dict) else r)
+                             for k, r in d.items()}
     print(json.dumps({"space_1x2": {
         "sums_f64_rel": sp["sums_f64_rel"],
-        "step": {it: {k: v for k, v in r.items() if k != "launches"}
-                 for it, r in sp["step"].items()},
-        "forward_1024x2048": {it: {k: v for k, v in r.items()
-                                   if k != "launches"} if isinstance(r, dict)
-                              else r for it, r in sp["forward"].items()},
+        "step": no_launches(sp["step"]),
+        "forward_1024x2048": no_launches(sp["forward"]),
+        "modes": {**no_launches({k: v for k, v in sp["modes"].items()
+                                 if k != "step"}),
+                  "step": no_launches(sp["modes"]["step"])},
         "dryrun_multichip_2x2": sp["dryrun"], "s": sp["s"]}}))
     phase()
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
@@ -4835,8 +5055,8 @@ def main(argv=None) -> None:
                 "forward with corr_mode='onthefly' (phase 21: rows 2 and 5, "
                 "one coords launch per query chunk and iteration); "
                 "launches_train_step_dp2_per_rank: one standard step of one "
-                "of phase 22 (b)'s two gloo ranks (512x1024, batch 2 of a "
-                "global 4, 12 iterations, fp32); "
+                "of phase 22 (b)'s two gloo ranks (512x1024, batch 1 of a "
+                "global 2, 12 iterations, fp32); "
                 "launches_forward_mxu_512x1024: one 512x1024 fp32 forward "
                 "with lookup_mode='mxu' (phase 23: no lookup kernel, the "
                 "encoders' sums); launches_train_deferred: one standard "
@@ -4850,9 +5070,20 @@ def main(argv=None) -> None:
                 "of a 1x2 data x space mesh (512x1024 split in two height "
                 "slices, global batch 2, 12 iterations, fp32, remat dccl; "
                 "the sums with f64 partial sums); "
+                "launches_train_taped_sp2_per_rank / _deferred_: the same "
+                "step in the taped grad mode / with deferred_vol_grad=True "
+                "(phase 25 (a): one stacked scatter per level and volume); "
                 "launches_forward_1024x2048_sp2_per_rank: one 1024x2048 "
                 "fp32 forward of one of phase 25 (b)'s two ranks (the planes "
-                "route)")
+                "route); launches_forward_mxu_sp2_per_rank: one 512x1024 "
+                "fp32 forward with lookup_mode='mxu', 3 iterations, of one "
+                "of phase 25 (d)'s two ranks (no lookup kernel); "
+                "launches_raft_basic_448x1024_sp2_per_rank / _small_: one "
+                "448x1024 fp32 RAFT forward, 12 iterations, of one of phase "
+                "25 (d)'s ranks; launches_train_bn_64x128_sp2_per_rank: one "
+                "standard step with bn_running_average=False at 64x128, "
+                "global batch 2, 12 iterations, of one of phase 25 (d)'s "
+                "ranks")
 
     def row(name, src, replaces, d, work, err, path="train"):
         paths = {"train": std, "forward_1024x2048": hr_counts,
@@ -4881,9 +5112,22 @@ def main(argv=None) -> None:
                 "launches_raft_small_440x1024":
                     p24["raft"]["small"]["counts"][name],
                 "launches_train_step_sp2_per_rank":
-                    sp["step"][ITERS]["launches"].get(name, 0),
+                    sp["step"][f"standard_{ITERS}"]["launches"].get(name, 0),
+                "launches_train_taped_sp2_per_rank":
+                    sp["step"][f"taped_{ITERS}"]["launches"].get(name, 0),
+                "launches_train_deferred_sp2_per_rank":
+                    sp["step"][f"deferred_{ITERS}"]["launches"].get(name, 0),
                 "launches_forward_1024x2048_sp2_per_rank":
                     sp["forward"][ITERS]["launches"].get(name, 0),
+                "launches_forward_mxu_sp2_per_rank":
+                    sp["modes"]["mxu"]["launches"].get(name, 0),
+                "launches_raft_basic_448x1024_sp2_per_rank":
+                    sp["modes"]["raft_basic"]["launches"].get(name, 0),
+                "launches_raft_small_448x1024_sp2_per_rank":
+                    sp["modes"]["raft_small"]["launches"].get(name, 0),
+                "launches_train_bn_64x128_sp2_per_rank":
+                    sp["modes"]["step"][f"batch-statistics_{ITERS}"][
+                        "launches"].get(name, 0),
                 "max_abs_err": err, "ms": d["ms"], "plain_ms": d["plain_ms"],
                 "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
                 "library_ms": d["library_ms"], "work": work + "; " + per_path,

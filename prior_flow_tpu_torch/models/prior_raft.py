@@ -86,9 +86,13 @@ orthogonal view, ``flo_rotate``, the back-rotation and the upsampling
 exchange rows with the other ranks; fmap2 is gathered once per forward
 (the volume's targets, the flaw maps' warps); the queries, the volume
 rows, the lookups and ``coords0`` are the rank's, in global pixels; the
-grids are the whole image's. Refused inside the scope (ROADMAP item 9c):
-``deferred_vol_grad``, the ``mxu`` / ``gather`` lookups,
-``bn_running_average=False`` and the taped backward (``iterate_taped``).
+grids are the whole image's. Every option runs sharded: the deferred
+path records the rank's queries (global centres) and its rebind scatters
+into the rank's volume rows, the back-rotation's transpose through the
+sharded ``resample_static``; the ``mxu`` / ``gather`` lookups read the
+rank's volume rows; ``bn_running_average=False`` takes the global
+batch's statistics (``nn.layers.BatchNorm``); ``iterate_taped`` runs the
+rank's rows as the standard loop does.
 
 Precision (``prior_raft.py:142-144``): ``precision=None`` runs under
 torch's backend flags as the caller left them (torch's default lets cuDNN
@@ -386,26 +390,13 @@ class PriOrRAFT(nn.Module):
             return self._forward(image1, image2, iters, init_flow,
                                  not test_mode, generator)
 
-    def check_space(self, space, h: int) -> None:
-        """Raises where a height-sharded forward of this model over
-        ``space`` with ``h`` rows per rank is not ported (ROADMAP item
-        9c) or the rows are not whole 1/8 rows."""
-        if self.deferred_vol_grad:
-            raise ValueError(spatial.refused("deferred_vol_grad=True"))
-        if isinstance(self.dccl, DCCL):
-            raise ValueError(spatial.refused(
-                f"lookup_mode={self.lookup_mode!r}"))
-        if not self.bn_running_average:
-            raise ValueError(spatial.refused("bn_running_average=False"))
-        spatial.check_height(h * space.size, space.size)
-
     def _forward(self, image1, image2, iters, init_flow, train: bool,
                  generator=None):
         B, H, W, _ = image1.shape
         dev = image1.device
         space = spatial.current()
         if space is not None:
-            self.check_space(space, H)
+            spatial.check_height(H * space.size, space.size)
             H *= space.size
         g = self.rotation_grids(H, W, dev)
         net_A, net_B, inp_A, inp_B, fmaps = self.encode(
@@ -495,13 +486,18 @@ class PriOrRAFT(nn.Module):
         the volume cotangents. Returns ``((preds_A, preds_B), (fields_A,
         fields_B), (cen_A, cen_B))``: stacked (iters, B, H, W, 2) flows, the
         lists of field leaves (B, h8, w8, L*81), and the stacked
-        (iters, B, Q, 2) centres."""
-        if spatial.current() is not None:
-            raise ValueError(spatial.refused("grad_mode='taped'"))
+        (iters, B, Q, 2) centres. Height-sharded (a ``spatial.scope``),
+        everything but ``fmap2_A`` (the whole image's) holds the rank's
+        rows; the centres are global pixels of its queries."""
         B, _, h8, w8 = net_A.shape
-        g = self.rotation_grids(8 * h8, 8 * w8, net_A.device)
-        coords0 = gridlib.identity_grid_on(h8, w8, net_A.device).expand(
-            B, h8, w8, 2)
+        dev = net_A.device
+        space = spatial.current()
+        if space is None:
+            coords0 = gridlib.identity_grid_on(h8, w8, dev)
+        else:
+            coords0 = spatial.identity_rows(h8, w8, dev, space)
+        g = self.rotation_grids(8 * fmap2_A.shape[1], 8 * w8, dev)
+        coords0 = coords0.expand(B, h8, w8, 2)
         pyr_A = [p.detach() for p in pyr_A]
         pyr_B = [p.detach() for p in pyr_B]
         fields_A, fields_B, cens_A, cens_B = [], [], [], []

@@ -14,6 +14,16 @@ lookups stay f32, as JAX builds them. As in JAX, ``small=True`` keeps
 ``corr_radius=4`` (upstream uses 3) and fixes its widths at hidden 96,
 context 64. On the card the feature encoder's instance norms run the sums
 kernel; the lookup is plain gathers (XLA code in JAX, no Pallas kernel).
+
+Height sharding (``parallel/spatial.py``): inside a ``spatial.scope`` the
+forward takes this rank's rows of each image (H / S of them, a multiple
+of 8; JAX's partitioner pads an uneven split, the port refuses it) and
+returns its rows of the flow, as ``PriOrRAFT`` does: the convolutions
+and norms exchange rows (the group norm's and the batch statistics' sums
+cross ranks), fmap2 is gathered (the volume's targets), the volume rows,
+the lookups and ``coords0`` are the rank's queries in global pixels, and
+both upsamplers read the rows they need (``upsample_flow_convex`` a
+halo, ``upflow8`` the gathered flow).
 """
 
 from __future__ import annotations
@@ -101,8 +111,6 @@ class RAFT(nn.Module):
         (``test_mode=False``) in train mode."""
         if iters < 1:
             raise ValueError("iters must be at least 1")
-        if spatial.current() is not None:
-            raise ValueError(spatial.refused("the legacy RAFT"))
         grad = torch.no_grad() if test_mode else contextlib.nullcontext()
         with precision_scope(self.precision), grad:
             return self._forward(image1, image2, iters, init_flow,
@@ -112,6 +120,9 @@ class RAFT(nn.Module):
                  generator):
         B, H, W, _ = image1.shape
         dev = image1.device
+        space = spatial.current()
+        if space is not None:
+            spatial.check_height(H * space.size, space.size)
         gen = self.dropout_generator(generator) if train else None
         image1 = _nchw(2.0 * (image1 / 255.0) - 1.0).contiguous()
         image2 = _nchw(2.0 * (image2 / 255.0) - 1.0).contiguous()
@@ -120,11 +131,17 @@ class RAFT(nn.Module):
             fmap1, fmap2 = self.fnet([image1, image2], gen)
         hd = self.hidden_dim
         net, inp = torch.tanh(cnet[:, :hd]), F.relu(cnet[:, hd:])
+        if space is not None:   # the targets: fmap2 of the whole image
+            fmap2 = spatial.gather_rows(fmap2, 2, space)
         pyramid = build_pyramid(all_pairs_correlation(
             _nhwc(fmap1.float()), _nhwc(fmap2.float())), self.corr_levels)
 
         h8, w8 = H // 8, W // 8
-        coords0 = gridlib.identity_grid_on(h8, w8, dev).expand(B, h8, w8, 2)
+        if space is None:
+            coords0 = gridlib.identity_grid_on(h8, w8, dev)
+        else:
+            coords0 = spatial.identity_rows(h8, w8, dev, space)
+        coords0 = coords0.expand(B, h8, w8, 2)
         coords1 = coords0 if init_flow is None else coords0 + init_flow
         preds = []
         for it in range(iters):

@@ -2,12 +2,15 @@
 (counterpart of ``prior_flow_tpu/nn/layers.py``). NCHW throughout.
 
 Under a ``parallel.spatial.scope`` (height sharding) the convolutions pad
-their rows with the neighbouring ranks' (``Conv2d``), the instance norm
-sums its statistics over the space group and the dropout draws are the
-whole image's (``draw_rows``); outside one nothing changes."""
+their rows with the neighbouring ranks' (``Conv2d``), the instance and
+group norms sum their per-sample statistics over the space group, the
+batch-statistics BatchNorm its per-channel ones over every rank of the
+global batch, and the dropout draws are the whole image's
+(``draw_rows``); outside one nothing changes."""
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -70,13 +73,32 @@ def _affine(x, mean, var, eps, weight, bias):
     return ((x.float() - mean) * mul + bias.view(view)).to(x.dtype)
 
 
-def _fast_stats(xf, dims):
+def _fast_stats(xf, dims, batch: bool = False):
     """Flax's ``_compute_stats`` (``use_fast_variance``): the mean and the
     biased variance E[x^2] - E[x]^2, clamped at 0, over ``dims`` of the f32
-    ``xf``."""
-    mean = xf.mean(dim=dims)
-    var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
-    return mean, var
+    ``xf``. Under a space scope ``xf`` holds a rank's rows: the sums of x
+    and x^2 are taken in f64, added up over the space group (with
+    ``batch``, over every rank of the global batch; ``spatial.summed``,
+    whose backward sums the cotangents over the same ranks) and rounded
+    to f32 once, and the moments follow in f32, as the instance norm's
+    sharded sums do (``ops/kernels/instance_norm.py``). The variance is
+    then the unsharded one's difference of two f32 moments: where the
+    mean is large against the spread, that difference cancels, and
+    variances taken in f64 moved the batch-statistics step's context
+    encoder gradients by ~1e-3 of their norm from the unsharded step's
+    (64x128 on the CPU)."""
+    space = spatial.current()
+    if space is None:
+        mean = xf.mean(dim=dims)
+        var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+        return mean, var
+    xd = xf.double()
+    n = math.prod(xf.shape[d] for d in dims) * space.size * (
+        space.data if batch else 1)
+    s1, s2 = spatial.summed(torch.stack(
+        [xd.sum(dim=dims), (xd * xd).sum(dim=dims)]), batch, space).float()
+    mean = s1 / n
+    return mean, torch.clamp_min(s2 / n - mean * mean, 0.0)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -109,7 +131,12 @@ class BatchNorm(FrozenBatchNorm):
     ``0.9 * old + 0.1 * batch`` with that biased variance (torch's
     ``BatchNorm2d`` keeps the unbiased one). The running statistics are
     read by no call: they are what a later ``FrozenBatchNorm`` would use.
-    The same four state-dict keys as ``FrozenBatchNorm``."""
+    The same four state-dict keys as ``FrozenBatchNorm``. Height-sharded
+    (a ``spatial.scope``), the statistics are the global batch's, as JAX's
+    jitted apply on a ``P('data', 'space')`` batch computes them: summed
+    over the space group, and over the data ranks too on a mesh with a
+    data axis (``_fast_stats``); every rank then holds the same running
+    statistics."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -117,7 +144,7 @@ class BatchNorm(FrozenBatchNorm):
         self.momentum = momentum
 
     def forward(self, x):
-        mean, var = _fast_stats(x.float(), (0, 2, 3))
+        mean, var = _fast_stats(x.float(), (0, 2, 3), batch=True)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -131,7 +158,9 @@ class GroupNorm(nn.Module):
     """GroupNorm (Flax ``nn.GroupNorm``, eps 1e-5): per sample, the mean
     and biased variance of each group of ``num_channels // num_groups``
     consecutive channels over (C/G, H, W), in f32, then the per-channel
-    affine; x's dtype out. Keys ``weight`` and ``bias``, as torch's."""
+    affine; x's dtype out. Keys ``weight`` and ``bias``, as torch's.
+    Height-sharded, each sample's statistics are summed over the space
+    group (``_fast_stats``)."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()

@@ -36,6 +36,7 @@ import torch
 from .kernels.dccl_lookup import (NTAP, RADIUS, dccl_level_lookup,
                                   dccl_level_lookup_plain,
                                   sample_volume_level, window_delta)
+from ..parallel import spatial
 from .kernels.dccl_scatter import dccl_level_scatter, dccl_level_scatter_grid
 from .samplers import bilinear_corners, cycle_bilinear_sample
 from .static_resample import resample_static, resample_static_transpose
@@ -242,7 +243,10 @@ def stacked_volume_cotangents(g_A, g_B, cen_A, cen_B, levels, grids):
     and volume ONE grid-entry scatter with S = iterations, which reads the
     level's columns of the stacked cotangents in place and computes the
     other branch's cross tap coords itself. Returns per level the pair
-    (d vol_A, d vol_B)."""
+    (d vol_A, d vol_B). Height-sharded, g_* and cen_* are the rank's
+    queries (global centres): the transposed back-rotation is that of
+    the sharded ``resample_static`` (a reduce-scatter, run on every rank)
+    and each scatter writes the rank's rows of its volume."""
     S, B, h1, w1, C = g_A.shape
     Q = h1 * w1
 
@@ -535,6 +539,13 @@ class DCCL:
     channels. Returns ``(own,
     cross)``, each (B, h1, w1, L*(2r+1)^2) f32. Differentiable in the
     volumes by autograd.
+
+    Height-sharded (a ``parallel.spatial.scope``), ``coords`` and the
+    volumes' queries are the rank's rows and both grids the whole image's:
+    the lookups read the rank's volume rows, and the back-rotation gathers
+    the cross field's rows and samples the rank's rows of the grid (the
+    sharded ``resample_static``, or the same by hand for a per-batch
+    grid).
     """
 
     MODES = ("mxu", "gather")
@@ -557,10 +568,16 @@ class DCCL:
         cq = coords.reshape(B, Q, 2)
         if grid_w2c_8.dim() == 3:
             grid_w2c_8 = grid_w2c_8.expand(B, *grid_w2c_8.shape)
+        space = spatial.current()
         if grid_back_8.dim() == 3:
             back_rot = resample_static
-        else:
+        elif space is None:
             back_rot = cycle_bilinear_sample
+        else:
+            def back_rot(field, grid):
+                return cycle_bilinear_sample(
+                    spatial.gather_rows(field, 1, space),
+                    spatial.rows(grid, space, dim=1))
         own_out, cross_out = [], []
         for i in range(self.num_levels):
             centers = cq / (2.0 ** i)

@@ -50,7 +50,12 @@ def resample_static_transpose(ct: torch.Tensor, grid: torch.Tensor,
     (counterpart of ``prior_flow_tpu/ops/static_resample.py::
     apply_transpose``): the cotangent ``ct`` (B, H2, W2, C) of the resample's
     output -> the cotangent (B, H, W, C) of its input, ``src_hw = (H, W)``.
-    Computed as ``torch.autograd.grad`` of the gathers."""
+    Computed as ``torch.autograd.grad`` of the gathers. Under a space
+    scope ``ct`` and ``src_hw`` are the rank's rows, and this is the
+    transpose of the sharded resample: each rank scatters its rows'
+    cotangent into the whole image, and ``spatial.gather_rows``' backward
+    sums those over the ranks and hands each its rows (a collective: every
+    rank of the group calls it)."""
     with torch.enable_grad():
         img = torch.zeros((ct.shape[0], *src_hw, ct.shape[-1]),
                           dtype=ct.dtype, device=ct.device, requires_grad=True)

@@ -6,11 +6,11 @@
 and copy them to the input's device.
 
 Under a ``parallel.spatial.scope`` (height sharding) ``img_rotate``,
-``flo_rotate`` (and so ``flo_a2b``) and ``cycle_warp`` take this rank's
-rows of their input and return its rows of the result: each gathers the
-rows its samples read (``spatial.gather_rows``) and samples at the rank's
-rows of the whole grid (or of its own flow); pixel coordinates stay
-global.
+``flo_rotate`` (and so ``flo_a2b``), ``cycle_warp`` and ``upflow8`` take
+this rank's rows of their input and return its rows of the result: each
+gathers the rows its samples read (``spatial.gather_rows``) and samples
+at the rank's rows of the whole grid (or of its own flow, or of the
+resize's output); pixel coordinates stay global.
 """
 
 from __future__ import annotations
@@ -211,23 +211,34 @@ def legacy_warp(image: torch.Tensor, flow: torch.Tensor, cyclic: bool = False):
     return sampler(image, grid) * mask, mask
 
 
-def _resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int):
+def _resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int,
+                                   rows: slice = slice(None)):
     """Bilinear resize with align_corners=True, in pixel coordinates
-    (``prior_flow_tpu/ops/warp.py:233``). The sample coordinates may
-    differ from XLA's ``linspace`` in their last bit."""
+    (``prior_flow_tpu/ops/warp.py:233``), of which only the output
+    ``rows`` are sampled. The sample coordinates may differ from XLA's
+    ``linspace`` in their last bit."""
     B, H, W, _ = x.shape
-    ys = torch.linspace(0.0, H - 1.0, out_h, device=x.device)
+    ys = torch.linspace(0.0, H - 1.0, out_h, device=x.device)[rows]
     xs = torch.linspace(0.0, W - 1.0, out_w, device=x.device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
-    coords = torch.stack([gx, gy], dim=-1).expand(B, out_h, out_w, 2)
+    coords = torch.stack([gx, gy], dim=-1).expand(B, *gy.shape, 2)
     return bilinear_sample(x, coords)
 
 
 def upflow8(flow: torch.Tensor) -> torch.Tensor:
     """8x bilinear upsample of a flow with 8x magnitude
-    (``prior_flow_tpu/ops/warp.py:243``)."""
+    (``prior_flow_tpu/ops/warp.py:243``). Under a space scope ``flow``
+    holds the rank's rows and so does the result: each output row reads
+    input rows at the whole image's ratio (H - 1) / (8 H - 1), so the
+    whole flow is gathered and only the rank's output rows sampled."""
     H, W = flow.shape[1], flow.shape[2]
-    return 8.0 * _resize_bilinear_align_corners(flow, 8 * H, 8 * W)
+    space = spatial.current()
+    if space is None:
+        return 8.0 * _resize_bilinear_align_corners(flow, 8 * H, 8 * W)
+    whole = spatial.gather_rows(flow, 1, space)
+    mine = slice(space.rank * 8 * H, (space.rank + 1) * 8 * H)
+    return 8.0 * _resize_bilinear_align_corners(
+        whole, 8 * H * space.size, 8 * W, mine)
 
 
 def downflow8(flow: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ data-parallel step to the single-process one.
   (a 2 x n/2 data x space mesh where n is even and at least 4).
 - ``train_once`` / ``RankShare``: one seeded update of the data-parallel
   step, on a rank of a real mesh, or in one process as one rank's share
-  (no collectives), whose shares summed are what the collectives give.
+  (no collectives), whose shares summed are what the collectives give;
+- the ranks' workers ``rank_updates`` (steps), ``forward_rows``
+  (test-mode forwards, height-sharded on a space axis) and ``rank_runs``
+  (several of them in one spawn).
 
 Workers live here, not in test modules: a spawned process imports the
 module of the function it runs.
@@ -115,9 +118,11 @@ def train_once(mesh, device, case: dict, batch, steps: int = 1,
     each on ``batch`` (the global batch; a mesh takes its rows), with
     ``clip=inf`` so that ``.grad`` after an update holds the gradients
     before the clip. ``case``: ``grad_mode``, ``noise`` and ``dropout``
-    (default standard, off, 0), ``iters``. ``mesh`` None: the plain step
+    (default standard, off, 0), ``iters``, and ``model``, keywords of
+    ``build_model`` beside ``model_kw``. ``mesh`` None: the plain step
     on the whole batch. Returns the first update's metrics, gradients
-    (before the clip) and parameters after it, as CPU tensors, the ms of
+    (before the clip), parameters and buffers (the batch-statistics
+    BatchNorm's running statistics) after it, as CPU tensors, the ms of
     the updates after the first (host clock around a synchronised
     update), the peak device GB, and the kernel launches of the last
     update."""
@@ -128,7 +133,7 @@ def train_once(mesh, device, case: dict, batch, steps: int = 1,
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     model = build_model(dev, seed=seed, dropout=case.get("dropout", 0.0),
-                        **model_kw).train()
+                        **model_kw, **case.get("model", {})).train()
     opt, sched = make_optimizer(model.parameters(), 1e-4, 100)
     step = make_train_step(model, opt, sched, iters=case.get("iters", 2),
                            grad_mode=case.get("grad_mode", "standard"),
@@ -153,6 +158,8 @@ def train_once(mesh, device, case: dict, batch, steps: int = 1,
                             for n, p in model.named_parameters()}
             out["params"] = {n: p.detach().cpu().clone()
                              for n, p in model.named_parameters()}
+            out["buffers"] = {n: b.detach().cpu().clone()
+                              for n, b in model.named_buffers()}
     out["launches"] = {n: c for n, c in launch_counts().items() if c}
     out["ms"] = times[1:]
     out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
@@ -191,17 +198,18 @@ def _same_as_rank0(mesh, tensors: dict) -> bool:
 def rank_updates(mesh, cases: list, batch, steps: int = 1, seed: int = 0,
                  model_kw: Optional[dict] = None) -> list:
     """A rank's worker for ``spawn``: per case ``train_once`` on this
-    rank's rows (``model_kw`` to ``build_model``); whether every rank's
-    gradients and parameters equal rank 0's bitwise. Rank 0 returns its
-    tensors, the others drop them."""
+    rank's rows (``model_kw`` to ``build_model``; a case's ``steps``
+    in place of ``steps``); whether every rank's gradients, parameters
+    and buffers equal rank 0's bitwise. Rank 0 returns its tensors, the
+    others drop them."""
     out = []
     for case in cases:
-        res = train_once(mesh, mesh.device, case, batch, steps, seed,
-                         **(model_kw or {}))
-        res["grads_same"] = _same_as_rank0(mesh, res["grads"])
-        res["params_same"] = _same_as_rank0(mesh, res["params"])
+        res = train_once(mesh, mesh.device, case, batch,
+                         case.get("steps", steps), seed, **(model_kw or {}))
+        for k in ("grads", "params", "buffers"):
+            res[f"{k}_same"] = _same_as_rank0(mesh, res[k])
         if mesh.rank:
-            del res["grads"], res["params"]
+            del res["grads"], res["params"], res["buffers"]
         out.append(res)
         if mesh.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -209,21 +217,23 @@ def rank_updates(mesh, cases: list, batch, steps: int = 1, seed: int = 0,
 
 
 def forward_rows(mesh, jobs, seed: int = 0, runs: int = 1,
-                 model_kw: Optional[dict] = None) -> list:
+                 model_kw: Optional[dict] = None, raft: bool = False) -> list:
     """A rank's worker for ``spawn``: the test-mode forward of the model of
-    ``seed`` (``model_kw`` to ``build_model``) on this rank's rows of each
-    global pair of ``jobs``, (image1, image2, iters) each, height-sharded
-    over its space group. Returns per job the rank's rows of the flow
-    (CPU), the kernel launches of one forward, the ms of each of ``runs``
-    after the first (host clock around a synchronised forward), the peak
-    device GB and the exchange route."""
-    from ..models import build_model
+    ``seed`` (``model_kw`` to ``build_model``, or with ``raft`` to
+    ``build_raft``) on this rank's rows of each global pair of ``jobs``,
+    (image1, image2, iters) each, height-sharded over its space group.
+    Returns per job the rank's rows of the flow (CPU), the kernel
+    launches of one forward, the ms of each of ``runs`` after the first
+    (host clock around a synchronised forward), the peak device GB and
+    the exchange route."""
+    from ..models import build_model, build_raft
     from ..ops.kernels import launch_counts, reset_launch_counts
     from . import spatial
 
     dev = mesh.device
     cuda = dev.type == "cuda"
-    model = build_model(dev, seed=seed, **(model_kw or {}))
+    model = (build_raft if raft else build_model)(dev, seed=seed,
+                                                  **(model_kw or {}))
     out = []
     for image1, image2, iters in jobs:
         i1, i2 = shard_batch((image1, image2), mesh)
@@ -251,6 +261,14 @@ def forward_rows(mesh, jobs, seed: int = 0, runs: int = 1,
         if cuda:
             torch.cuda.empty_cache()
     return out
+
+
+def rank_runs(mesh, runs: list) -> list:
+    """A rank's worker for ``spawn``: several of the workers above in one
+    process, in order; ``runs`` lists ("forward_rows" or "rank_updates",
+    the arguments after ``mesh``)."""
+    workers = {"forward_rows": forward_rows, "rank_updates": rank_updates}
+    return [workers[name](mesh, *args) for name, args in runs]
 
 
 class SyntheticPairs:

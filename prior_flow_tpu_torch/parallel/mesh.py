@@ -200,7 +200,8 @@ def _join_subgroups(mesh: Mesh) -> None:
     for d in range(D):
         g = dist.new_group(list(range(d * S, (d + 1) * S)))
         if d == mesh.data_rank:
-            mesh.space = Space(g, mesh.space_rank, S, mesh.backend)
+            mesh.space = Space(g, mesh.space_rank, S, mesh.backend, D,
+                               mesh.group)
     if D > 1:
         for s in range(S):
             g = dist.new_group(list(range(s, D * S, S)))

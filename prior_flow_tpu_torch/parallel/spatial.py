@@ -15,7 +15,12 @@ port makes each cross-row exchange itself, each differentiable:
   ranks own them (a halo may be wider than one rank's rows); its backward
   adds each halo row's cotangent into its owner's row;
 - ``sum_over_space(t)``: an all-reduce (not differentiable: the
-  instance norm's sums, inside its own autograd Function).
+  instance norm's sums, inside its own autograd Function);
+- ``summed(t, batch)``: a differentiable all-reduce, over the space group
+  (the group norm's per-sample sums) or, with ``batch``, over every rank
+  that holds rows of the global batch (the batch-statistics BatchNorm's
+  sums, ``Space.data`` > 1 on a mesh with a data axis too); its backward
+  sums the cotangents over the same ranks.
 
 The sharded code runs inside ``scope(space)``: the convolutions, the
 instance norm, the warps, the static resamples, the model and the loss
@@ -52,24 +57,20 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-ITEM_9C = "ROADMAP Queue 1, item 9c"
-
-
-def refused(what: str) -> str:
-    """The message of a combination the space axis does not take yet."""
-    return (f"{what} is not ported to the space axis (height sharding, "
-            f"space > 1): {ITEM_9C}")
-
-
 @dataclass(frozen=True)
 class Space:
     """One rank's view of its space group: the group (None: the default
-    group), this rank's index in it, its size and the backend."""
+    group), this rank's index in it, its size and the backend; ``data``,
+    the data ranks of the mesh, and ``mesh_group``, the group of all
+    ``data * size`` ranks (None: the default group), over which the batch
+    statistics are summed where ``data`` > 1."""
 
     group: Optional[dist.ProcessGroup]
     rank: int
     size: int
     backend: str
+    data: int = 1
+    mesh_group: Optional[dist.ProcessGroup] = None
 
     @property
     def route(self) -> str:
@@ -90,8 +91,11 @@ class Space:
         dist.reduce_scatter_tensor(out, stacked.reshape(-1), group=self.group)
         return out.view(stacked.shape[1:])
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+    def all_reduce_(self, t: torch.Tensor, batch: bool = False):
+        """SUM over the space group, in place; with ``batch`` over every
+        rank that holds rows of the global batch."""
+        group = self.mesh_group if batch and self.data > 1 else self.group
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         return t
 
 
@@ -219,3 +223,25 @@ def halo_rows(x: torch.Tensor, top: int, bottom: int, dim: int = 2,
 def sum_over_space(t: torch.Tensor, space: Optional[Space] = None):
     """``t`` summed over the space group, in place (not differentiable)."""
     return (space or current()).all_reduce_(t)
+
+
+class _Summed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, space: Space, batch: bool):
+        ctx.space, ctx.batch = space, batch
+        return space.all_reduce_(t.clone(), batch)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank's output is the same sum of every rank's input: each
+        # input's cotangent is the sum of the outputs' cotangents
+        return ctx.space.all_reduce_(g.contiguous().clone(), ctx.batch), \
+            None, None
+
+
+def summed(t: torch.Tensor, batch: bool = False,
+           space: Optional[Space] = None) -> torch.Tensor:
+    """``t`` summed over the space group, or with ``batch`` over every rank
+    of the global batch; differentiable (the backward sums the
+    cotangents over the same ranks)."""
+    return _Summed.apply(t, space or current(), batch)

@@ -150,11 +150,19 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
     (``prior_flow_tpu/train/trainer.py:102-103``): the stacked scatter
     needs volumes; and the ``mxu`` / ``gather`` lookups, which have no
     ``DCCLFused.record`` (the JAX CLI pins ``pallas`` for the taped mode,
-    ``prior_flow_tpu/cli/train.py:116-121``); and height sharding
-    (ROADMAP item 9c).
+    ``prior_flow_tpu/cli/train.py:116-121``).
+
+    Height-sharded (a ``spatial.scope``: the images hold the rank's
+    rows), each fmap2 is gathered in (a)'s graph and the whole image's
+    becomes the leaf, so (b) and (c) read it as the sharded forward
+    does, and (e) reduce-scatters its cotangent back through the gather
+    into the encoder. The recorded centres are global pixels of the
+    rank's queries; (d)'s transposed back-rotation is the transpose of
+    the sharded ``resample_static`` (``resample_static_transpose`` at the
+    rank's rows) and its scatters write the rank's rows of each volume.
+    Every rank issues the same collectives in the same order: each stage
+    runs on every rank, and each backward walks the same graph.
     """
-    if spatial.current() is not None:
-        raise ValueError(spatial.refused("grad_mode='taped'"))
     if model.corr_mode == "onthefly":
         raise ValueError("taped gradients require corr_mode='volume'")
     if not isinstance(model.dccl, DCCLFused):
@@ -162,11 +170,20 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
                          f"(lookup_mode 'auto' or 'pallas'), not "
                          f"{model.lookup_mode!r}")
     B, H, W, _ = image1.shape
+    space = spatial.current()
+    if space is not None:
+        spatial.check_height(H * space.size, space.size)
+        H *= space.size
     g = model.rotation_grids(H, W, image1.device)
     enc = model.encode(image1, image2, g,
                        model.dropout_generator(generator))       # (a)
-    net_A, net_B, inp_A, inp_B = (_leaf(t) for t in enc[:4])
-    fmaps = tuple(_leaf(f) for f in enc[4])
+    outs = (*enc[:4], *enc[4])
+    if space is not None:   # the targets: fmap2 of the whole image
+        outs = (*outs[:5], spatial.gather_rows(outs[5], 1, space), outs[6],
+                spatial.gather_rows(outs[7], 1, space))
+    leaves = tuple(_leaf(t) for t in outs)
+    net_A, net_B, inp_A, inp_B = leaves[:4]
+    fmaps = leaves[4:]
     pyr_A, pyr_B = model.build_pyramids(fmaps)                    # (b)
 
     (preds_A, preds_B), (fields_A, fields_B), (cen_A, cen_B) = \
@@ -184,8 +201,6 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
 
     torch.autograd.backward([*pyr_A, *pyr_B],                     # (e)
                             [d[0] for d in d_pyr] + [d[1] for d in d_pyr])
-    leaves = (net_A, net_B, inp_A, inp_B, *fmaps)
-    outs = (*enc[:4], *enc[4])
     pairs = [(o, l.grad) for o, l in zip(outs, leaves) if l.grad is not None]
     torch.autograd.backward([o for o, _ in pairs], [d for _, d in pairs])
     return loss.detach(), metrics
@@ -215,14 +230,12 @@ def make_train_step(model, optimizer, schedule: Callable[[int], float],
     then takes the same update. A clip of ``inf`` leaves ``.grad`` as the
     gradients before the clip. On a mesh with a space axis (S > 1) the
     batch holds this rank's height rows too, and the step (the B ground
-    truth, the draws, the forward, the loss and the backward) runs
-    height-sharded over the rank's space group; the sums stay over all
-    ranks (the taped mode is refused: ROADMAP item 9c)."""
+    truth, the draws, the forward, the loss and the backward, in either
+    grad mode) runs height-sharded over the rank's space group; the sums
+    stay over all ranks."""
     if grad_mode not in ("standard", "taped"):
         raise ValueError(f"unknown grad_mode {grad_mode!r}")
     space = None if mesh is None else mesh.space
-    if space is not None and grad_mode == "taped":
-        raise ValueError(spatial.refused("grad_mode='taped'"))
     params = [p for p in model.parameters() if p.requires_grad]
 
     def draws(generator):

@@ -1,15 +1,14 @@
 """The port's serving path (``prior_flow_tpu_torch.serving``,
 ``cli/export.py``, the ``priorflow::`` ops) and the Orbax bridge
 (``convert_orbax.py``) on the CPU, at ``tests/test_serving.py``'s size
-(32x64, 2 iterations).
+(32x64, 2 iterations). The tests of the model's AOTInductor package, and
+its compile, are in ``tests/test_torch_port_serving_package.py``; the
+exported programs against eager on every route in
+``tests/test_torch_port_serving_export.py``.
 
 Tolerances:
-- the AOTInductor package against the live model: ``atol=1e-5``, JAX's
-  ``tests/test_serving.py`` gate (Inductor fuses and reorders the plain
-  code's arithmetic; the kernels' plain versions run as they are);
-- a ``torch.export`` program against the eager forward: bitwise (the same
-  ATen ops in the same order), also through a file, in mixed precision and
-  on each lookup route;
+- a ``torch.export`` program run without the model code against the
+  eager forward: bitwise (the same ATen ops in the same order);
 - the port against JAX's ``serving.make_forward`` on the same weights:
   ``FLOW_TOL`` = 1e-3 of the flow scale, as
   ``tests/test_torch_port_model.py``;
@@ -39,14 +38,12 @@ from prior_flow_tpu_torch.cli import demo_image
 from prior_flow_tpu_torch.cli import export as export_cli
 from prior_flow_tpu_torch.geometry import rotation_grids
 from prior_flow_tpu_torch.models import build_model
-from prior_flow_tpu_torch.ops.corr import DCCLFused, dccl_level_lookup_plain
 from prior_flow_tpu_torch.ops.kernels import library
 from test_torch_port_nn import random_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, ITERS = 32, 64, 2
 FLOW_TOL = 1e-3   # max abs error / flow scale, port against JAX
-AOT_ATOL = 1e-5   # the AOTInductor package against the live model
 
 
 def _pair(seed=7, batch=1):
@@ -78,15 +75,6 @@ def jax_flow(models):
                          jnp.asarray(i2.numpy())))
 
 
-@pytest.fixture(scope="module")
-def compiled(models, tmp_path_factory):
-    """One AOTInductor compile for the module (~35-60 s on a CPU host)."""
-    _, _, tm, state = models
-    path = str(tmp_path_factory.mktemp("aoti") / "prior_raft.pt2")
-    return serving.aot_compile(tm, state, (1, H, W), ITERS,
-                               package_path=path, device="cpu")
-
-
 def _assert_near_jax(flow, ref):
     err = float(np.abs(flow - ref).max())
     scale = float(np.abs(ref).max())
@@ -95,122 +83,7 @@ def _assert_near_jax(flow, ref):
     assert err <= FLOW_TOL * scale
 
 
-def _op_counts(exported) -> dict:
-    """Calls of each priorflow:: op in an exported program, its nested
-    graphs included."""
-    counts = {}
-    for gm in exported.graph_module.modules():
-        if isinstance(gm, torch.fx.GraphModule):
-            for n in gm.graph.nodes:
-                name = getattr(n.target, "name", lambda: "")()
-                if name.startswith("priorflow::"):
-                    key = name.split("::")[1].split(".")[0]
-                    counts[key] = counts.get(key, 0) + 1
-    return counts
-
-
-# -- the AOTInductor package --------------------------------------------------
-
-def test_aot_compile_matches_live(models, compiled):
-    _, _, tm, state = models
-    i1, i2 = _pair()
-    got = compiled(state, i1, i2)
-    want = serving.make_forward(tm, ITERS)(state, i1, i2)
-    err = (got - want).abs().max().item()
-    print(f"AOTInductor against eager: max abs err {err:.3e}")
-    assert got.shape == (1, H, W, 2)
-    torch.testing.assert_close(got, want, rtol=0, atol=AOT_ATOL)
-
-
-@pytest.mark.parametrize("drift", ["batch", "size", "dtype", "device",
-                                   "strides", "state_names", "weight_shape"])
-def test_aot_compile_rejects_drift(models, compiled, drift):
-    """The package runs only at its compiled signature: any other image
-    shape, dtype, device or layout, or state, raises."""
-    _, _, _, state = models
-    state = dict(state)
-    i1, i2 = _pair()
-    if drift == "batch":
-        i1, i2 = _pair(batch=2)
-    elif drift == "size":
-        i1 = torch.zeros((1, H, W + 8, 3))
-    elif drift == "dtype":
-        i1 = i1.double()
-    elif drift == "device":
-        i1 = i1.to("meta")
-    elif drift == "strides":
-        i1 = i1.transpose(1, 2).contiguous().transpose(1, 2)
-    elif drift == "state_names":
-        state.pop(next(iter(state)))
-    else:
-        k = next(iter(state))
-        state[k] = state[k][:1]
-    with pytest.raises(ValueError):
-        compiled(state, i1, i2)
-
-
-def test_aot_compile_runs_the_given_state(models, compiled):
-    """The weights are the call's state, never ones held from the
-    compile: a second seed's state gives that model's flow."""
-    _, _, tm, state = models
-    other = build_model("cpu", seed=1, precision="highest")
-    state2 = other.state_dict()
-    i1, i2 = _pair()
-    got = compiled(state2, i1, i2)
-    want = other(i1, i2, iters=ITERS)
-    torch.testing.assert_close(got, want, rtol=0, atol=AOT_ATOL)
-    assert (got - compiled(state, i1, i2)).abs().max() > 1e-2
-
-
 # -- the exported program -----------------------------------------------------
-
-def test_forward_and_export_leave_the_model_as_it_was(models):
-    """Neither a call of ``make_forward`` with another state nor an export
-    leaves a swapped-in tensor in the model (the reference layout registers
-    each strided block's norm3 twice, as downsample.1 too)."""
-    _, variables, _, _ = models
-    tm = build_model("cpu", state_dict=state_dict_from_jax(variables),
-                     precision="highest")
-    before = {k: (type(v), v.data_ptr()) for k, v in tm.state_dict().items()}
-    other = build_model("cpu", seed=1).state_dict()
-    serving.make_forward(tm, 1)(other, *_pair())
-    serving.export_forward(tm, other, (1, H, W), 1, device="cpu")
-    assert {k: (type(v), v.data_ptr())
-            for k, v in tm.state_dict().items()} == before
-    with pytest.raises(ValueError, match="lacks"):
-        serving.make_forward(tm, 1)(
-            {k: v for k, v in other.items() if "norm3" not in k}, *_pair())
-
-
-def test_export_roundtrip_through_file(models, tmp_path):
-    _, _, tm, state = models
-    i1, i2 = _pair()
-    exported = serving.export_forward(tm, state, (1, H, W), ITERS,
-                                      device="cpu")
-    path = str(tmp_path / "prior_raft.pt2")
-    serving.save_exported(exported, path)
-    fn = serving.load_exported(path)
-    want = serving.make_forward(tm, ITERS)(state, i1, i2)
-    assert torch.equal(exported.module()(dict(state), i1, i2), want)
-    assert torch.equal(fn(state, i1, i2), want)
-    assert fn.exported.graph_module.meta[serving.export.META_KEY][
-        "state_keys"] == list(state)
-
-
-def test_exported_summary(models):
-    _, _, tm, state = models
-    exported = serving.export_forward(tm, state, (1, H, W), ITERS,
-                                      device="cpu")
-    assert serving.exported_summary(exported) == {
-        "platforms": ["cpu"],
-        "in_avals": [f"float32[1,{H},{W},3]"] * 2,
-        "out_avals": [f"float32[1,{H},{W},2]"],
-        "num_weight_leaves": len(state),
-        "precision": "highest"}
-    with pytest.raises(ValueError, match="lookup_mode='mxu'"):
-        serving.export_forward(tm, state, (1, H, W), ITERS,
-                               platforms=["cuda", "cpu"], device="cpu")
-
 
 def test_load_exported_without_model_code(models, tmp_path):
     """A process that imports ``prior_flow_tpu_torch.serving`` (and so the
@@ -250,38 +123,6 @@ def test_exported_program_matches_jax(models, jax_flow):
                                       device="cpu")
     flow = exported.module()(dict(state), *_pair())
     _assert_near_jax(flow.numpy(), jax_flow)
-
-
-@pytest.mark.parametrize("route", ["default", "mixed_precision", "planes",
-                                   "fused_levels", "gather"])
-def test_export_is_bitwise_eager(models, route):
-    """Export changes nothing on the CPU, on every lookup route and in
-    mixed precision; the program calls the route's ops, once per forward
-    for the coords, once per iteration for the lookups, and the sums once
-    per fnet norm."""
-    _, variables, _, _ = models
-    tm = build_model("cpu", state_dict=state_dict_from_jax(variables),
-                     precision="highest",
-                     mixed_precision=route == "mixed_precision")
-    if route == "planes":
-        tm.dccl = DCCLFused(4, grid_in_kernel=False)
-    elif route == "fused_levels":
-        tm.dccl = DCCLFused(4, fuse_levels=True)
-    elif route == "gather":
-        tm.dccl = DCCLFused(4, level_lookup=dccl_level_lookup_plain)
-    state = tm.state_dict()
-    exported = serving.export_forward(tm, state, (1, H, W), ITERS,
-                                      device="cpu")
-    i1, i2 = _pair()
-    assert torch.equal(exported.module()(dict(state), i1, i2),
-                       tm(i1, i2, iters=ITERS))
-    want = {"instance_norm_sums": 15}
-    if route == "planes":
-        want.update(dccl_cross_coords=ITERS,
-                    dccl_level_lookup_coords=4 * ITERS)
-    elif route != "gather":
-        want["dccl_lookup_levels"] = ITERS
-    assert _op_counts(exported) == want
 
 
 # -- the ops ------------------------------------------------------------------
@@ -400,61 +241,6 @@ def test_convert_orbax_bridge(models, jax_flow, tmp_path, layout):
     tm = build_model("cpu", state_dict=demo_image.load_model_state(out),
                      precision="highest")
     _assert_near_jax(tm(*_pair(), iters=ITERS).numpy(), jax_flow)
-
-
-def test_package_loads_alone_without_model_code(models, compiled, tmp_path):
-    """A process that imports ``prior_flow_tpu_torch.serving`` but never the
-    model code loads the package from its file alone (the signature,
-    state names and precision are in its metadata) and gives the live
-    model's flow."""
-    _, _, tm, state = models
-    i1, i2 = _pair()
-    torch.save({"state": dict(state), "images": (i1, i2)},
-               str(tmp_path / "inputs.pt"))
-    code = f"""
-import json, sys, torch
-from prior_flow_tpu_torch.serving.export import CompiledForward
-fn = CompiledForward({compiled.package_path!r})
-inputs = torch.load({str(tmp_path / 'inputs.pt')!r}, weights_only=True)
-torch.save(fn(inputs["state"], *inputs["images"]),
-           {str(tmp_path / 'flow.pt')!r})
-print(json.dumps([fn.precision, sorted(m for m in sys.modules
-    if m.startswith(("prior_flow_tpu_torch.models", "prior_flow_tpu.",
-                     "jax")))]))
-"""
-    env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == ["highest", []]
-    flow = torch.load(str(tmp_path / "flow.pt"), weights_only=True)
-    want = serving.make_forward(tm, ITERS)(state, i1, i2)
-    torch.testing.assert_close(flow, want, rtol=0, atol=AOT_ATOL)
-
-
-def test_package_runs_under_its_precision(models, compiled, monkeypatch):
-    """The package's call runs under its recorded precision ("highest":
-    TF32 off for matmuls and cuDNN convolutions) whatever the caller's
-    flags, and puts the caller's flags back."""
-    _, _, _, state = models
-    flags = (torch.backends.cuda.matmul, torch.backends.cudnn.conv)
-    seen = []
-
-    def runner(*args):
-        seen.append([f.fp32_precision for f in flags])
-        return torch.zeros(())
-
-    monkeypatch.setattr(compiled, "runner", runner)
-    saved = [f.fp32_precision for f in flags]
-    try:
-        for f in flags:
-            f.fp32_precision = "tf32"
-        compiled(state, *_pair())
-        assert [f.fp32_precision for f in flags] == ["tf32", "tf32"]
-    finally:
-        for f, v in zip(flags, saved):
-            f.fp32_precision = v
-    assert seen == [["ieee", "ieee"]]
 
 
 def test_a_package_without_serving_metadata_is_refused(tmp_path):

@@ -18,6 +18,9 @@ computes the references meanwhile. Tolerances:
   within rtol 1e-5, the updated parameters within JAX's atol 1e-5, the
   pixel-count metrics equal; every rank's gradients and parameters
   bitwise rank 0's;
+- the group norm and the batch-statistics BatchNorm (its statistics over
+  the data axis too on the 2x2 mesh): as the instance norm, 1e-6, the
+  running statistics bitwise the same on every rank;
 - the dropout and noise draws: bitwise the one-process draws' rows.
 
 Inputs are seeded numpy arrays. The ranks run ``_rank_cases`` of this
@@ -34,13 +37,11 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from prior_flow_tpu_torch.models import build_model, build_raft
+from prior_flow_tpu_torch.models import build_model
 from prior_flow_tpu_torch.cli import train as tcli
-from prior_flow_tpu_torch.nn.layers import (Conv2d, InstanceNorm, RankDraws,
-                                            dropout)
+from prior_flow_tpu_torch.nn.layers import (BatchNorm, Conv2d, GroupNorm,
+                                            InstanceNorm, RankDraws, dropout)
 from prior_flow_tpu_torch.parallel import dryrun, mesh as pmesh, spatial
-from prior_flow_tpu_torch.train import (make_optimizer, make_train_step,
-                                        taped_value_and_grad)
 from prior_flow_tpu_torch.train.trainer import draw_noise
 
 HW = dryrun.DRYRUN_HW
@@ -99,18 +100,48 @@ def _norm_case():
     return x, _np(rng, LAYER_SHAPE)
 
 
-def _layer_grads(layer, x, ct, space=None):
-    """(output, input gradient, parameter gradients) of ``layer`` at ``x``
-    (this rank's rows under ``space``, the parameter gradients summed over
-    it)."""
+def _affine_norms():
+    """The norms with parameters, their affine seeded: the group norm (3
+    groups of LAYER_SHAPE's channels) and the batch-statistics
+    BatchNorm."""
+    rng = np.random.default_rng(8)
+    norms = {"group": GroupNorm(3, 6), "batch": BatchNorm(6)}
+    for norm in norms.values():
+        with torch.no_grad():
+            for p in norm.parameters():
+                p.copy_(_np(rng, p.shape) * 0.5 + 1.0)
+    return norms
+
+
+def _wide_norm_case():
+    """The instance norm's case at 6 channels (the group norm's groups)."""
+    x, ct = _norm_case()
+    return torch.cat([x, 0.5 * x - 2.0], 1), torch.cat([ct, -ct], 1)
+
+
+def _layer_grads(layer, x, ct, space=None, batch=False):
+    """(output, input gradient, parameter gradients, buffers) of ``layer``
+    at ``x`` (this rank's rows under ``space``, the parameter gradients
+    summed over it, with ``batch`` over every rank of the global
+    batch)."""
     x = x.clone().requires_grad_()
     with spatial.scope(space):
         y = layer(x)
     y.backward(ct)
     grads = [p.grad for p in layer.parameters()]
     if space is not None:
-        grads = [spatial.sum_over_space(g, space) for g in grads]
-    return y.detach(), x.grad, grads
+        grads = [space.all_reduce_(g, batch) for g in grads]
+    return y.detach(), x.grad, grads, [b.clone() for b in layer.buffers()]
+
+
+def _batch_rows(t, mesh, space):
+    """This rank's rows of a global (B, C, H, W) layer input under
+    ``space``: its data rank's batch rows where the space has a data
+    axis, and its height rows."""
+    if space.data > 1:
+        b = t.shape[0] // space.data
+        t = t[mesh.data_rank * b:(mesh.data_rank + 1) * b]
+    return spatial.rows(t, space, 2)
 
 
 def _rank_cases(mesh, batch):
@@ -120,7 +151,7 @@ def _rank_cases(mesh, batch):
     spaces = {mesh.space_size: mesh.space}
     if mesh.size == 4:
         spaces[4] = spatial.Space(None, mesh.rank, 4, mesh.backend)
-    out = {"layers": {}, "norm": {}}
+    out = {"layers": {}, "norm": {}, "group": {}, "batch": {}}
     for S, space in spaces.items():
         for i in range(len(GEOMETRIES)):
             conv, x, ct = _conv_case(i)
@@ -130,6 +161,13 @@ def _rank_cases(mesh, batch):
         x, ct = _norm_case()
         out["norm"][S] = _layer_grads(InstanceNorm(), spatial.rows(
             x, space, 2), spatial.rows(ct, space, 2), space)
+        x, ct = _wide_norm_case()
+        norms = _affine_norms()
+        out["group"][S] = _layer_grads(norms["group"], spatial.rows(
+            x, space, 2), spatial.rows(ct, space, 2), space)
+        out["batch"][S] = _layer_grads(
+            norms["batch"], _batch_rows(x, mesh, space),
+            _batch_rows(ct, mesh, space), space, batch=True)
     out["forward"] = {
         mode: dryrun.forward_rows(mesh, [(*batch[:2], ITERS)], 0, 1, kw)[0]
         for mode, kw in FORWARDS.items()}
@@ -204,10 +242,10 @@ def test_sharded_conv_is_the_unsplit_conv(runs, S, i):
     bias gradients within 1e-6 of the unsplit convolution's (S = 2 on both
     meshes, S = 4 over the 2x2 mesh's four ranks)."""
     conv, x, ct = _conv_case(i)
-    y, dx, (dw, db) = _layer_grads(conv, x, ct)
+    y, dx, (dw, db), _ = _layer_grads(conv, x, ct)
     for r, res in _layer_ranks(runs, S):
         space = spatial.Space(None, r % S, S, "gloo")
-        got_y, got_dx, (got_dw, got_db) = res["layers"][S, i]
+        got_y, got_dx, (got_dw, got_db), _ = res["layers"][S, i]
         _close(got_y, spatial.rows(y, space, 2), LAYER_TOL)
         _close(got_dx, spatial.rows(dx, space, 2), LAYER_TOL)
         _close(got_dw, dw, LAYER_TOL)
@@ -219,12 +257,46 @@ def test_sharded_instance_norm_is_the_unsplit_norm(runs, S):
     """The statistics of the whole image: output rows and input-gradient
     rows within 1e-6 of the unsplit norm's."""
     x, ct = _norm_case()
-    y, dx, _ = _layer_grads(InstanceNorm(), x, ct)
+    y, dx, _, _ = _layer_grads(InstanceNorm(), x, ct)
     for r, res in _layer_ranks(runs, S):
         space = spatial.Space(None, r % S, S, "gloo")
-        got_y, got_dx, _ = res["norm"][S]
+        got_y, got_dx, _, _ = res["norm"][S]
         _close(got_y, spatial.rows(y, space, 2), LAYER_TOL)
         _close(got_dx, spatial.rows(dx, space, 2), LAYER_TOL)
+
+
+@pytest.mark.parametrize("kind", ("group", "batch"))
+@pytest.mark.parametrize("S", (2, 4))
+def test_sharded_affine_norms_are_the_unsplit_norms(runs, S, kind):
+    """The group norm (per-sample statistics over the space group) and the
+    batch-statistics BatchNorm (per-channel statistics over every rank of
+    the global batch: on the 2x2 mesh at S = 2 the batch rows are split
+    over the data axis too): output rows, input-gradient rows and the
+    summed parameter gradients within 1e-6 of the unsplit norm's; the
+    BatchNorm's running statistics within 1e-6 of the unsplit norm's and
+    bitwise the same on every rank."""
+    x, ct = _wide_norm_case()
+    y, dx, grads, bufs = _layer_grads(_affine_norms()[kind], x, ct)
+    pools = MESHES if S == 2 else [(2, 2)]
+    for shape in pools:
+        ranks = runs[1][shape]
+        D = shape[0] if (S == 2 and kind == "batch") else 1
+        for r, res in enumerate(ranks):
+            got_y, got_dx, got_grads, got_bufs = res[kind][S]
+            if D > 1:   # the rank's batch rows and height rows
+                d, s = divmod(r, S)
+                space = spatial.Space(None, s, S, "gloo")
+                rows = lambda t: spatial.rows(t[d:d + 1], space, 2)
+            else:
+                space = spatial.Space(None, r % S, S, "gloo")
+                rows = lambda t: spatial.rows(t, space, 2)
+            _close(got_y, rows(y), LAYER_TOL)
+            _close(got_dx, rows(dx), LAYER_TOL)
+            for g, want in zip(got_grads, grads):
+                _close(g, want, LAYER_TOL)
+            for b, want, b0 in zip(got_bufs, bufs, ranks[0][kind][S][3]):
+                _close(b, want, LAYER_TOL)
+                assert torch.equal(b, b0)
 
 
 @pytest.mark.parametrize("mode", FORWARDS)
@@ -319,38 +391,6 @@ def _space(size: int = 2):
     """A ``Space`` over no process group: what raises before any exchange
     raises there."""
     return spatial.Space(None, 0, size, "gloo")
-
-
-@pytest.mark.parametrize("what,kw", [
-    ("deferred_vol_grad", dict(deferred_vol_grad=True)),
-    ("lookup_mode='mxu'", dict(lookup_mode="mxu")),
-    ("lookup_mode='gather'", dict(lookup_mode="gather")),
-    ("bn_running_average", dict(bn_running_average=False))])
-def test_item_9c_refusals(what, kw):
-    """Combinations the space axis does not take yet raise naming item
-    9c, before any exchange."""
-    i1, i2 = dryrun.synthetic_batch(0, 1, 32, HW[1])[:2]
-    model = build_model("cpu", **kw)
-    with spatial.scope(_space()), pytest.raises(ValueError, match="item 9c"):
-        model(i1, i2, iters=1)
-
-
-def test_item_9c_refusals_taped_and_raft():
-    """The taped step (at ``make_train_step`` on a mesh with a space axis,
-    and ``taped_value_and_grad`` under a space scope) and the legacy RAFT
-    raise naming item 9c."""
-    model = build_model("cpu").train()
-    opt, sched = make_optimizer(model.parameters(), 1e-4, 10)
-    mesh = pmesh.Mesh(None, 0, 2, torch.device("cpu"), "gloo",
-                      ("data", "space"), {"data": 1, "space": 2},
-                      space=_space())
-    with pytest.raises(ValueError, match="item 9c"):
-        make_train_step(model, opt, sched, grad_mode="taped", mesh=mesh)
-    batch = dryrun.synthetic_batch(0, 1, 32, HW[1])
-    with spatial.scope(_space()), pytest.raises(ValueError, match="item 9c"):
-        taped_value_and_grad(model, *batch, batch[2], batch[3], 1, 0.8)
-    with spatial.scope(_space()), pytest.raises(ValueError, match="item 9c"):
-        build_raft("cpu")(*batch[:2], iters=1)
 
 
 def test_height_must_split_into_whole_eighth_rows():
