@@ -170,7 +170,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    distance of two such sums) and against the batch-2 step (per tensor
    within twice the sum's distance from it plus 2e-4 of its norm), both
    ranks' gradients and parameters bitwise equal, per rank ms/step, peak
-   GB and launches; two NCCL ranks on the one card fail; (c)
+   GB and launches; the same two ranks, a data-only mesh, take the
+   ``bn_running_average=False`` step at 64x128, 1 iteration, against
+   one process's step on the global batch as phase 25 (a)'s gates hold a
+   step (the statistics summed over both ranks: running statistics
+   within 1e-4 of one process's and bitwise the same on both ranks);
+   two NCCL ranks on the one card fail; (c)
    ``dryrun_multichip(2)`` on the card over gloo. The NCCL refusal and
    (c) run while (b) does.
 23. ``lookup_mode`` mxu and gather (``ops.corr.DCCL``, no kernel): one
@@ -217,14 +222,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    pair's distance), each rank's peak GB beside one process's; (c)
    ``dryrun_multichip(4)`` on a 2x2 mesh; (d) a 1x2 mesh, the fp32
    forwards with ``lookup_mode`` ``mxu`` and ``gather`` at 512x1024, 3
-   iterations, and the legacy RAFT basic and small at 448x1024 (RAFT's
-   440x1024 pair padded so that H / 8 splits over two ranks), 12
-   iterations, each against one process (1e-4 x flow scale, at 12
+   iterations, and the legacy RAFT basic and small at RAFT's published
+   440x1024 (H / 8 = 55: strips of 224 and 216 rows, the second padded),
+   12 iterations, each against one process (1e-4 x flow scale, at 12
    iterations or twice the nudged pair's distance; the sums' launches
-   only), and the ``bn_running_average=False`` step at 64x128 as (a)'s
-   at 1 iteration and on the distance over all tensors at 12 (its
-   running statistics within 1e-4 and the same on both ranks);
-   (a) beside (b) then (d) beside (c); the exchange route printed.
+   only), PriOr-RAFT at 520x1040 (H / 8 = 65: 264 + 256 rows; the planes
+   route) in the test-mode forward at 3 iterations (1e-4 x flow scale)
+   and one standard step at global batch 2, 1 iteration, as (a)'s, each
+   with its peak GB per rank beside one process's, and the
+   ``bn_running_average=False`` step at 64x128 as (a)'s at 1 iteration
+   and on the distance over all tensors at 12 (its running statistics
+   within 1e-4 and the same on both ranks); (a) beside (b) then (d)
+   beside (c); the exchange route printed.
 The launches of phases 15-17 are the tools' measurement runs (path
 "tool"). Then the card's name and power limit, a ``kernels`` JSON line with each
 kernel's launches per path, error, times and bound, and the result line.
@@ -2924,9 +2933,12 @@ SCALE_RUNS = 1      # was 3: cut to pay for phase 24
 # rematerialisation against no remat at the first step: each gradient
 # tensor within this multiple of the distance between two no-remat steps
 # (the scatter's float atomics) plus JAX's remat rtol
-# (tests/test_model.py:156-181) of its norm: "dots" computes some
-# gradients in another order than no remat (1.1e-6 of the norm on an
-# H100) where two no-remat steps agree bitwise
+# (tests/test_model.py:156-181) of its norm, floored as grad_floor does:
+# "dots" computes some gradients in another order than no remat (1.1e-6
+# of the norm on an H100) where two no-remat steps agree bitwise, and it
+# moves the round-off that the zero-gradient fnet biases carry by more
+# than the atomics do (on an H100 by up to 6% of their norm, 2.9 times
+# the no-remat steps' distance)
 REMAT_SPREAD_X = 2.0
 REMAT_RTOL = 2e-4
 REMAT_STEPS = 2     # was 5, then 3: cut to pay for phases 24 and 25
@@ -3221,8 +3233,8 @@ def scale_remat(dev):
     ms/step (median of REMAT_STEPS after one warm-up step); at the first
     step the loss within STEP_LOSS_RTOL and each gradient tensor within
     REMAT_SPREAD_X times the distance between two no-remat steps plus
-    REMAT_RTOL of its norm; the launches per step those of no remat (the
-    lookup not replayed)."""
+    REMAT_RTOL of its norm (``grad_floor``'s floor under it); the
+    launches per step those of no remat (the lookup not replayed)."""
     import torch
     from prior_flow_tpu_torch.ops.kernels import (launch_counts,
                                                   reset_launch_counts)
@@ -3271,6 +3283,8 @@ def scale_remat(dev):
             torch.cuda.empty_cache()
         l_ref, g_ref = first["off"]
         spread = grad_distance(first["off_again"][1], g_ref)
+        total = math.sqrt(sum(float((r.double() ** 2).sum())
+                              for r in g_ref.values()))
         for policy in ("dccl", "dots"):
             loss, g = first[policy]
             if abs(loss - l_ref) > STEP_LOSS_RTOL * abs(l_ref):
@@ -3278,8 +3292,8 @@ def scale_remat(dev):
             dist = grad_distance(g, g_ref)
             worst = (0.0, "")
             for n, d in dist.items():
-                gate = (REMAT_SPREAD_X * spread[n]
-                        + REMAT_RTOL * g_ref[n].norm().item())
+                gate = (REMAT_SPREAD_X * spread[n] + REMAT_RTOL
+                        * max(g_ref[n].norm().item(), grad_floor(n, total)))
                 if d > gate:
                     fail(f"remat {policy} {mode}: gradient {n} {d:.3e} from "
                          f"no remat, gate {gate:.3e} (two no-remat steps "
@@ -3542,7 +3556,7 @@ def dp_ranks(dev, n: int = DP_RANKS, device="cuda:0", backend="gloo",
     calls ``after_refs`` (what is to run beside the ranks); ``label``
     says what else shares the ranks' card."""
     import torch
-    from prior_flow_tpu_torch.parallel.dryrun import (rank_updates,
+    from prior_flow_tpu_torch.parallel.dryrun import (rank_runs,
                                                       shares_summed, spawn,
                                                       synthetic_batch,
                                                       train_once)
@@ -3550,8 +3564,15 @@ def dp_ranks(dev, n: int = DP_RANKS, device="cuda:0", backend="gloo",
     batch = synthetic_batch(7, b, H, W)
     kw = dict(precision="highest")
     cases = [dict(grad_mode=m, iters=ITERS) for m in ("standard", "taped")]
+    # the batch-statistics step on the data-only mesh: one row per rank
+    bn_batch = synthetic_batch(13, b, *SP_BN_HW)
+    bn_cases = [dict(mode="batch-statistics", grad_mode="standard",
+                     iters=SP_SHORT, hw=SP_BN_HW, steps=1,
+                     model=dict(bn_running_average=False))]
     refs = []
     t0 = time.perf_counter()
+    bn_refs = space_step_refs(dev, bn_batch, bn_cases, kw,
+                              key=("bn", 13, b))
     for case in cases:
         acc, loss, mag = shares_and_magnitudes(n, dev, case, batch, **kw)
         acc2, loss2 = shares_summed(n, dev, case, batch, **kw)
@@ -3563,11 +3584,15 @@ def dp_ranks(dev, n: int = DP_RANKS, device="cuda:0", backend="gloo",
     t1 = time.perf_counter()
     if after_refs is not None:
         after_refs()
-    ranks = spawn(rank_updates, n, cases, batch, DP_STEPS, 0, kw,
-                  device=device, backend=backend, timeout_s=DP_TIMEOUT_S)
+    runs = spawn(rank_runs, n, [
+        ("rank_updates", (cases, batch, DP_STEPS, 0, kw)),
+        ("rank_updates", (bn_cases, bn_batch, 1, 0, kw))],
+        device=device, backend=backend, timeout_s=DP_TIMEOUT_S)
+    ranks = [r[0] for r in runs]
     print(f"  {tag[tag.index('('):]} references {t1 - t0:.1f} s, the "
           f"ranks {time.perf_counter() - t1:.1f} s", flush=True)
-    out = {}
+    out = {"bn": space_step_gates([r[1] for r in runs], bn_refs, bn_cases,
+                                  (n, 1), tag, "data-only", b)}
     for i, case in enumerate(cases):
         mode = case["grad_mode"]
         per = 2 * LEVELS * (ITERS if mode == "standard" else 1)
@@ -4188,8 +4213,9 @@ SP_ULP = 2.0 ** -23       # the sensitivity references' relative image change
 SP_RUNS = 2               # (b): forwards per rank and job, the first counted
 SP_SUMS_RTOL = 1e-9       # the sums kernel's f64 partial sums, of max|plain|
 SP_TIMEOUT_S = 600.0
-SP_RAFT_HW = (448, 1024)  # (d): RAFT's 440x1024 pair padded to H / 8 = 56,
-                          #      which splits over two ranks (55 does not)
+SP_RAFT_HW = (440, 1024)  # (d): RAFT's published pair, H / 8 = 55: strips
+                          #      of 224 and 216 rows (the second padded)
+SP_UNEVEN_HW = (520, 1040)  # (d): PriOr-RAFT at H / 8 = 65: 264 + 256 rows
 SP_BN_HW = (64, 128)      # (d): the batch-statistics step, phase 24 (c)'s size
 
 
@@ -4235,17 +4261,30 @@ def _global_rel(g, ref) -> float:
     return math.sqrt(num / den)
 
 
-def space_step_refs(dev, batch, cases, kw):
+# one-process step references by (batch key, case): phase 22 (b) and
+# phase 25 (d) hold the batch-statistics step on the same batch
+_STEP_REFS = {}
+
+
+def space_step_refs(dev, batch, cases, kw, key=None):
     """(a)'s references in this process, per case: the one-process step,
     again, and on the images nudged by one rounding either way: the
-    step's sensitivity to f32 rounding."""
+    step's sensitivity to f32 rounding. With a ``key`` naming the batch,
+    a case's references are computed once per run of the script."""
     import torch
     from prior_flow_tpu_torch.parallel.dryrun import train_once
     refs = []
     for case in cases:
+        memo = None if key is None else (key, json.dumps(
+            {k: v for k, v in case.items() if k != "gate"}, sort_keys=True))
+        if memo in _STEP_REFS:
+            refs.append(_STEP_REFS[memo])
+            continue
         runs = [train_once(None, dev, case, batch, **kw) for _ in range(2)]
         runs += [train_once(None, dev, case, nudged(batch, s), **kw)
                  for s in (1, -1)]
+        if memo is not None:
+            _STEP_REFS[memo] = runs
         refs.append(runs)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -4272,8 +4311,15 @@ def step_launches(case) -> dict:
     """A step's launches per rank: kernel 1 four per iteration (the
     deferred step's in its recording pass), the 30 sums, and two grid
     scatters per level and iteration (standard) or per level (taped,
-    deferred: one stacked scatter per volume)."""
+    deferred: one stacked scatter per volume); on the planes route
+    (``case["planes"]``: 1/8 grids wider than 128 columns) one coords
+    launch and the lookup at given coords per level and iteration, and
+    two given-coords scatters per level and iteration."""
     it = case["iters"]
+    if case.get("planes"):
+        return {"dccl_level_lookup_coords": LEVELS * it,
+                "dccl_cross_coords": it, "instance_norm_sums": 30,
+                "dccl_level_scatter": 2 * LEVELS * it}
     stacked = (case["grad_mode"] == "taped"
                or case.get("model", {}).get("deferred_vol_grad", False))
     return {"dccl_level_lookup": LEVELS * it, "instance_norm_sums": 30,
@@ -4281,7 +4327,7 @@ def step_launches(case) -> dict:
 
 
 def space_step_gates(ranks, refs, cases, shape, tag: str,
-                     part: str = "(a)") -> dict:
+                     part: str = "(a)", batch: int = 0) -> dict:
     """The steps' gates per case: launches per rank; every rank's
     gradients, parameters and buffers bitwise rank 0's; the loss, the
     updated parameters and the buffers (the batch-statistics BatchNorm's
@@ -4366,7 +4412,8 @@ def space_step_gates(ranks, refs, cases, shape, tag: str,
             + f"peak {q['peak_gb']} GB" for r, q in enumerate(per_rank))
         peaks += f" (one process: peak {ref['peak_gb']} GB)"
         print(f"  {part} {shape[0]}x{shape[1]} mesh, the {mode} step at "
-              f"{h}x{w}, global batch {SP_B * shape[0]}, {it} iterations, "
+              f"{h}x{w}, global batch {batch or SP_B * shape[0]}, {it} "
+              f"iterations, "
               f"fp32, remat dccl: loss {l1:.6f} vs {l0:.6f}; gradients "
               f"{rel['sharded']:.3e} of the global norm from one process's "
               f"(two one-process steps {rel['two_runs']:.3e}, nudged images "
@@ -4461,9 +4508,11 @@ def space_modes_inputs(shape):
     """(d)'s inputs, one pair (or two batch rows) per data rank: the
     forwards (name, ``build_model`` / ``build_raft`` keywords, RAFT?,
     pair, iterations): ``mxu`` and ``gather`` at H x W, SP_FLOW_SHORT
-    iterations, RAFT basic and small at SP_RAFT_HW, 12; and the
-    batch-statistics step at SP_BN_HW (its batch and cases: SP_SHORT
-    iterations gated per tensor as (a)'s, 12 on the global distance)."""
+    iterations, RAFT basic and small at SP_RAFT_HW, 12, PriOr-RAFT at
+    SP_UNEVEN_HW, SP_FLOW_SHORT; the batch-statistics step at SP_BN_HW
+    (its batch and cases: SP_SHORT iterations gated per tensor as (a)'s,
+    12 on the global distance); and the standard step at SP_UNEVEN_HW
+    (its batch and case: SP_SHORT iterations, per tensor)."""
     import torch
     from prior_flow_tpu_torch.parallel import dryrun
     D = shape[0]
@@ -4474,50 +4523,74 @@ def space_modes_inputs(shape):
                 ("gather", dict(lookup_mode="gather"), False, pair,
                  SP_FLOW_SHORT),
                 ("raft_basic", {}, True, raft_pair, ITERS),
-                ("raft_small", dict(small=True), True, raft_pair, ITERS)]
+                ("raft_small", dict(small=True), True, raft_pair, ITERS),
+                ("uneven", {}, False, pair_of(9, *SP_UNEVEN_HW),
+                 SP_FLOW_SHORT)]
     bn_cases = [dict(mode="batch-statistics", grad_mode="standard",
                      iters=it, hw=SP_BN_HW, steps=1,
                      model=dict(bn_running_average=False),
                      gate="global" if it == ITERS else "tensor")
                 for it in (SP_SHORT, ITERS)]
+    uneven_case = dict(mode="standard", grad_mode="standard", iters=SP_SHORT,
+                       hw=SP_UNEVEN_HW, steps=1, planes=True)
     return (forwards, dryrun.synthetic_batch(13, SP_B * D, *SP_BN_HW),
-            bn_cases)
+            bn_cases, dryrun.synthetic_batch(17, SP_B * D, *SP_UNEVEN_HW),
+            [uneven_case])
 
 
 def space_modes_refs(dev, modes, kw):
-    """(d)'s references in this process: each forward, at 12 iterations
-    also on the nudged pair; the step as (a)'s (``space_step_refs``)."""
+    """(d)'s references in this process: each forward and its peak GB, at
+    12 iterations also on the nudged pair; the steps as (a)'s
+    (``space_step_refs``)."""
     import torch
     from prior_flow_tpu_torch.models import build_model, build_raft
-    forwards, bn_batch, bn_cases = modes
+    forwards, bn_batch, bn_cases, uneven_batch, uneven_cases = modes
+    cuda = dev.type == "cuda"
     flows = {}
     for name, mkw, raft, pair, it in forwards:
         model = (build_raft if raft else build_model)(dev, seed=0, **kw,
                                                       **mkw)
         run = lambda p: model(*(t.to(dev) for t in p), iters=it).cpu()
-        flows[name] = (run(pair), [run(nudged(pair, s)) for s in (1, -1)]
-                       if it == ITERS else [])
+        if cuda:   # the forward's own peak, above what this process held
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        flow = run(pair)
+        peak = ((torch.cuda.max_memory_allocated(dev) - base) / 1e9 if cuda
+                else None)
+        flows[name] = (flow, [run(nudged(pair, s)) for s in (1, -1)]
+                       if it == ITERS else [], peak)
         del model
-    if dev.type == "cuda":
+    if cuda:
         torch.cuda.empty_cache()
-    return flows, space_step_refs(dev, bn_batch, bn_cases, kw)
+    return (flows, space_step_refs(dev, bn_batch, bn_cases, kw,
+                                   key=("bn", 13, bn_batch[0].shape[0])),
+            space_step_refs(dev, uneven_batch, uneven_cases, kw))
 
 
 def space_modes_gates(ranks, refs, modes, shape, tag: str) -> dict:
     """(d)'s gates: each forward's launches per rank (the sums only: 15,
-    RAFT small 21; no lookup kernel) and the ranks' rows within
+    RAFT small 21; no lookup kernel; PriOr-RAFT at SP_UNEVEN_HW the
+    planes route, rows 3 and 5 too) and the ranks' rows within
     SP_FLOW_TOL x flow scale of the one-process flow (at 12 iterations
     within the larger of that and SP_SPREAD_X times the distance the
-    nudged pair puts the one-process flow from itself); the
-    batch-statistics step as (a)'s."""
+    nudged pair puts the one-process flow from itself), each rank's peak
+    GB beside one process's; the batch-statistics step and the step at
+    SP_UNEVEN_HW as (a)'s."""
     import torch
-    forwards, _, bn_cases = modes
-    flows, step_refs = refs
+    forwards, _, bn_cases, _, uneven_cases = modes
+    flows, step_refs, uneven_refs = refs
     D, S = shape
     out = {}
     for j, (name, mkw, raft, pair, it) in enumerate(forwards):
-        want = {"instance_norm_sums": RAFT_SUMS[bool(mkw.get("small"))]
-                if raft else 15}
+        if raft:
+            want = {"instance_norm_sums": RAFT_SUMS[bool(mkw.get("small"))]}
+        elif "lookup_mode" in mkw:
+            want = {"instance_norm_sums": 15}
+        else:
+            want = {k: v for k, v in forward_counts(
+                dccl_level_lookup_coords=LEVELS * it,
+                dccl_cross_coords=it).items() if v}
         for r, res in enumerate(ranks):
             if res[j][0]["launches"] != want:
                 fail(f"{tag} (d) {name} rank {r}: launches per forward "
@@ -4525,9 +4598,10 @@ def space_modes_gates(ranks, refs, modes, shape, tag: str) -> dict:
         flow = torch.cat([torch.cat([ranks[d * S + s][j][0]["flow"]
                                      for s in range(S)], dim=1)
                           for d in range(D)])
-        ref, nudges = flows[name]
+        ref, nudges, ref_peak = flows[name]
         scale = ref.abs().max().item()
         err = (flow - ref).abs().max().item() / scale
+        peaks = [res[j][0]["peak_gb"] for res in ranks]
         sens = [(n - ref).abs().max().item() / scale for n in nudges]
         gate = max([SP_FLOW_TOL] + [SP_SPREAD_X * v for v in sens])
         if not (torch.isfinite(flow).all() and err <= gate):
@@ -4540,12 +4614,18 @@ def space_modes_gates(ranks, refs, modes, shape, tag: str) -> dict:
               f"{scale:.3f} from the one-process flow (gate {gate:.3e}"
               + (f"; the nudged pair puts one process {sens[0]:.3e} / "
                  f"{sens[1]:.3e} from itself" if sens else "")
-              + f"); launches per forward and rank "
+              + f"); peak GB per rank {peaks} (each rank's process) "
+              f"beside one process's {ref_peak} (above what it held "
+              f"before the forward); launches per forward and rank "
               f"{ranks[0][j][0]['launches']}", flush=True)
         out[name] = dict(err_ratio=err, gate=gate, nudged=sens,
+                         peak_gb=peaks, peak_gb_ref=ref_peak,
                          launches=ranks[0][j][0]["launches"])
     out["step"] = space_step_gates([res[len(forwards)] for res in ranks],
                                    step_refs, bn_cases, shape, tag, "(d)")
+    out["uneven_step"] = space_step_gates(
+        [res[len(forwards) + 1] for res in ranks], uneven_refs,
+        uneven_cases, shape, tag, "(d)")
     return out
 
 
@@ -4580,6 +4660,7 @@ def space_runs(dev, shape, device: str, backend: str, tag: str,
     mode_runs = [("forward_rows", ([(*p, it)], 0, 1, {**kw, **mkw}, raft))
                  for _, mkw, raft, p, it in modes[0]]
     mode_runs.append(("rank_updates", (modes[2], modes[1], 1, 0, kw)))
+    mode_runs.append(("rank_updates", (modes[4], modes[3], 1, 0, kw)))
     t0 = time.perf_counter()
 
     def spawn(fn, *args):
@@ -5007,7 +5088,8 @@ def main(argv=None) -> None:
     phase(f"phase 25 the space axis: a {SP_SHAPE[0]}x{SP_SHAPE[1]} mesh of "
           f"gloo ranks sharing the card, the EFT step at {H}x{W} (standard, "
           f"taped, deferred), the {H2}x{W2} forward, the mxu / gather "
-          f"forwards, RAFT at {SP_RAFT_HW[0]}x{SP_RAFT_HW[1]}, the "
+          f"forwards, RAFT at {SP_RAFT_HW[0]}x{SP_RAFT_HW[1]}, PriOr-RAFT "
+          f"at {SP_UNEVEN_HW[0]}x{SP_UNEVEN_HW[1]} (forward and step), the "
           f"batch-statistics step; dryrun_multichip(4) on a 2x2 mesh")
     sp = phase_space(dev)
     no_launches = lambda d: {k: ({q: v for q, v in r.items()
@@ -5019,8 +5101,9 @@ def main(argv=None) -> None:
         "step": no_launches(sp["step"]),
         "forward_1024x2048": no_launches(sp["forward"]),
         "modes": {**no_launches({k: v for k, v in sp["modes"].items()
-                                 if k != "step"}),
-                  "step": no_launches(sp["modes"]["step"])},
+                                 if k not in ("step", "uneven_step")}),
+                  "step": no_launches(sp["modes"]["step"]),
+                  "uneven_step": no_launches(sp["modes"]["uneven_step"])},
         "dryrun_multichip_2x2": sp["dryrun"], "s": sp["s"]}}))
     phase()
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s",
@@ -5078,12 +5161,23 @@ def main(argv=None) -> None:
                 "route); launches_forward_mxu_sp2_per_rank: one 512x1024 "
                 "fp32 forward with lookup_mode='mxu', 3 iterations, of one "
                 "of phase 25 (d)'s two ranks (no lookup kernel); "
-                "launches_raft_basic_448x1024_sp2_per_rank / _small_: one "
-                "448x1024 fp32 RAFT forward, 12 iterations, of one of phase "
-                "25 (d)'s ranks; launches_train_bn_64x128_sp2_per_rank: one "
+                "launches_raft_basic_440x1024_sp2_per_rank / _small_: one "
+                "440x1024 fp32 RAFT forward, 12 iterations, of one of phase "
+                "25 (d)'s ranks (strips of 224 and 216 rows); "
+                "launches_train_bn_64x128_sp2_per_rank: one "
                 "standard step with bn_running_average=False at 64x128, "
                 "global batch 2, 12 iterations, of one of phase 25 (d)'s "
-                "ranks")
+                "ranks; launches_forward_520x1040_sp2_per_rank: one "
+                "520x1040 fp32 forward, 3 iterations, of one of phase 25 "
+                "(d)'s ranks (H / 8 = 65: strips of 264 and 256 rows; the "
+                "planes route); launches_train_step_520x1040_sp2_per_rank: "
+                "one standard step at 520x1040, global batch 2, 1 "
+                "iteration, fp32, of one of phase 25 (d)'s ranks (the "
+                "planes route: the given-coords scatter); "
+                "launches_train_bn_64x128_dp2_per_rank: one standard step "
+                "with bn_running_average=False at 64x128, 1 iteration, of "
+                "one of phase 22 (b)'s two data-only ranks (batch 1 of a "
+                "global 2)")
 
     def row(name, src, replaces, d, work, err, path="train"):
         paths = {"train": std, "forward_1024x2048": hr_counts,
@@ -5121,10 +5215,18 @@ def main(argv=None) -> None:
                     sp["forward"][ITERS]["launches"].get(name, 0),
                 "launches_forward_mxu_sp2_per_rank":
                     sp["modes"]["mxu"]["launches"].get(name, 0),
-                "launches_raft_basic_448x1024_sp2_per_rank":
+                "launches_raft_basic_440x1024_sp2_per_rank":
                     sp["modes"]["raft_basic"]["launches"].get(name, 0),
-                "launches_raft_small_448x1024_sp2_per_rank":
+                "launches_raft_small_440x1024_sp2_per_rank":
                     sp["modes"]["raft_small"]["launches"].get(name, 0),
+                "launches_forward_520x1040_sp2_per_rank":
+                    sp["modes"]["uneven"]["launches"].get(name, 0),
+                "launches_train_step_520x1040_sp2_per_rank":
+                    sp["modes"]["uneven_step"][f"standard_{SP_SHORT}"][
+                        "launches"].get(name, 0),
+                "launches_train_bn_64x128_dp2_per_rank":
+                    dp["two_ranks"]["bn"][f"batch-statistics_{SP_SHORT}"][
+                        "launches"].get(name, 0),
                 "launches_train_bn_64x128_sp2_per_rank":
                     sp["modes"]["step"][f"batch-statistics_{ITERS}"][
                         "launches"].get(name, 0),

@@ -80,8 +80,12 @@ without one raises. Test-mode forwards and eval mode never drop.
 
 Height sharding (the ``space`` axis of a data x space mesh,
 ``parallel/spatial.py``): inside a ``spatial.scope`` the forward takes
-this rank's rows of each image (H / S of them, a multiple of 8) and
-returns its rows of the flow. Every convolution and instance norm, the
+this rank's real rows of each image (``spatial.shard_rows``: strips of
+8 * ceil(H / (8 S)) rows, the last short or empty, for any H a multiple
+of 8 and of S) and returns its rows of the flow. It sets the scope's
+height from them, pads them to the rank's strip and cuts the flows
+back to its real rows (``spatial.enter``, ``Space.pad`` / ``crop``);
+pad rows are read by no real row. Every convolution and instance norm, the
 orthogonal view, ``flo_rotate``, the back-rotation and the upsampling
 exchange rows with the other ranks; fmap2 is gathered once per forward
 (the volume's targets, the flaw maps' warps); the queries, the volume
@@ -395,9 +399,12 @@ class PriOrRAFT(nn.Module):
         B, H, W, _ = image1.shape
         dev = image1.device
         space = spatial.current()
-        if space is not None:
-            spatial.check_height(H * space.size, space.size)
-            H *= space.size
+        if space is not None:   # the rank's real rows -> its strip
+            space = spatial.enter(H, dev)
+            H = space.height
+            image1, image2 = space.pad(image1, 1), space.pad(image2, 1)
+            if init_flow is not None:
+                init_flow = space.pad(init_flow, 1, 8)
         g = self.rotation_grids(H, W, dev)
         net_A, net_B, inp_A, inp_B, fmaps = self.encode(
             image1, image2, g,
@@ -439,8 +446,13 @@ class PriOrRAFT(nn.Module):
         if deferred:
             corr_fn = self._record_and_rebind(
                 net_A, net_B, coords1_A, coords1_B, k, pyr_A, pyr_B, iters)
-        return self._recur(net_A, net_B, coords1_A, coords1_B, k, corr_fn,
-                           iters, train)
+        out = self._recur(net_A, net_B, coords1_A, coords1_B, k, corr_fn,
+                          iters, train)
+        if space is None:
+            return out
+        if train:   # the rank's real rows of the flows
+            return tuple(space.crop(p, 2) for p in out)
+        return space.crop(out, 1)
 
     def _record_and_rebind(self, net_A, net_B, coords1_A, coords1_B,
                            k: StepConsts, pyr_A, pyr_B, iters: int):
@@ -486,9 +498,10 @@ class PriOrRAFT(nn.Module):
         the volume cotangents. Returns ``((preds_A, preds_B), (fields_A,
         fields_B), (cen_A, cen_B))``: stacked (iters, B, H, W, 2) flows, the
         lists of field leaves (B, h8, w8, L*81), and the stacked
-        (iters, B, Q, 2) centres. Height-sharded (a ``spatial.scope``),
-        everything but ``fmap2_A`` (the whole image's) holds the rank's
-        rows; the centres are global pixels of its queries."""
+        (iters, B, Q, 2) centres. Height-sharded (a ``spatial.scope``
+        with a height), everything but ``fmap2_A`` (the whole image's)
+        holds the rank's strip, the flows too; the centres are global
+        pixels of its queries."""
         B, _, h8, w8 = net_A.shape
         dev = net_A.device
         space = spatial.current()

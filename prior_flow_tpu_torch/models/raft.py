@@ -16,9 +16,10 @@ context 64. On the card the feature encoder's instance norms run the sums
 kernel; the lookup is plain gathers (XLA code in JAX, no Pallas kernel).
 
 Height sharding (``parallel/spatial.py``): inside a ``spatial.scope`` the
-forward takes this rank's rows of each image (H / S of them, a multiple
-of 8; JAX's partitioner pads an uneven split, the port refuses it) and
-returns its rows of the flow, as ``PriOrRAFT`` does: the convolutions
+forward takes this rank's real rows of each image (any H a multiple of
+8 and of S; the strips of ``spatial.shard_rows``, padded on entry as
+JAX's partitioner pads an uneven split) and returns its rows of the
+flow, as ``PriOrRAFT`` does: the convolutions
 and norms exchange rows (the group norm's and the batch statistics' sums
 cross ranks), fmap2 is gathered (the volume's targets), the volume rows,
 the lookups and ``coords0`` are the rank's queries in global pixels, and
@@ -118,11 +119,14 @@ class RAFT(nn.Module):
 
     def _forward(self, image1, image2, iters, init_flow, train: bool,
                  generator):
-        B, H, W, _ = image1.shape
         dev = image1.device
         space = spatial.current()
-        if space is not None:
-            spatial.check_height(H * space.size, space.size)
+        if space is not None:   # the rank's real rows -> its strip
+            space = spatial.enter(image1.shape[1], dev)
+            image1, image2 = space.pad(image1, 1), space.pad(image2, 1)
+            if init_flow is not None:
+                init_flow = space.pad(init_flow, 1, 8)
+        B, H, W, _ = image1.shape
         gen = self.dropout_generator(generator) if train else None
         image1 = _nchw(2.0 * (image1 / 255.0) - 1.0).contiguous()
         image2 = _nchw(2.0 * (image2 / 255.0) - 1.0).contiguous()
@@ -157,4 +161,6 @@ class RAFT(nn.Module):
                 flow = coords1 - coords0
                 preds.append(upflow8(flow) if mask is None
                              else upsample_flow_convex(flow, _nhwc(mask)))
-        return torch.stack(preds) if train else preds[-1]
+        out = torch.stack(preds) if train else preds[-1]
+        # the rank's real rows of the flows
+        return out if space is None else space.crop(out, out.dim() - 3)

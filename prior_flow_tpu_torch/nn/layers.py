@@ -3,10 +3,11 @@
 
 Under a ``parallel.spatial.scope`` (height sharding) the convolutions pad
 their rows with the neighbouring ranks' (``Conv2d``), the instance and
-group norms sum their per-sample statistics over the space group, the
-batch-statistics BatchNorm its per-channel ones over every rank of the
-global batch, and the dropout draws are the whole image's
-(``draw_rows``); outside one nothing changes."""
+group norms sum their per-sample statistics over the real rows of the
+space group, the batch-statistics BatchNorm its per-channel ones over
+every rank of the global batch (also on a data-only mesh), and the
+dropout draws are the whole image's (``draw_rows``); outside one nothing
+changes."""
 
 from __future__ import annotations
 
@@ -73,28 +74,35 @@ def _affine(x, mean, var, eps, weight, bias):
     return ((x.float() - mean) * mul + bias.view(view)).to(x.dtype)
 
 
-def _fast_stats(xf, dims, batch: bool = False):
+def _fast_stats(xf, dims, batch: bool = False, groups: int = 0):
     """Flax's ``_compute_stats`` (``use_fast_variance``): the mean and the
     biased variance E[x^2] - E[x]^2, clamped at 0, over ``dims`` of the f32
-    ``xf``. Under a space scope ``xf`` holds a rank's rows: the sums of x
-    and x^2 are taken in f64, added up over the space group (with
-    ``batch``, over every rank of the global batch; ``spatial.summed``,
-    whose backward sums the cotangents over the same ranks) and rounded
-    to f32 once, and the moments follow in f32, as the instance norm's
-    sharded sums do (``ops/kernels/instance_norm.py``). The variance is
-    then the unsharded one's difference of two f32 moments: where the
-    mean is large against the spread, that difference cancels, and
-    variances taken in f64 moved the batch-statistics step's context
-    encoder gradients by ~1e-3 of their norm from the unsharded step's
-    (64x128 on the CPU)."""
-    space = spatial.current()
+    NCHW ``xf`` (with ``groups``, of its (N, groups, C / groups * H * W)
+    view). Under a space scope ``xf`` holds a rank's strip: the sums of x
+    and x^2 over its real rows are taken in f64, added up over the space
+    group (with ``batch``, over every rank of the global batch, and on a
+    data-only mesh over its data ranks; ``spatial.summed``, whose backward
+    sums the cotangents over the same ranks), rounded to f32 once and
+    divided by the whole image's pixel count, and the moments follow in
+    f32, as the instance norm's sharded sums do
+    (``ops/kernels/instance_norm.py``). The variance is then the
+    unsharded one's difference of two f32 moments: where the mean is
+    large against the spread, that difference cancels, and variances
+    taken in f64 moved the batch-statistics step's context encoder
+    gradients by ~1e-3 of their norm from the unsharded step's (64x128 on
+    the CPU)."""
+    view = ((lambda t: t.reshape(t.shape[0], groups, -1)) if groups
+            else (lambda t: t))
+    space = spatial.current(batch)
     if space is None:
+        xf = view(xf)
         mean = xf.mean(dim=dims)
         var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
         return mean, var
-    xd = xf.double()
-    n = math.prod(xf.shape[d] for d in dims) * space.size * (
-        space.data if batch else 1)
+    h = xf.shape[2]
+    xd = view(xf.narrow(2, 0, space.real(h)).double())
+    n = (math.prod(view(xf).shape[d] for d in dims) // h * space.whole(h)
+         * (space.data if batch else 1))
     s1, s2 = spatial.summed(torch.stack(
         [xd.sum(dim=dims), (xd * xd).sum(dim=dims)]), batch, space).float()
     mean = s1 / n
@@ -131,12 +139,13 @@ class BatchNorm(FrozenBatchNorm):
     ``0.9 * old + 0.1 * batch`` with that biased variance (torch's
     ``BatchNorm2d`` keeps the unbiased one). The running statistics are
     read by no call: they are what a later ``FrozenBatchNorm`` would use.
-    The same four state-dict keys as ``FrozenBatchNorm``. Height-sharded
-    (a ``spatial.scope``), the statistics are the global batch's, as JAX's
-    jitted apply on a ``P('data', 'space')`` batch computes them: summed
-    over the space group, and over the data ranks too on a mesh with a
-    data axis (``_fast_stats``); every rank then holds the same running
-    statistics."""
+    The same four state-dict keys as ``FrozenBatchNorm``. On a mesh (a
+    ``spatial.scope``: ``make_train_step(mesh=)`` enters one) the
+    statistics are the global batch's, as JAX's jitted apply on a
+    ``P('data', 'space')`` or ``P('data')`` batch computes them: summed
+    over the real rows of the space group, and over the data ranks too on
+    a mesh with a data axis (``_fast_stats``); every rank then holds the
+    same running statistics."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -159,8 +168,8 @@ class GroupNorm(nn.Module):
     and biased variance of each group of ``num_channels // num_groups``
     consecutive channels over (C/G, H, W), in f32, then the per-channel
     affine; x's dtype out. Keys ``weight`` and ``bias``, as torch's.
-    Height-sharded, each sample's statistics are summed over the space
-    group (``_fast_stats``)."""
+    Height-sharded, each sample's statistics are summed over the real rows
+    of the space group (``_fast_stats``)."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -174,7 +183,7 @@ class GroupNorm(nn.Module):
     def forward(self, x):
         N, C = x.shape[:2]
         G = self.num_groups
-        mean, var = _fast_stats(x.float().reshape(N, G, -1), (2,))
+        mean, var = _fast_stats(x.float(), (2,), groups=G)
         per_channel = lambda t: t.repeat_interleave(C // G, dim=1).view(
             N, C, 1, 1)
         return _affine(x, per_channel(mean), per_channel(var), self.eps,
@@ -185,7 +194,7 @@ class RankDraws(NamedTuple):
     """A generator whose batch-shaped draws are made at the global batch
     of a data-parallel mesh of ``world`` data ranks, of which this rank
     keeps its rows (``draw_rows``), and, on a space axis of ``space``
-    ranks, at the whole image's height, of which it keeps its height rows:
+    ranks, at the whole image's height, of which it keeps its strip:
     every rank then draws what one process training on the global batch
     would."""
 
@@ -202,19 +211,24 @@ def draw_rows(sampler, shape, generator, device, views: int = 1,
     ``torch.randn``) for a tensor whose dim 0 is ``views`` blocks of batch
     rows, view-major (the encoders' concatenated views), and whose dim
     ``hdim`` is the image height. With a ``RankDraws`` the draw is made
-    for ``views`` blocks of ``world`` times the rows, and ``space`` times
-    the height, and this rank's batch rows of each block and its height
-    rows are kept; with a plain generator (or one rank) it is the plain
+    for ``views`` blocks of ``world`` times the rows, and for the whole
+    image's height (``space`` strips of ``shape[hdim]`` rows, or under a
+    space scope with a height, ``Space.whole`` of them, padded to the
+    strips with zeros), and this rank's batch rows of each block and its
+    strip are kept; with a plain generator (or one rank) it is the plain
     draw."""
     if not isinstance(generator, RankDraws):
         return sampler(shape, generator=generator, device=device)
     g, rank, world, srank, space = generator
     shape = tuple(shape)
     per = shape[0] // views
+    h = shape[hdim]
+    scope = spatial.current()
     full = list(shape)
     full[0] = views * world * per
-    full[hdim] *= space
-    draw = sampler(tuple(full), generator=g, device=device)
+    full[hdim] = h * space if scope is None else scope.whole(h)
+    draw = spatial.pad_rows(sampler(tuple(full), generator=g, device=device),
+                            hdim, h * space)
     draw = draw.view(views, world, per, *shape[1:hdim], space,
                      *shape[hdim:])[:, rank]
     return draw.select(hdim + 1, srank).reshape(shape)

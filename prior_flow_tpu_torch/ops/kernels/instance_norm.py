@@ -96,10 +96,12 @@ class InstanceNormFunction(torch.autograd.Function):
     (``tests/test_torch_port_train.py::test_encoder_grads_near_float64``).
 
     Under a ``parallel.spatial.scope`` (height sharding) the kernel sums
-    the rank's rows into f64 (the wrapper, not the op: the sharded path is
-    not exported); the forward's and the backward's two sums are then
+    the real rows of the rank's strip into f64 (the wrapper, not the op:
+    the sharded path is not exported; a strip with pad rows is cut to its
+    real rows first); the forward's and the backward's two sums are then
     added up over the space group in f64, rounded to f32 once, as the
-    unsharded sums are, and divided by the whole image's H * W. With
+    unsharded sums are, and divided by the whole image's H * W. The
+    input gradient of the pad rows is zero: no real output reads them. With
     partial sums rounded to f32 first, the feature encoder's gradients
     missed the unsharded ones by more than
     ``tests/test_torch_port_space.py`` allows: the partial sums of
@@ -134,16 +136,25 @@ class InstanceNormFunction(torch.autograd.Function):
             d1, d2, n = _over_space(xhat, dyf, n, ctx.space)
         dx = a * (dyf - (d1 / n)[:, :, None, None]
                   - xhat * (d2 / n)[:, :, None, None])
+        if ctx.space is not None:   # no real row reads a pad row
+            dx = spatial.pad_rows(ctx.space.crop(dx, 2), 2, x.shape[2])
         return dx.to(x.dtype), None, None
 
 
 def _over_space(x, y, n: int, space):
-    """The kernel's f64 sums of y and x*y over a rank's rows, added up over
-    the space group in f64 and rounded to f32, and the whole image's pixel
-    count."""
-    both = torch.stack(instance_norm_sums(x, y, torch.float64))
+    """The kernel's f64 sums of y and x*y over the real rows of a rank's
+    strip (none where it is all padding), added up over the space group
+    in f64 and rounded to f32, and the whole image's pixel count."""
+    h = x.shape[2]
+    r = space.real(h)
+    if r:
+        if r < h:
+            x, y = (t.narrow(2, 0, r).contiguous() for t in (x, y))
+        both = torch.stack(instance_norm_sums(x, y, torch.float64))
+    else:
+        both = x.new_zeros((2, *x.shape[:2]), dtype=torch.float64)
     both = spatial.sum_over_space(both, space).float()
-    return both[0], both[1], n * space.size
+    return both[0], both[1], n // h * space.whole(h)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, out_dtype=None):

@@ -10,9 +10,9 @@ transpose is a scatter-add with the same weights), and
 ``apply_transpose`` does for the taped backward.
 
 Under a ``parallel.spatial.scope`` (height sharding) ``resample_static``
-takes this rank's rows of ``img`` and returns its rows of the result: the
-whole image gathered (``spatial.gather_rows``), sampled at the rank's rows
-of the grid (the back-rotation of ``ops.corr.DCCLFused._finish``, the
+takes this rank's strip of ``img`` and returns its strip of the result:
+the whole image gathered (``spatial.gather_rows``), sampled at the rank's
+strip of the grid (the back-rotation of ``ops.corr.DCCLFused._finish``, the
 second resample of ``ops.warp.flo_rotate``).
 """
 
@@ -51,7 +51,7 @@ def resample_static_transpose(ct: torch.Tensor, grid: torch.Tensor,
     apply_transpose``): the cotangent ``ct`` (B, H2, W2, C) of the resample's
     output -> the cotangent (B, H, W, C) of its input, ``src_hw = (H, W)``.
     Computed as ``torch.autograd.grad`` of the gathers. Under a space
-    scope ``ct`` and ``src_hw`` are the rank's rows, and this is the
+    scope ``ct`` and ``src_hw`` are the rank's strip, and this is the
     transpose of the sharded resample: each rank scatters its rows'
     cotangent into the whole image, and ``spatial.gather_rows``' backward
     sums those over the ranks and hands each its rows (a collective: every

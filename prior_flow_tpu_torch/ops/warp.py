@@ -7,10 +7,10 @@ and copy them to the input's device.
 
 Under a ``parallel.spatial.scope`` (height sharding) ``img_rotate``,
 ``flo_rotate`` (and so ``flo_a2b``), ``cycle_warp`` and ``upflow8`` take
-this rank's rows of their input and return its rows of the result: each
-gathers the rows its samples read (``spatial.gather_rows``) and samples
-at the rank's rows of the whole grid (or of its own flow, or of the
-resize's output); pixel coordinates stay global.
+this rank's strip of their input and return its strip of the result:
+each gathers the rows its samples read (``spatial.gather_rows``, without
+pad rows) and samples at the rank's strip of the whole grid (or of its
+own flow, or of the resize's output); pixel coordinates stay global.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def _identity(H: int, W: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def _grid_rows(grid: torch.Tensor, space) -> torch.Tensor:
-    """The rank's rows of a whole (H, W, 2) or (B, H, W, 2) grid."""
+    """The rank's strip of a whole (H, W, 2) or (B, H, W, 2) grid."""
     return spatial.rows(grid, space, dim=grid.dim() - 3)
 
 
@@ -79,9 +79,9 @@ def flo_rotate(flow: torch.Tensor, sample_grid_w2c: torch.Tensor,
     space = spatial.current()
     if space is None:
         start, w2c_here = _identity(H, W, flow), w2c
-    else:   # the endpoints of this rank's rows, in global pixels
+    else:   # the endpoints of this rank's strip, in global pixels
         start = spatial.identity_rows(H, W, flow.device, space)[None]
-        H *= space.size
+        H = space.whole(H)
         w2c_here = _grid_rows(w2c, space)
     end_w = erp.flow_to_endpoint(start, flow, H, W)
     end_c = cycle_grid_sample(w2c, end_w, is_grid=True)
@@ -99,7 +99,7 @@ def flo_a2b(flow: torch.Tensor, g: grids.RotationGrids = None) -> torch.Tensor:
     image's); without it the grids are copied there."""
     if g is None:
         space = spatial.current()
-        H = flow.shape[1] * (1 if space is None else space.size)
+        H = flow.shape[1] if space is None else space.whole(flow.shape[1])
         g = grids.rotation_grids(H, flow.shape[2]).to_device(flow.device)
     return flo_rotate(flow, g.a2b_w2c, g.a2b)
 
@@ -228,17 +228,19 @@ def _resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int,
 def upflow8(flow: torch.Tensor) -> torch.Tensor:
     """8x bilinear upsample of a flow with 8x magnitude
     (``prior_flow_tpu/ops/warp.py:243``). Under a space scope ``flow``
-    holds the rank's rows and so does the result: each output row reads
+    holds the rank's strip and so does the result: each output row reads
     input rows at the whole image's ratio (H - 1) / (8 H - 1), so the
-    whole flow is gathered and only the rank's output rows sampled."""
+    whole flow is gathered and only the real rows of the rank's output
+    strip sampled (its pad rows zero)."""
     H, W = flow.shape[1], flow.shape[2]
     space = spatial.current()
     if space is None:
         return 8.0 * _resize_bilinear_align_corners(flow, 8 * H, 8 * W)
     whole = spatial.gather_rows(flow, 1, space)
-    mine = slice(space.rank * 8 * H, (space.rank + 1) * 8 * H)
-    return 8.0 * _resize_bilinear_align_corners(
-        whole, 8 * H * space.size, 8 * W, mine)
+    first = space.rank * 8 * H
+    mine = slice(first, first + 8 * space.real(H))
+    return spatial.pad_rows(8.0 * _resize_bilinear_align_corners(
+        whole, 8 * whole.shape[1], 8 * W, mine), 1, 8 * H)
 
 
 def downflow8(flow: torch.Tensor) -> torch.Tensor:

@@ -100,6 +100,11 @@ class RankShare(Mesh):
     def barrier(self) -> None:
         pass
 
+    @property
+    def step_space(self):
+        # no collectives: the batch statistics stay the rank's
+        return None
+
 
 def synthetic_batch(seed: int, b: int, h: int, w: int):
     """A seeded global batch: images uniform in [0, 255], flow N(0, 3^2)
@@ -241,7 +246,7 @@ def forward_rows(mesh, jobs, seed: int = 0, runs: int = 1,
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
         times = []
-        with spatial.scope(mesh.space):
+        with spatial.scope(mesh.step_space):
             for k in range(max(runs, 1)):
                 reset_launch_counts()
                 t0 = time.perf_counter()

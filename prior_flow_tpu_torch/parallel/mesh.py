@@ -48,7 +48,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .spatial import Space, check_height, rows
+from .spatial import Space, check_height, shard_rows
 
 # covers a rank-0 validation or checkpoint write while the other ranks
 # wait in the next collective
@@ -73,6 +73,17 @@ class Mesh:
     shape: dict = field(default_factory=dict)
     space: Optional[Space] = None
     data_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def step_space(self) -> Optional[Space]:
+        """The ``spatial.Space`` a training step runs under: ``space``
+        where S > 1; on a data-only mesh of several ranks one of a single
+        height slice, which shards nothing and sums the batch-statistics
+        BatchNorm's statistics over every rank (JAX's jitted apply on a
+        ``P('data')`` batch); else None."""
+        if self.space is not None or self.data_size == 1:
+            return self.space
+        return Space(None, 0, 1, self.backend, self.data_size, self.group)
 
     @property
     def space_size(self) -> int:
@@ -243,15 +254,17 @@ def batch_sharding(mesh: Mesh, axis: str = "data"):
 
 
 def height_sharding(mesh: Mesh):
-    """``x -> `` this rank's height rows of dim 1 (images (B, H, W, 3),
-    flows (B, H, W, 2), valid masks (B, H, W)) on a mesh with S > 1, else
-    ``x``; raises where H / 8 does not divide by S."""
+    """``x -> `` this rank's real height rows of dim 1 (images (B, H, W,
+    3), flows (B, H, W, 2), valid masks (B, H, W)) on a mesh with S > 1
+    (``spatial.shard_rows``: the strips of 8 * ceil(H / (8 S)) rows, the
+    last ones short or empty), else ``x``; raises where JAX would: H not
+    a multiple of 8 or of S (``spatial.check_height``)."""
     if mesh.space is None:
         return lambda x: x
 
     def shard(x):
         check_height(x.shape[1], mesh.space_size)
-        return rows(x, mesh.space, dim=1)
+        return shard_rows(x, mesh.space, dim=1)
 
     return shard
 

@@ -22,6 +22,23 @@ kernels and how many of them are bf16 or TF32 by name.
         [--size 512 1024] [--iters 1 12] [--seeds 0 1] [--profile] \\
         [--out DIR]
 
+``--pieces`` reads instead where the bf16 package departs: the
+forward's two pieces, compiled alone as bf16 AOTInductor packages (the
+weights an input, as in the whole package), each held to bf16 eager on
+the same inputs: the encoders (normalisation, the orthogonal view, both
+encoders: ``PriOrRAFT.encode``) on the seeded pair, and one test-mode
+GRU iteration (``PriOrRAFT._step`` with its lookup and branch A's mask
+head) on bf16 eager's encoder outputs and pyramids at the first
+iteration's coords; ``--pieces cnet fnet cnet_stem fnet_stem`` the
+encoders' parts on the four views. Each output's reading is max
+|package - bf16 eager| over the output's scale, beside max |fp32 eager
+- bf16 eager| (the distance one step up in precision, on the same
+inputs).
+
+    python -m prior_flow_tpu_torch.tools.serving_precision --pieces \
+        [encode step cnet fnet cnet_stem fnet_stem] [--size 512 1024] \
+        [--seeds 0]
+
 AOTInductor links a package with ``-fopenmp``: ``$CXX`` must link OpenMP.
 One JSON line at the end; every kernel of each profile goes to
 ``DIR/serving_precision_profile.txt``.
@@ -38,7 +55,7 @@ import time
 
 import torch
 
-from ..models import build_model
+from ..models import build_model, precision_scope
 from ..serving import aot_compile
 from ..serving.export import CompiledForward
 from ._timing import nvidia_smi
@@ -82,6 +99,184 @@ def compile_one(path: str, tag: str, iters: int, emulate: bool, h: int,
     aot_compile(model, model.state_dict(), (1, h, w), iters,
                 package_path=path, device=dev)
     print(json.dumps({"compile_s": time.perf_counter() - t0}))
+
+
+PIECES = ("encode", "step")
+# the encoders' parts, on the four views (the normalised images and the
+# orthogonal view): each encoder, and each encoder's stem (7x7/2
+# convolution, norm, ReLU)
+ENCODER_PARTS = ("cnet", "fnet", "cnet_stem", "fnet_stem")
+# each piece's outputs; the step's coords are read as flows
+OUTPUTS = {"encode": ("net_A", "net_B", "inp_A", "inp_B", "fmap1_A",
+                      "fmap2_A", "fmap1_B", "fmap2_B"),
+           "step": ("net_A", "net_B", "flow_A", "flow_B", "mask_A"),
+           "cnet": ("cnet_A", "cnet_B"),
+           "fnet": ("fmap1_A", "fmap2_A", "fmap1_B", "fmap2_B"),
+           "cnet_stem": ("stem",), "fnet_stem": ("stem",)}
+
+
+class _Call(torch.nn.Module):
+    """``model``'s piece ``piece`` as this module's forward (the model a
+    submodule, so that ``functional_call`` swaps its weights)."""
+
+    def __init__(self, model, piece: str, h: int, w: int):
+        super().__init__()
+        self.model, self.piece, self.hw = model, piece, (h, w)
+
+    def forward(self, *inputs):
+        from ..geometry.grids import identity_grid_on
+        from ..models.prior_raft import StepConsts
+        model = self.model
+        dev = inputs[0].device
+        g = model.rotation_grids(*self.hw, dev)
+        if self.piece == "encode":
+            net_A, net_B, inp_A, inp_B, fmaps = model.encode(*inputs, g)
+            return (net_A, net_B, inp_A, inp_B, *fmaps)
+        if self.piece in ENCODER_PARTS:
+            enc = model.cnet if self.piece.startswith("c") else model.fnet
+            views = list(inputs[0::2] if enc is model.cnet else inputs)
+            with model._autocast(dev):
+                if self.piece.endswith("_stem"):
+                    x = torch.cat(views, dim=0)
+                    return (torch.relu(enc.norm1(enc.conv1(x))),)
+                return tuple(enc(views))
+        net_A, net_B, inp_A, inp_B, fmap1_A, fmap2_A, c_A, c_B = inputs[:8]
+        pyr = inputs[8:]
+        pyr_A, pyr_B = pyr[:len(pyr) // 2], pyr[len(pyr) // 2:]
+        B, h8, w8, _ = c_A.shape
+        coords0 = identity_grid_on(h8, w8, dev).expand(B, h8, w8, 2)
+        k = StepConsts(inp_A, inp_B, fmap1_A, fmap2_A, coords0, g)
+
+        def corr_fn(a, b):
+            own_A, cross_A, own_B, cross_B = model.dccl(
+                a, b, pyr_A, pyr_B, g.a2b_w2c_8, g.b2a_w2c_8, g.a2b_8,
+                g.b2a_8)
+            return own_A + cross_A, own_B + cross_B
+
+        return model._step(net_A, net_B, c_A, c_B, k, corr_fn, mask_A=True,
+                           mask_B=False, upsample=False)[:5]
+
+
+class _Piece(torch.nn.Module):
+    """``_Call`` as a function of (state, inputs), the weights an input as
+    in ``serving.export.make_forward``; the model stays outside this
+    module's tree."""
+
+    def __init__(self, model, piece: str, h: int, w: int):
+        super().__init__()
+        self._call = [_Call(model, piece, h, w)]
+        self._names = {n for n, _ in model.named_parameters()} | {
+            n for n, _ in model.named_buffers()}
+
+    def forward(self, state, inputs):
+        weights = {f"model.{k}": v for k, v in state.items()
+                   if k in self._names}
+        return torch.func.functional_call(self._call[0], weights, inputs,
+                                          tie_weights=False)
+
+
+def piece_inputs(piece: str, model, h: int, w: int, dev) -> tuple:
+    """The inputs of ``piece`` under ``model`` (bf16 eager): the seeded pair
+    for the encoders; for the step the encoders' outputs, both pyramids
+    and the first iteration's coords."""
+    from ..geometry.grids import identity_grid_on
+    images = _images(h, w, dev)
+    if piece == "encode":
+        return images
+    if piece in ENCODER_PARTS:   # PriOrRAFT.encode's views
+        from ..ops.warp import img_rotate
+        a = [2.0 * (t / 255.0) - 1.0 for t in images]
+        with torch.no_grad():
+            b = img_rotate(torch.cat(a, dim=-1),
+                           model.rotation_grids(h, w, dev).a2b)
+        return tuple(v.permute(0, 3, 1, 2).contiguous()
+                     for v in (a[0], a[1], b[..., :3], b[..., 3:]))
+    with precision_scope(model.precision), torch.no_grad():
+        enc = model.encode(*images, model.rotation_grids(h, w, dev))
+        pyr_A, pyr_B = model.build_pyramids(enc[4])
+    fmap1_A, fmap2_A = enc[4][:2]
+    coords0 = identity_grid_on(h // 8, w // 8, dev).expand(1, h // 8, w // 8,
+                                                             2).contiguous()
+    return (*enc[:4], fmap1_A, fmap2_A, coords0, coords0.clone(), *pyr_A,
+            *pyr_B)
+
+
+def run_piece(piece: str, model, inputs, h: int, w: int):
+    """``piece`` of eager ``model`` on ``inputs``; a tuple of tensors."""
+    with precision_scope(model.precision), torch.no_grad():
+        return tuple(_Call(model, piece, h, w)(*inputs))
+
+
+def compile_piece(path: str, piece: str, h: int, w: int, dev,
+                  configs: dict) -> None:
+    """Compiles the bf16 package of one piece (in a process of its own),
+    Inductor's settings the package's with ``configs`` over them."""
+    from ..serving.export import INDUCTOR_CONFIGS
+    model = eager_model("bf16", 0, dev)
+    inputs = piece_inputs(piece, model, h, w, dev)
+    state = {k: torch.empty_like(v) for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    with torch.no_grad():   # as the test-mode forward runs
+        exported = torch.export.export(_Piece(model, piece, h, w),
+                                       (state, inputs), strict=False)
+    torch._inductor.aoti_compile_and_package(
+        exported, package_path=path,
+        inductor_configs={**INDUCTOR_CONFIGS, **configs})
+    print(json.dumps({"compile_s": time.perf_counter() - t0}))
+
+
+def pieces(args, dev) -> dict:
+    """``--pieces``: each piece's package against bf16 eager."""
+    h, w = args.size
+    procs = {}
+    t0 = time.perf_counter()
+    for piece in args.pieces or PIECES:
+        path = os.path.abspath(os.path.join(args.out, f"piece_{piece}.pt2"))
+        procs[piece] = (path, subprocess.Popen(
+            [sys.executable, "-m", __spec__.name, "--size", str(h), str(w),
+             "--device", args.device, "--compile-piece", path, piece,
+             *(f"--inductor={kv}" for kv in args.inductor)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    out = {}
+    try:
+        for piece, (path, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=3000)
+            if proc.returncode != 0:
+                raise SystemExit(f"piece {piece} failed to compile:\n"
+                                 f"{stderr[-3000:]}")
+            compile_s = json.loads(stdout.strip().splitlines()[-1])[
+                "compile_s"]
+            runner = torch._inductor.aoti_load_package(path)
+            for seed in args.seeds:
+                bf16 = eager_model("bf16", seed, dev)
+                fp32 = eager_model("fp32", seed, dev)
+                inputs = piece_inputs(piece, bf16, h, w, dev)
+                want = run_piece(piece, bf16, inputs, h, w)
+                up = run_piece(piece, fp32, tuple(
+                    t.float() for t in inputs), h, w)
+                with precision_scope(bf16.precision), torch.no_grad():
+                    got = runner(bf16.state_dict(), inputs)
+                rows = {}
+                for name, g, e, u in zip(OUTPUTS[piece], got, want, up):
+                    g, e, u = g.float(), e.float(), u.float()
+                    if piece == "step" and name.startswith("flow"):
+                        # coords minus coords0
+                        g, e, u = (t - inputs[6] for t in (g, e, u))
+                    d = ratio(u, e)
+                    rows[name] = dict(package=ratio(g, e), fp32=d,
+                                      of_step=ratio(g, e) / max(d, 1e-30))
+                out[f"{piece}_seed{seed}"] = dict(outputs=rows,
+                                                  compile_s=compile_s)
+                print(f"piece {piece} seed {seed} (compiled in "
+                      f"{compile_s:.1f} s): " + json.dumps(rows), flush=True)
+            del runner
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["s"] = time.perf_counter() - t0
+    return out
 
 
 def ratio(a, b) -> float:
@@ -153,14 +348,31 @@ def main(argv=None) -> None:
                     help="cpu: a dry run of the tool at a small --size")
     ap.add_argument("--out", default=os.path.join("build",
                                                   "serving_precision"))
+    ap.add_argument("--pieces", nargs="*", default=None,
+                    choices=PIECES + ENCODER_PARTS,
+                    help="pieces of the forward as bf16 packages of their "
+                    "own, each against bf16 eager (default: the encoders "
+                    "and one iteration)")
+    ap.add_argument("--inductor", action="append", default=[],
+                    metavar="NAME=VALUE",
+                    help="with --pieces: an Inductor setting over the "
+                    "package's (e.g. layout_optimization=False)")
     ap.add_argument("--compile", nargs=4, metavar=("PATH", "TAG", "ITERS",
                                                    "EMULATE"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--compile-piece", nargs=2, metavar=("PATH", "PIECE"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     h, w = args.size
     if args.compile:
         path, tag, iters, emulate = args.compile
         compile_one(path, tag, int(iters), emulate == "1", h, w, args.device)
+        return
+    if args.compile_piece:
+        configs = {k: json.loads(v.lower()) if v.lower() in (
+            "true", "false") else json.loads(v) for k, v in (
+            kv.split("=", 1) for kv in args.inductor)}
+        compile_piece(*args.compile_piece, h, w, args.device, configs)
         return
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -171,6 +383,13 @@ def main(argv=None) -> None:
     if dev.type == "cuda":   # the kernels, built once before the compiles
         from ..ops.kernels import _build
         _build.load_library()
+    if args.pieces is not None:
+        out = pieces(args, dev)
+        if dev.type == "cuda":
+            print(nvidia_smi("name,power.limit"))
+        print(json.dumps({"size": [h, w], "inductor": args.inductor,
+                          "pieces": out}))
+        return
     todo = variants(*args.iters)
     t_compile = time.perf_counter()
     procs = {}

@@ -38,15 +38,16 @@ def sequence_loss_sums(flow_preds, flow_gt, valid, gamma: float = 0.8,
     "1px" / "3px" / "5px": int64 counts, "valid": int64}``, which sum over
     the ranks of a data-parallel step (``parallel.all_reduce_sums``).
     Under a ``parallel.spatial.scope`` (height sharding) the inputs are
-    this rank's rows and the pixel weights are its rows of the whole
-    image's mask."""
+    this rank's real rows (the model's outputs cut to them) and the pixel
+    weights are its rows of the whole image's mask (``Space.height``
+    rows, set by the forward or the step)."""
     n, _, H, W, _ = flow_preds.shape
     space = spatial.current()
     if space is None:
         mask = spherical_mask(H, W)
     else:
-        mask = spherical_mask(H * space.size, W)[
-            space.rank * H:(space.rank + 1) * H]
+        first = space.rank * space.strip
+        mask = spherical_mask(space.height, W)[first:first + H]
     weights = torch.from_numpy(mask.copy()).to(flow_preds.device)[None]
     mag = torch.sqrt(torch.sum(flow_gt ** 2, dim=-1))
     valid = (valid >= 0.5) & (mag < max_flow)

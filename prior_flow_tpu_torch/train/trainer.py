@@ -152,14 +152,16 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
     ``DCCLFused.record`` (the JAX CLI pins ``pallas`` for the taped mode,
     ``prior_flow_tpu/cli/train.py:116-121``).
 
-    Height-sharded (a ``spatial.scope``: the images hold the rank's
-    rows), each fmap2 is gathered in (a)'s graph and the whole image's
-    becomes the leaf, so (b) and (c) read it as the sharded forward
-    does, and (e) reduce-scatters its cotangent back through the gather
-    into the encoder. The recorded centres are global pixels of the
-    rank's queries; (d)'s transposed back-rotation is the transpose of
-    the sharded ``resample_static`` (``resample_static_transpose`` at the
-    rank's rows) and its scatters write the rank's rows of each volume.
+    Height-sharded (a ``spatial.scope``: the images hold the rank's real
+    rows, padded here to its strip, and the flows are cut back to them
+    before the loss), each fmap2 is gathered in (a)'s graph and the
+    whole image's becomes the leaf, so (b) and (c) read it as the
+    sharded forward does, and (e) reduce-scatters its cotangent back
+    through the gather into the encoder. The recorded centres are global
+    pixels of the rank's queries; (d)'s transposed back-rotation is the
+    transpose of the sharded ``resample_static``
+    (``resample_static_transpose`` at the rank's strip) and its scatters
+    write the rank's rows of each volume.
     Every rank issues the same collectives in the same order: each stage
     runs on every rank, and each backward walks the same graph.
     """
@@ -171,9 +173,10 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
                          f"{model.lookup_mode!r}")
     B, H, W, _ = image1.shape
     space = spatial.current()
-    if space is not None:
-        spatial.check_height(H * space.size, space.size)
-        H *= space.size
+    if space is not None:   # the rank's real rows -> its strip
+        space = spatial.enter(H, image1.device)
+        H = space.height
+        image1, image2 = space.pad(image1, 1), space.pad(image2, 1)
     g = model.rotation_grids(H, W, image1.device)
     enc = model.encode(image1, image2, g,
                        model.dropout_generator(generator))       # (a)
@@ -189,6 +192,8 @@ def taped_value_and_grad(model, image1, image2, flow_gt, valid, flow_gt_B,
     (preds_A, preds_B), (fields_A, fields_B), (cen_A, cen_B) = \
         model.iterate_taped(net_A, net_B, inp_A, inp_B, fmaps[0], fmaps[1],
                             pyr_A, pyr_B, iters)                  # (c)
+    if space is not None:   # the rank's real rows of the flows
+        preds_A, preds_B = space.crop(preds_A, 2), space.crop(preds_B, 2)
     loss, metrics = dual_loss(preds_A, preds_B, flow_gt, valid, flow_gt_B,
                               valid_B, gamma, mesh)
     loss.backward()
@@ -229,13 +234,17 @@ def make_train_step(model, optimizer, schedule: Callable[[int], float],
     and ``train/loss`` and the metrics are the global batch's. Every rank
     then takes the same update. A clip of ``inf`` leaves ``.grad`` as the
     gradients before the clip. On a mesh with a space axis (S > 1) the
-    batch holds this rank's height rows too, and the step (the B ground
-    truth, the draws, the forward, the loss and the backward, in either
-    grad mode) runs height-sharded over the rank's space group; the sums
-    stay over all ranks."""
+    batch holds this rank's real height rows too (any height JAX shards,
+    ``parallel.height_sharding``), and the step (the B ground truth, the
+    draws, the forward, the loss and the backward, in either grad mode)
+    runs height-sharded over the rank's space group; the sums stay over
+    all ranks. On a data-only mesh of several ranks the step runs in a
+    scope of one height slice (``Mesh.step_space``): nothing is sharded,
+    but a batch-statistics BatchNorm normalises by the global batch's
+    statistics, as JAX's jitted step on a ``P('data')`` batch does."""
     if grad_mode not in ("standard", "taped"):
         raise ValueError(f"unknown grad_mode {grad_mode!r}")
-    space = None if mesh is None else mesh.space
+    space = None if mesh is None else mesh.step_space
     params = [p for p in model.parameters() if p.requires_grad]
 
     def draws(generator):
@@ -250,18 +259,27 @@ def make_train_step(model, optimizer, schedule: Callable[[int], float],
     def sharded_step(batch, step: int) -> Dict[str, torch.Tensor]:
         image1, image2, flow_gt, valid = batch
         dev = flow_gt.device
-        H = flow_gt.shape[1] * (1 if space is None else space.size)
+        H = flow_gt.shape[1]
+        # the rank's real rows <-> its strip (the identity unsharded)
+        pad = crop = lambda t: t
+        sp = spatial.current()
+        if sp is not None:
+            sp = spatial.enter(H, dev)
+            H = sp.height
+            pad, crop = (lambda t: sp.pad(t, 1)), (lambda t: sp.crop(t, 1))
         g = model.rotation_grids(H, flow_gt.shape[2], dev)
         with torch.no_grad():
-            flow_gt_B = torch.cat([flo_a2b(flow_gt[i:i + 1], g)
-                                   for i in range(flow_gt.shape[0])])
+            strips = pad(flow_gt)
+            flow_gt_B = crop(torch.cat([flo_a2b(strips[i:i + 1], g)
+                                        for i in range(flow_gt.shape[0])]))
             valid_B = ((flow_gt_B[..., 0].abs() < 1000)
                        & (flow_gt_B[..., 1].abs() < 1000)).float()
             if noise:
-                image1, image2 = add_noise(
-                    image1, image2, *draw_noise(
-                        image1, draws(step_generator(seed, step, NOISE,
-                                                     dev))))
+                stdv, noise1, noise2 = draw_noise(
+                    pad(image1), draws(step_generator(seed, step, NOISE,
+                                                      dev)))
+                image1, image2 = add_noise(image1, image2, stdv,
+                                           crop(noise1), crop(noise2))
         gen = (draws(step_generator(seed, step, DROPOUT, dev))
                if model.dropout > 0 else None)
         optimizer.zero_grad(set_to_none=True)
@@ -492,8 +510,10 @@ class Trainer:
         image1, image2, flow_gt = batch[0][:1], batch[1][:1], batch[2][:1]
         space = None if self.mesh is None else self.mesh.space
         if space is not None:
-            image1, image2, flow_gt = (spatial.gather_rows(t, 1, space)
-                                       for t in (image1, image2, flow_gt))
+            space = spatial.geometry(space, image1.shape[1], image1.device)
+            image1, image2, flow_gt = (
+                spatial.gather_rows(space.pad(t, 1), 1, space)
+                for t in (image1, image2, flow_gt))
         if not (self.is_main and hasattr(self.logger, "log_images")):
             return
         self.model.eval()

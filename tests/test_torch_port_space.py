@@ -29,6 +29,7 @@ module, which imports nothing of JAX.
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import math
 
@@ -393,19 +394,49 @@ def _space(size: int = 2):
     return spatial.Space(None, 0, size, "gloo")
 
 
+@dataclasses.dataclass(frozen=True)
+class _Counts(spatial.Space):
+    """A ``Space`` over no process group whose exchange hands back
+    ``counts``, as if its ranks held that many rows each."""
+
+    counts: tuple = ()
+
+    def gather_stack(self, x):
+        return torch.tensor(self.counts, dtype=x.dtype).view(-1, *x.shape)
+
+
+def _space_mesh(size: int, rank: int = 0):
+    return pmesh.Mesh(None, rank, size, torch.device("cpu"), "gloo",
+                      ("data", "space"), {"data": 1, "space": size},
+                      space=spatial.Space(None, rank, size, "gloo"))
+
+
 def test_height_must_split_into_whole_eighth_rows():
-    """H / 8 % S != 0 raises, in ``spatial_batch_sharding`` and in the
-    model's sharded forward."""
-    mesh = pmesh.Mesh(None, 0, 2, torch.device("cpu"), "gloo",
-                      ("data", "space"), {"data": 1, "space": 2},
-                      space=_space())
-    images = dryrun.synthetic_batch(0, 1, 72, HW[1])[:2]
-    with pytest.raises(ValueError, match=r"H / 8 % S == 0"):
-        pmesh.spatial_batch_sharding(mesh)(images[0])
-    rows = [t[:, :36] for t in images]
-    with spatial.scope(_space()), pytest.raises(ValueError,
-                                                match=r"H / 8 % S == 0"):
-        build_model("cpu")(*rows, iters=1)
+    """What JAX refuses still raises, with JAX's reason, in
+    ``spatial_batch_sharding`` and in the model's sharded forward: H not a
+    multiple of 8 (74 rows over S = 2), which the unsharded model needs,
+    and H not a multiple of S (80 rows over S = 3), which
+    ``jax.device_put`` needs of ``P('data', 'space')``; the forward also
+    refuses rows that are not the strips' (36 + 36 of 72). An uneven H / 8
+    shards: 72 rows over S = 2 are 40 + 32."""
+    for H, S, reason in ((74, 2, r"not a multiple of 8"),
+                         (80, 3, r"should be divisible by 3")):
+        images = dryrun.synthetic_batch(0, 1, H, HW[1])[:2]
+        with pytest.raises(ValueError, match=reason):
+            pmesh.spatial_batch_sharding(_space_mesh(S))(images[0])
+        counts = ((40, 34) if S == 2 else (32, 32, 16))
+        rows = [t[:, :counts[0]] for t in images]
+        with spatial.scope(_Counts(None, 0, S, "gloo", counts=counts)), \
+                pytest.raises(ValueError, match=reason):
+            build_model("cpu")(*rows, iters=1)
+    with spatial.scope(_Counts(None, 0, 2, "gloo", counts=(36, 36))), \
+            pytest.raises(ValueError, match=r"not its strips' \[40, 32\]"):
+        build_model("cpu")(*[torch.zeros(1, 36, HW[1], 3)] * 2, iters=1)
+    image = dryrun.synthetic_batch(0, 1, 72, HW[1])[0]
+    got = [pmesh.spatial_batch_sharding(_space_mesh(2, r))(image)
+           for r in (0, 1)]
+    assert [t.shape[1] for t in got] == [40, 32]
+    assert torch.equal(torch.cat(got, 1), image)
 
 
 def test_mesh_shape_flag():
