@@ -1,0 +1,2 @@
+"""Frozen plain PyTorch references of the benchmark's configurations.
+They import nothing of the program under test."""
